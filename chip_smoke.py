@@ -1,0 +1,372 @@
+#!/usr/bin/env python3
+"""
+Drive the PyTorch port (``fmdm_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed 0] [--batches 8,32]
+
+Run from the repository root on a machine with a CUDA card and ``nvcc``.
+Phases, each printing one or more lines:
+
+1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
+2. the build of every kernel from ``fmdm_tpu_torch/csrc`` with ``nvcc``;
+3. K1 (fused GroupNorm+SiLU) against its plain version at the flagship's
+   shapes, f32 and bf16, SiLU on/off, FiLM on/off, and its timings;
+4. K2 (small-T attention) against its plain version, and its timings;
+5. the full-width flagship forward (batch 1, f32, TF32 off) on the card
+   through K1 and K2, against the same module on the CPU's plain path, and
+   the kernels' launch counts per forward;
+6. the first 3 steps of that sample in f32 at batch 1 through
+   ``SamplingEngine``, on the card against the CPU plain path;
+7. the 50-step DPM-Solver++ (order 2) sample at 256² in bf16 through
+   ``SamplingEngine``: finite output, launch counts, seconds and denoise
+   steps/s;
+8. a ``{"kernels": [...]}`` line, then the result line
+   ``{"ok": true, "device": {...}}``.
+
+The flagship is ``model.unet`` of ``configs/LDCT/LDCT_ddpm_diffusers_nd.json``
+with concatenate conditioning and random weights drawn from ``--seed``. Any
+failed check raises, and the script then exits non-zero without a result
+line; so does a machine without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO_ROOT = Path(__file__).resolve().parent
+CONFIG = REPO_ROOT / "configs" / "LDCT" / "LDCT_ddpm_diffusers_nd.json"
+
+# H100 SXM, NVIDIA data sheet (dense): HBM rate and peak operation rates
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12    # bf16 tensor cores
+
+SPIN_CYCLES = 100_000_000  # ~60 ms at the H100's clocks: longer than queuing 20 calls
+
+NUM_STEPS = 50
+K1_PER_FORWARD = 64  # 32 ResBlocks x 2 GroupNorm+SiLU
+K2_PER_FORWARD = 6   # 5 attentions at 16², 1 at 8²
+
+
+def log(msg: str = "") -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back runs, from CUDA
+    events. A spin kernel holds the card while the host queues the runs, so
+    a small kernel is timed on the device and not at the host's launch rate."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 20) -> float:
+    """Mean host time of one call of ``fn`` (validation, allocation, launch),
+    measured while a spin kernel keeps the card busy so no call waits on it."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return elapsed / iters * 1e6
+
+
+def bound_ms(bytes_moved: float, ops: float, ops_per_s: float):
+    """Least time for the work on this card, and what sets it."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err(got, ref) -> float:
+    return float((got.float() - ref.float()).abs().max())
+
+
+def check_close(what: str, got, ref, rtol: float, atol: float) -> float:
+    import torch
+
+    err = max_err(got, ref)
+    ok = bool(torch.all((got.float() - ref.float()).abs() <= atol + rtol * ref.float().abs()))
+    log(f"  {what}: max_abs_err {err:.3e} (tolerance {atol:g} + {rtol:g}*|ref|) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: kernel disagrees with its plain version (max_abs_err {err})")
+    return err
+
+
+# Tolerances, kernel vs plain version on the same inputs. f32: the sums run
+# in another order (split reduction, per-thread dot products), a few f32 ulps.
+# bf16: both round nearly the same f32 value, so they may differ by one bf16
+# ulp (2^-8 relative) of the output.
+TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2.0 ** -7, 2e-3)}
+
+
+def phase_k1(torch, card: str, gen, main_batch: int) -> dict:
+    from fmdm_tpu_torch.ops.kernels.group_norm import K1, group_norm_act, group_norm_act_reference
+
+    log("[3] K1 group_norm_act vs its plain version")
+    groups, eps = 32, 1e-5
+    # the flagship's largest call, a skip concatenation at 256² and at 8²; then
+    # off-path shapes: 7x7 takes the one-element-per-load path, f32 weights
+    # with bf16 activations the mixed instantiation
+    cases = [((2, 128, 256, 256), act, film, None) for act in (True, False) for film in (False, True)]
+    cases += [((2, 256, 256, 256), True, False, None), ((2, 1024, 8, 8), True, True, None),
+              ((3, 96, 7, 7), True, True, None), ((2, 64, 32, 32), True, False, torch.float32)]
+    worst = 0.0
+    for shape, act, film, w_dtype in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            n, c = shape[:2]
+            x = torch.randn(shape, generator=gen).to("cuda", dtype)
+            w = (1 + 0.1 * torch.randn(c, generator=gen)).to("cuda", w_dtype or dtype)
+            b = (0.1 * torch.randn(c, generator=gen)).to("cuda", w_dtype or dtype)
+            s = (0.2 * torch.randn(n, c, generator=gen)).to("cuda", dtype) if film else None
+            t = (0.2 * torch.randn(n, c, generator=gen)).to("cuda", dtype) if film else None
+            kw = dict(num_groups=groups, eps=eps, act=act, scale=s, shift=t)
+            got = group_norm_act(x, w, b, **kw)
+            torch.cuda.synchronize()
+            ref = group_norm_act_reference(x, w, b, **kw)
+            rtol, atol = TOL[str(dtype).split(".")[1]]
+            err = check_close(f"{tuple(shape)} G={groups} {str(dtype)[6:]} act={act} film={film} "
+                              f"weights {str(w.dtype)[6:]}", got, ref, rtol, atol)
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+
+    def timed(shape, dtype):
+        c = shape[1]
+        x = torch.randn(shape, generator=gen).to("cuda", dtype)
+        w = (1 + 0.1 * torch.randn(c, generator=gen)).to("cuda", dtype)
+        b = (0.1 * torch.randn(c, generator=gen)).to("cuda", dtype)
+        kw = dict(num_groups=groups, eps=eps, act=True)
+        err = max_err(group_norm_act(x, w, b, **kw), group_norm_act_reference(x, w, b, **kw))
+        ms = time_ms(lambda: group_norm_act(x, w, b, **kw))
+        plain = time_ms(lambda: group_norm_act_reference(x, w, b, **kw))
+        library = time_ms(lambda: torch.nn.functional.silu(
+            torch.nn.functional.group_norm(x, groups, w, b, eps)))
+        # one read of x, one write of out, the affine once; ~11 f32 operations
+        # per element (statistics 3, normalize+affine 4, SiLU 4)
+        bound, bound_by = bound_ms(2 * x.numel() * x.element_size() + 2 * c * w.element_size(),
+                                   11 * x.numel(), F32_OPS_PER_S)
+        host = host_us(lambda: group_norm_act(x, w, b, **kw))
+        log(f"  timing {shape} {str(dtype)[6:]} G={groups} SiLU: kernel {ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({bound_by}), plain {plain:.4f} ms, F.group_norm+F.silu "
+            f"{library:.4f} ms; host {host:.1f} us per call [{card}]")
+        return dict(max_abs_err=max(err, worst), ms=ms, plain_ms=plain, bound_ms=bound,
+                    bound_by=bound_by, library_ms=library, shape=list(shape), dtype=str(dtype)[6:])
+
+    timed((2, 128, 256, 256), torch.float32)
+    timed((2, 128, 256, 256), torch.bfloat16)
+    # the main path's largest call: (batch, 128, 256, 256) bf16, SiLU, no FiLM
+    main = timed((main_batch, 128, 256, 256), torch.bfloat16)
+    return dict(name=K1.name, route="cuda", source=K1.source, replaces=K1.replaces, **main)
+
+
+def phase_k2(torch, card: str, gen, main_batch: int) -> dict:
+    from fmdm_tpu_torch.ops.kernels.small_t_attention import (
+        K2, small_t_attention, small_t_attention_reference)
+
+    log("[4] K2 small_t_attention vs its plain version")
+    worst = 0.0
+    # the flagship's two calls; then off-path: ragged T with d padded to 32,
+    # and T near the limit at d=64
+    for shape in ((2, 64, 256, 8), (2, 64, 64, 8), (3, 5, 100, 24), (1, 2, 1000, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=gen).to("cuda", dtype) for _ in range(3))
+            got = small_t_attention(q, k, v)
+            torch.cuda.synchronize()
+            ref = small_t_attention_reference(q, k, v)
+            rtol, atol = TOL[str(dtype).split(".")[1]]
+            err = check_close(f"{shape} {str(dtype)[6:]}", got, ref, rtol, atol)
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+
+    def timed(shape, dtype):
+        q, k, v = (torch.randn(shape, generator=gen).to("cuda", dtype) for _ in range(3))
+        err = max_err(small_t_attention(q, k, v), small_t_attention_reference(q, k, v))
+        ms = time_ms(lambda: small_t_attention(q, k, v))
+        plain = time_ms(lambda: small_t_attention_reference(q, k, v))
+        library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+        bh, t, d = shape[0] * shape[1], shape[2], shape[3]
+        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+        bound, bound_by = bound_ms(4 * q.numel() * q.element_size(), 4 * bh * t * t * d, peak)
+        host = host_us(lambda: small_t_attention(q, k, v))
+        log(f"  timing {shape} {str(dtype)[6:]}: kernel {ms:.4f} ms, bound {bound:.4f} ms "
+            f"({bound_by}), plain {plain:.4f} ms, F.scaled_dot_product_attention {library:.4f} ms; "
+            f"host {host:.1f} us per call [{card}]")
+        return dict(max_abs_err=max(err, worst), ms=ms, plain_ms=plain, bound_ms=bound,
+                    bound_by=bound_by, library_ms=library, shape=list(shape), dtype=str(dtype)[6:])
+
+    timed((2, 64, 256, 8), torch.float32)
+    timed((2, 64, 256, 8), torch.bfloat16)
+    timed((2, 64, 64, 8), torch.bfloat16)
+    # the main path's 16² call at the sample's batch
+    main = timed((main_batch, 64, 256, 8), torch.bfloat16)
+    return dict(name=K2.name, route="cuda", source=K2.source, replaces=K2.replaces, **main)
+
+
+def reset_counts(records) -> None:
+    for r in records:
+        r.launches = 0
+
+
+def main() -> int:
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--batches", default="8,32",
+                        help="sample batch sizes; the first one's run counts the launches")
+    args = parser.parse_args()
+    batches = [int(b) for b in args.batches.split(",")]
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+
+    from fmdm_tpu_torch.models.factories import DiffusionUNetFactory
+    from fmdm_tpu_torch.nn.layers import init_weights
+    from fmdm_tpu_torch.ops.kernels import build
+    from fmdm_tpu_torch.ops.kernels.group_norm import K1
+    from fmdm_tpu_torch.ops.kernels.small_t_attention import K2
+    from fmdm_tpu_torch.sample.engine import SamplingEngine
+    from fmdm_tpu_torch.schedulers import DPMSolverMultistepScheduler
+
+    records = (K1, K2)
+    card = card_line()
+    log(f"[1] card: {card}")
+    log(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
+
+    info = build.build()
+    lib = build.library()
+    log(f"[2] kernels built by nvcc for sm_90a from {build.CSRC_DIR.relative_to(REPO_ROOT)}: "
+        f"{[p.name for p in sorted(build.CSRC_DIR.glob('*.cu'))]} -> "
+        f"{info.path.relative_to(REPO_ROOT)} in {info.seconds:.1f} s; loaded {lib._name}")
+    for line in info.log.splitlines():
+        if "ptxas" in line and ("Used" in line or "spill" in line or "Compiling" in line):
+            log(f"    {line.strip()}")
+
+    gen = torch.Generator().manual_seed(args.seed)
+    k1 = phase_k1(torch, card, gen, batches[0])
+    k2 = phase_k2(torch, card, gen, batches[0])
+
+    log("[5] full-width flagship forward: card (K1, K2) vs CPU plain path, f32, TF32 off")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = json.loads(CONFIG.read_text())["model"]["unet"]
+    model = DiffusionUNetFactory().build(cfg, conditioning="concatenate", channels=1, device="cuda")
+    init_weights(model, torch.Generator().manual_seed(args.seed)).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    x = torch.randn((1, 2, 256, 256), generator=gen)
+    t = torch.tensor([500])
+    with torch.no_grad():
+        model(x.cuda(), t.cuda())  # warm-up
+        torch.cuda.synchronize()
+        reset_counts(records)
+        start = time.perf_counter()
+        y_gpu = model(x.cuda(), t.cuda())
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - start
+        counts = (K1.launches, K2.launches)
+        y_gpu = y_gpu.cpu()
+        start = time.perf_counter()
+        cpu_model = copy.deepcopy(model).cpu()
+        y_cpu = cpu_model(x, t)
+        cpu_s = time.perf_counter() - start
+    if counts != (K1_PER_FORWARD, K2_PER_FORWARD):
+        raise AssertionError(f"one forward launched K1 {counts[0]}x and K2 {counts[1]}x; "
+                             f"expected {K1_PER_FORWARD} and {K2_PER_FORWARD}")
+    if (K1.launches, K2.launches) != counts:
+        raise AssertionError("the CPU forward launched a kernel")
+    rel = max_err(y_gpu, y_cpu) / float(y_cpu.abs().max())
+    rel_tol = 1e-3  # conv algorithms and sum orders differ between cuDNN and the CPU
+    log(f"  {n_params} parameters; output {tuple(y_gpu.shape)} finite="
+        f"{bool(torch.isfinite(y_gpu).all())}; max|gpu-cpu|/max|cpu| = {rel:.3e} "
+        f"(tolerance {rel_tol:g})")
+    log(f"  launches per forward: K1 {counts[0]}, K2 {counts[1]}; forward {fwd_s * 1e3:.2f} ms "
+        f"on the card, {cpu_s:.2f} s on the CPU [{card}]")
+    if not (torch.isfinite(y_gpu).all() and rel <= rel_tol):
+        raise AssertionError(f"card forward disagrees with the CPU plain path (rel {rel})")
+
+    scheduler = DPMSolverMultistepScheduler.create(
+        num_train_timesteps=1000, algorithm_type="dpmsolver++", solver_order=2,
+        beta_start=0.0001, beta_end=0.02)
+    timesteps = scheduler.set_timesteps(NUM_STEPS)
+
+    log("[6] the sampling loop: first 3 DPM++ steps, f32, batch 1, card vs CPU plain path")
+    shape = (1, 1, 256, 256)
+    init = torch.randn(shape, generator=gen)
+    cond = torch.full(shape, 0.5)
+    short = [SamplingEngine(m, scheduler, timesteps[:3], conditioning_mode="concatenate",
+                            device=d)(shape, conditioning_batch=cond, init_sample=init).cpu()
+             for m, d in ((model, "cuda"), (cpu_model, "cpu"))]
+    rel = max_err(*short) / float(short[1].abs().max())
+    log(f"  max|gpu-cpu|/max|cpu| = {rel:.3e} (tolerance {rel_tol:g})")
+    if not (torch.isfinite(short[0]).all() and rel <= rel_tol):
+        raise AssertionError(f"card sampling loop disagrees with the CPU plain path (rel {rel})")
+    del cpu_model
+
+    log(f"[7] {NUM_STEPS}-step DPM-Solver++ (order 2) sample at 256², bf16 model, f32 scheduler")
+    engine = SamplingEngine(model, scheduler, timesteps, conditioning_mode="concatenate",
+                            compute_dtype=torch.bfloat16, device="cuda")
+    main_launches = None
+    for batch in batches:
+        shape = (batch, 1, 256, 256)
+        cond = torch.full(shape, 0.5, device="cuda")
+        noise = torch.Generator("cuda").manual_seed(args.seed + batch)
+        engine(shape, noise, conditioning_batch=cond)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        timing = {}
+        reset_counts(records)
+        out = engine(shape, noise, conditioning_batch=cond, timing=timing)
+        launches = (K1.launches, K2.launches)
+        want = (NUM_STEPS * K1_PER_FORWARD, NUM_STEPS * K2_PER_FORWARD)
+        if launches != want:
+            raise AssertionError(f"sample batch {batch} launched {launches}; expected {want}")
+        if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"sample batch {batch}: shape {tuple(out.shape)} or non-finite values")
+        if main_launches is None:
+            main_launches = launches
+        secs = timing["model_seconds"]
+        log(f"  batch {batch}: {secs:.4f} s, {batch * NUM_STEPS / secs:.2f} denoise steps/s, "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches K1 {launches[0]} "
+            f"K2 {launches[1]}, output mean {float(out.mean()):.4f} std {float(out.std()):.4f} [{card}]")
+
+    k1["launches"], k2["launches"] = main_launches
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "shape", "dtype")
+    log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in (k1, k2)]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,106 @@
+"""
+Model factory: the JSON config vocabulary -> model constructors (counterpart
+of ``fmdm_tpu/models/factories.py:69-82,126-171``). Only the ``diffusers_nd``
+branch is ported; the ``efficient_nd`` branch raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+from fmdm_tpu_torch.device import DeviceArg
+from fmdm_tpu_torch.models.unet_diffusers import UNetDiffusersND
+
+__all__ = ["DiffusionUNetFactory"]
+
+
+class _Cfg:
+    """Read-only view over a model config dict with typed, defaulted access."""
+
+    def __init__(self, raw: Optional[Dict[str, Any]]):
+        self.raw = dict(raw or {})
+
+    def get(self, key: str, default=None):
+        return self.raw.get(key, default)
+
+    def int(self, key: str, default: int) -> int:
+        return int(self.raw.get(key, default))
+
+    def float(self, key: str, default: float) -> float:
+        return float(self.raw.get(key, default))
+
+    def bool(self, key: str, default: bool) -> bool:
+        return bool(self.raw.get(key, default))
+
+    def str(self, key: str, default: str) -> str:
+        return str(self.raw.get(key, default))
+
+    def dims(self, key: str, default):
+        """int-or-sequence coerced to tuple; absent/None -> default."""
+        value = self.raw.get(key)
+        if value is None:
+            return default
+        return (value,) if isinstance(value, int) else tuple(value)
+
+
+class DiffusionUNetFactory:
+    """Builds UNetDiffusersND from a model config dict (diffusers-style keys)."""
+
+    _DIFFUSERS_IMPLS = frozenset({"diffusers_nd", "diffusers_exact_nd", "exact_nd", "diffusers"})
+
+    def build(self, model_cfg: Dict[str, Any], conditioning: Optional[str] = None,
+              channels: Optional[int] = None, *, device: DeviceArg = None):
+        cfg = _Cfg(model_cfg)
+        impl = cfg.str("unet_impl", "efficient_nd").lower()
+        if impl in self._DIFFUSERS_IMPLS:
+            return self._build_diffusers_nd(cfg, (conditioning or "").lower(), channels, device)
+        raise NotImplementedError(
+            f"unet_impl '{impl}': EfficientUNetND (the efficient_nd branch) is not ported yet")
+
+    @staticmethod
+    def _default_block_layout(cond_mode: str):
+        if cond_mode == "attention":
+            return (
+                ("CrossAttnDownBlock2D",) * 3 + ("DownBlock2D",),
+                ("UpBlock2D",) + ("CrossAttnUpBlock2D",) * 3,
+                "UNetMidBlock2DCrossAttn",
+            )
+        return (
+            ("DownBlock2D",) + ("AttnDownBlock2D",) * 3,
+            ("AttnUpBlock2D",) * 3 + ("UpBlock2D",),
+            "UNetMidBlock2D",
+        )
+
+    def _build_diffusers_nd(self, cfg: _Cfg, cond_mode: str, channels: Optional[int],
+                            device: DeviceArg):
+        in_ch = cfg.int("in_channels", channels or 1)
+        cond_ch = cfg.int("conditioning_channels", channels or in_ch)
+        if cond_mode == "concatenate" and not cfg.bool("in_channels_already_conditioned", False):
+            in_ch = in_ch + cond_ch
+
+        default_down, default_up, default_mid = self._default_block_layout(cond_mode)
+
+        return UNetDiffusersND(
+            spatial_dims=cfg.int("spatial_dims", 2),
+            sample_size=cfg.get("sample_size"),
+            in_channels=in_ch,
+            out_channels=cfg.int("out_channels", channels or 1),
+            center_input_sample=cfg.bool("center_input_sample", False),
+            time_embedding_type=cfg.str("time_embedding_type", "positional"),
+            freq_shift=cfg.int("freq_shift", 0),
+            flip_sin_to_cos=cfg.bool("flip_sin_to_cos", True),
+            down_block_types=cfg.get("down_block_types", default_down),
+            mid_block_type=cfg.get("mid_block_type", default_mid),
+            up_block_types=cfg.get("up_block_types", default_up),
+            block_out_channels=cfg.dims("block_out_channels", (224, 448, 672, 896)),
+            layers_per_block=cfg.int("layers_per_block", 2),
+            downsample_padding=cfg.int("downsample_padding", 1),
+            dropout=cfg.float("dropout", 0.0),
+            attention_head_dim=cfg.int("attention_head_dim", 8),
+            norm_num_groups=cfg.int("norm_num_groups", 32),
+            norm_eps=cfg.float("norm_eps", 1e-5),
+            resnet_time_scale_shift=cfg.str("resnet_time_scale_shift", "default"),
+            add_attention=cfg.bool("add_attention", True),
+            cross_attention_dim=cfg.int("cross_attention_dim", cond_ch) if cond_mode == "attention" else None,
+            device=device,
+        )

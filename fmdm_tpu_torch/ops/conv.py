@@ -1,0 +1,63 @@
+"""
+N-dimensional convolution (counterpart of ``fmdm_tpu/ops/conv.py:45-97``).
+
+Channels-first tensors (N, C, *spatial), torch-layout weights (OI + spatial)
+and integer padding that defaults to k//2 per dim. The JAX package leaves
+convolutions to XLA, so the port leaves them to cuDNN through
+``F.conv1d/2d/3d``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+SizeArg = Union[int, Tuple[int, ...], Sequence[int]]
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def _normalize(value: SizeArg, nd: int) -> Tuple[int, ...]:
+    if isinstance(value, int):
+        return (value,) * nd
+    value = tuple(int(v) for v in value)
+    if len(value) != nd:
+        raise ValueError(f"Expected {nd} entries, got {value}")
+    return value
+
+
+def conv_nd(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    stride: SizeArg = 1,
+    padding: Optional[SizeArg] = None,
+    dilation: SizeArg = 1,
+    groups: int = 1,
+) -> torch.Tensor:
+    """Channels-first ND convolution with torch padding semantics.
+
+    x: (N, C_in, *spatial); weight: (C_out, C_in//groups, *kernel).
+    ``padding=None`` defaults to k//2 per dim. The convolution runs in the
+    input dtype; the bias is added afterwards in the output dtype, as the
+    JAX version does.
+    """
+    nd = x.dim() - 2
+    if nd not in _CONV:
+        raise ValueError(f"conv_nd supports 1-3 spatial dims, got {nd}")
+    kernel = weight.shape[2:]
+    if padding is None:
+        padding = tuple(k // 2 for k in kernel)
+    else:
+        padding = _normalize(padding, nd)
+    out = _CONV[nd](
+        x, weight.to(x.dtype), None,
+        stride=_normalize(stride, nd), padding=padding,
+        dilation=_normalize(dilation, nd), groups=groups,
+    )
+    if bias is not None:
+        out = out + bias.to(out.dtype).reshape((1, -1) + (1,) * nd)
+    return out
