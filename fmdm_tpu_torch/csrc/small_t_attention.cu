@@ -6,7 +6,7 @@
 // mha_small_t :499-523). Per head: S = Q K^T * scale in f32 from the input
 // dtype, row max, exp, row sum l in f32, P rounded to V's dtype before PV
 // (as at :448), PV accumulated in f32, divided by l, then cast. The scores
-// never leave the chip.
+// stay in registers and never reach device memory.
 //
 // What bounds it: at the flagship's shapes (64 heads x d=8, T=256 and T=64)
 // q, k, v and o are a few MB, and the work is 4*T*T*d operations per head. In
