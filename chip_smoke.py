@@ -20,13 +20,28 @@ Phases, each printing one or more lines:
 7. the 50-step DPM-Solver++ (order 2) sample at 256² in bf16 through
    ``SamplingEngine``: finite output, launch counts, seconds and denoise
    steps/s;
-8. a ``{"kernels": [...]}`` line, then the result line
-   ``{"ok": true, "device": {...}}``.
+8. K3 (flash forward) against its plain version: the VAE's shape in f32
+   and bf16, a ragged T, cross-attention to 77 keys, d = 32 and 128; timings;
+9. K4 (dK/dV) and K5 (dQ) against the plain backward at the same shapes;
+   timings;
+10. the full-width KL-VAE forward at the posterior's mode (batch 1, f32,
+    TF32 off) on the card through K1 and K3, against the same module on the
+    CPU's plain path, and the launch counts per reconstruct;
+11. its train step (L1 + KL, AdamW) at batch 1 on the card against the CPU
+    plain path with the same posterior noise: loss, every gradient, the
+    parameters after the update; then 10 timed steps at the config's batch 4
+    with launches per step (K1, K3, K4, K5) and peak memory;
+12. encode, decode and reconstruct at batch 4: images/s, launches per call;
+13. a ``{"kernels": [...]}`` line, then the result line
+    ``{"ok": true, "device": {...}}``.
 
 The flagship is ``model.unet`` of ``configs/LDCT/LDCT_ddpm_diffusers_nd.json``
-with concatenate conditioning and random weights drawn from ``--seed``. Any
-failed check raises, and the script then exits non-zero without a result
-line; so does a machine without a CUDA device.
+with concatenate conditioning and random weights drawn from ``--seed``; the
+VAE is ``configs/LDCT/LDCT_autoencoder_kl.json`` at its published widths with
+every weight drawn from ``--seed`` (the zero-initialized projections too, so
+every gradient path carries signal). Any failed check raises, and the script
+then exits non-zero without a result line; so does a machine without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -41,6 +56,7 @@ from pathlib import Path
 
 REPO_ROOT = Path(__file__).resolve().parent
 CONFIG = REPO_ROOT / "configs" / "LDCT" / "LDCT_ddpm_diffusers_nd.json"
+VAE_CONFIG = REPO_ROOT / "configs" / "LDCT" / "LDCT_autoencoder_kl.json"
 
 # H100 SXM, NVIDIA data sheet (dense): HBM rate and peak operation rates
 HBM_BYTES_PER_S = 3.35e12
@@ -52,6 +68,17 @@ SPIN_CYCLES = 100_000_000  # ~60 ms at the H100's clocks: longer than queuing 20
 NUM_STEPS = 50
 K1_PER_FORWARD = 64  # 32 ResBlocks x 2 GroupNorm+SiLU
 K2_PER_FORWARD = 6   # 5 attentions at 16², 1 at 8²
+# KL-VAE launches: K1 runs every ResBlock's two GroupNorm+SiLU and norm_out +
+# SiLU (the attention's own GroupNorm has no SiLU and stays a plain op); K3
+# runs the one mid attention at 32² (T = 1024) of each half
+VAE_LAUNCHES = {
+    "encode": {"K1": 2 * 10 + 1, "K3": 1},       # 4 stages x 2 ResBlocks + 2 mid
+    "decode": {"K1": 2 * 14 + 1, "K3": 1},       # 4 stages x 3 ResBlocks + 2 mid
+    "reconstruct": {"K1": 50, "K3": 2},
+    "train step": {"K1": 50, "K3": 2, "K4": 2, "K5": 2},  # K1's backward is plain
+}
+TRAIN_STEPS = 10
+SERVE_CALLS = 5
 
 
 def log(msg: str = "") -> None:
@@ -231,6 +258,277 @@ def phase_k2(torch, card: str, gen, main_batch: int) -> dict:
     return dict(name=K2.name, route="cuda", source=K2.source, replaces=K2.replaces, **main)
 
 
+# flash-attention cases (q shape, Tk, dtype): the VAE's mid attention at the
+# train step's batch 4 in f32 (timed) and bf16, a ragged T that is no tile
+# multiple, cross-attention to a 77-token context, and d = 32 and 128
+FLASH_CASES = (((4, 4, 1024, 64), 1024, "float32"), ((4, 4, 1024, 64), 1024, "bfloat16"),
+               ((1, 2, 1000, 64), 1000, "float32"), ((2, 4, 1024, 64), 77, "float32"),
+               ((1, 2, 1024, 32), 1024, "float32"), ((1, 2, 1024, 128), 1024, "float32"))
+
+
+def flash_inputs(torch, gen, q_shape, tk, dtype):
+    """q, k, v, dout on the card."""
+    kv_shape = q_shape[:-2] + (tk, q_shape[-1])
+    return [torch.randn(s, generator=gen).to("cuda", getattr(torch, dtype))
+            for s in (q_shape, kv_shape, kv_shape, q_shape)]
+
+
+def phase_k3(torch, card: str, gen) -> dict:
+    from fmdm_tpu_torch.ops.kernels.flash_attention import (
+        K3, flash_attention_reference, flash_forward)
+
+    log("[8] K3 flash_forward vs its plain version")
+    worst = 0.0
+    for q_shape, tk, dtype in FLASH_CASES:
+        q, k, v, _ = flash_inputs(torch, gen, q_shape, tk, dtype)
+        scale = q_shape[-1] ** -0.5
+        out, lse = flash_forward(q, k, v, scale)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = flash_attention_reference(q, k, v, scale)
+        what = f"q {q_shape} Tk={tk} {dtype}"
+        worst = max(worst, check_close(f"{what} out", out, ref_out, *TOL[dtype]),
+                    check_close(f"{what} lse", lse, ref_lse, *TOL["float32"]))
+
+    q_shape, tk, dtype = FLASH_CASES[0]
+    q, k, v, _ = flash_inputs(torch, gen, q_shape, tk, dtype)
+    scale = q_shape[-1] ** -0.5
+    ms = time_ms(lambda: flash_forward(q, k, v, scale))
+    plain = time_ms(lambda: flash_attention_reference(q, k, v, scale))
+    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+    bh, t, d = q_shape[0] * q_shape[1], q_shape[2], q_shape[3]
+    # q, k, v read, out and lse written; QK^T and PV, 2 operations per FMA
+    bound, bound_by = bound_ms(4 * q.numel() * 4 + bh * t * 4, 4 * bh * t * tk * d, F32_OPS_PER_S)
+    log(f"  timing {q_shape} {dtype}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({bound_by}), "
+        f"plain {plain:.4f} ms, F.scaled_dot_product_attention {library:.4f} ms [{card}]")
+    return dict(name=K3.name, route="cuda", source=K3.source, replaces=K3.replaces,
+                max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=bound_by,
+                library_ms=library, shape=list(q_shape), dtype=dtype)
+
+
+def phase_k4_k5(torch, card: str, gen):
+    from fmdm_tpu_torch.ops.kernels.flash_attention import (
+        K4, K5, flash_backward_dkv, flash_backward_dq, flash_backward_reference, flash_forward)
+
+    log("[9] K4 flash_backward_dkv and K5 flash_backward_dq vs the plain backward")
+    worst = {"K4": 0.0, "K5": 0.0}
+
+    def prepared(q_shape, tk, dtype):
+        q, k, v, dout = flash_inputs(torch, gen, q_shape, tk, dtype)
+        scale = q_shape[-1] ** -0.5
+        out, lse = flash_forward(q, k, v, scale)
+        delta = (dout.float() * out.float()).sum(dim=-1, keepdim=True)
+        return q, k, v, dout, out, lse, delta, scale
+
+    for q_shape, tk, dtype in FLASH_CASES:
+        q, k, v, dout, out, lse, delta, scale = prepared(q_shape, tk, dtype)
+        dk, dv = flash_backward_dkv(q, k, v, dout, lse, delta, scale)
+        dq = flash_backward_dq(q, k, v, dout, lse, delta, scale)
+        torch.cuda.synchronize()
+        ref_dq, ref_dk, ref_dv = flash_backward_reference(q, k, v, out, lse, dout, scale)
+        what = f"q {q_shape} Tk={tk} {dtype}"
+        worst["K4"] = max(worst["K4"], check_close(f"K4 {what} dk", dk, ref_dk, *TOL[dtype]),
+                          check_close(f"K4 {what} dv", dv, ref_dv, *TOL[dtype]))
+        worst["K5"] = max(worst["K5"], check_close(f"K5 {what} dq", dq, ref_dq, *TOL[dtype]))
+
+    q_shape, tk, dtype = FLASH_CASES[0]
+    q, k, v, dout, out, lse, delta, scale = prepared(q_shape, tk, dtype)
+    ms = {"K4": time_ms(lambda: flash_backward_dkv(q, k, v, dout, lse, delta, scale)),
+          "K5": time_ms(lambda: flash_backward_dq(q, k, v, dout, lse, delta, scale))}
+    plain = time_ms(lambda: flash_backward_reference(q, k, v, out, lse, dout, scale))
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(*leaves)
+    library = time_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True))
+    bh, t, d = q_shape[0] * q_shape[1], q_shape[2], q_shape[3]
+    reads = 4 * q.numel() * 4 + 2 * bh * t * 4  # q, k, v, dO; lse, delta
+    # K4: QK^T, dO V^T, P^T dO, dS^T Q; K5: QK^T, dO V^T, dS K
+    bounds = {"K4": bound_ms(reads + 2 * q.numel() * 4, 8 * bh * t * tk * d, F32_OPS_PER_S),
+              "K5": bound_ms(reads + q.numel() * 4, 6 * bh * t * tk * d, F32_OPS_PER_S)}
+    records = []
+    for name, record in (("K4", K4), ("K5", K5)):
+        bound, bound_by = bounds[name]
+        log(f"  timing {name} {q_shape} {dtype}: kernel {ms[name]:.4f} ms, bound {bound:.4f} ms "
+            f"({bound_by}) [{card}]")
+        records.append(dict(name=record.name, route="cuda", source=record.source,
+                            replaces=record.replaces, max_abs_err=worst[name], ms=ms[name],
+                            plain_ms=plain, bound_ms=bound, bound_by=bound_by, library_ms=library,
+                            shape=list(q_shape), dtype=dtype))
+    log(f"  plain backward (dq, dk, dv) {plain:.4f} ms; autograd of "
+        f"F.scaled_dot_product_attention (dq, dk, dv) {library:.4f} ms [{card}]")
+    return records
+
+
+def random_weights(torch, model, gen) -> None:
+    """Draw every parameter from ``gen``: U(±1/√fan_in) for conv weights,
+    1±0.1 / ±0.1 for GroupNorm affines, U(±0.1) for other biases."""
+    import math
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() >= 2:
+                bound = 1.0 / math.sqrt(math.prod(p.shape[1:]))
+                draw = torch.empty(p.shape).uniform_(-bound, bound, generator=gen)
+            elif "norm" in name.split(".")[-2]:
+                draw = (1.0 if name.endswith("weight") else 0.0) + 0.1 * torch.randn(
+                    p.shape, generator=gen)
+            else:
+                draw = torch.empty(p.shape).uniform_(-0.1, 0.1, generator=gen)
+            p.copy_(draw)
+
+
+def read_counts(records) -> dict:
+    return {r.name.split()[0]: r.launches for r in records}
+
+
+def expect_counts(what: str, counts: dict, want: dict, calls: int = 1) -> None:
+    got = {k: v / calls for k, v in counts.items() if v or k in want}
+    if got != {k: float(v) for k, v in want.items()}:
+        raise AssertionError(f"{what}: launches per call {got}; expected {want}")
+
+
+def rel_err(got, ref) -> float:
+    return max_err(got, ref) / float(ref.float().abs().max())
+
+
+def phase_vae(torch, card: str, seed: int, gen, records) -> dict:
+    """Phases [10]-[12]; returns the launch counts of the timed train steps."""
+    from fmdm_tpu_torch.sample.vae_utils import (
+        build_vae_model, decode_vae_batch, encode_vae_batch, reconstruct_vae_batch)
+    from fmdm_tpu_torch.train.vae_impl import KLTrainStep
+
+    log("[10] full-width KL-VAE forward at the posterior mode: card (K1, K3) vs CPU plain path, "
+        "f32, TF32 off")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = json.loads(VAE_CONFIG.read_text())
+    model = build_vae_model(cfg, generator=torch.Generator().manual_seed(seed), device="cuda")
+    random_weights(torch, model, torch.Generator().manual_seed(seed))
+    cpu_model = copy.deepcopy(model).cpu()
+    n_params = sum(p.numel() for p in model.parameters())
+    x = torch.rand((1, 1, 256, 256), generator=gen)
+    inputs = model.image_to_model_range(x)
+    with torch.no_grad():
+        model(inputs.cuda(), sample_posterior=False)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts(records)
+        start = time.perf_counter()
+        rec, posterior = model(inputs.cuda(), sample_posterior=False)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - start
+        counts = read_counts(records)
+        start = time.perf_counter()
+        rec_cpu, posterior_cpu = cpu_model(inputs, sample_posterior=False)
+        cpu_s = time.perf_counter() - start
+    expect_counts("the VAE reconstruct", counts, VAE_LAUNCHES["reconstruct"])
+    rel_tol = 1e-3  # conv algorithms and sum orders differ between cuDNN and the CPU
+    errs = (rel_err(rec.cpu(), rec_cpu), rel_err(posterior.mode().cpu(), posterior_cpu.mode()))
+    log(f"  {n_params} parameters; reconstruction {tuple(rec.shape)}, latent "
+        f"{tuple(posterior.mode().shape)}; max|gpu-cpu|/max|cpu| = {errs[0]:.3e} "
+        f"(reconstruction), {errs[1]:.3e} (latent mean) (tolerance {rel_tol:g})")
+    log(f"  launches per reconstruct: K1 {counts['K1']}, K3 {counts['K3']}; forward "
+        f"{fwd_s * 1e3:.2f} ms on the card, {cpu_s:.2f} s on the CPU [{card}]")
+    if not (torch.isfinite(rec).all() and max(errs) <= rel_tol):
+        raise AssertionError(f"card VAE forward disagrees with the CPU plain path ({errs})")
+
+    log("[11] KL-VAE train step (L1 + kl_weight * KL, AdamW), f32, TF32 off: batch 1 card vs "
+        "CPU plain path, same posterior noise")
+    training = cfg["training"]
+    lr = float(training["learning_rate"])
+    trainers = [KLTrainStep(m, training) for m in (model, cpu_model)]
+    raw = torch.rand((1, 1, 256, 256), generator=gen)
+    valid = torch.ones(1)
+    noise = torch.randn((1, 4, 32, 32), generator=gen)
+    before = [p.detach().cpu().clone() for p in model.parameters()]
+    reset_counts(records)
+    metrics_gpu, _ = trainers[0].step(raw.cuda(), valid.cuda(), noise=noise.cuda())
+    torch.cuda.synchronize()
+    expect_counts("the VAE train step", read_counts(records), VAE_LAUNCHES["train step"])
+    start = time.perf_counter()
+    metrics_cpu, _ = trainers[1].step(raw, valid, noise=noise)
+    cpu_s = time.perf_counter() - start
+    loss_rel = abs(float(metrics_gpu["loss"]) - float(metrics_cpu["loss"])) / abs(
+        float(metrics_cpu["loss"]))
+    worst_grad, worst_name, flips = 0.0, "", 0
+    card_params = []
+    for (name, pg), pc, p0 in zip(model.named_parameters(), cpu_model.parameters(), before):
+        err = rel_err(pg.grad.cpu(), pc.grad)
+        if err > worst_grad:
+            worst_grad, worst_name = err, name
+        after = pg.detach().cpu()
+        card_params.append((p0, pg.grad.cpu(), after))
+        # an AdamW step moves an element by at most lr; the two sides may take
+        # opposite signs only where the gradient is at rounding level
+        gap = (after - pc.detach()).abs()
+        if float(gap.max()) > 2 * lr * (1 + 1e-3):
+            raise AssertionError(f"{name}: card and CPU parameters {float(gap.max())} apart "
+                                 f"after one AdamW step of lr {lr}")
+        flips += int((gap > 1e-3 * lr).sum())
+    # the card's update is AdamW's: the CPU optimizer on the card's own
+    # gradients and parameters gives the card's parameters within f32 ulps
+    replay = [p0.clone().requires_grad_(True) for p0, _, _ in card_params]
+    for p, (_, g, _) in zip(replay, card_params):
+        p.grad = g
+    torch.optim.AdamW(replay, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                      weight_decay=float(training["weight_decay"])).step()
+    update_err = max(max_err(p.detach(), after) for p, (_, _, after) in zip(replay, card_params))
+    log(f"  loss card {float(metrics_gpu['loss']):.6f} CPU {float(metrics_cpu['loss']):.6f} "
+        f"(rel {loss_rel:.3e}); worst gradient max|gpu-cpu|/max|cpu| {worst_grad:.3e} "
+        f"({worst_name}); parameters after AdamW: {flips} of {n_params} elements differ by more "
+        f"than 1e-3*lr, none by more than 2*lr; card update vs AdamW replayed on the CPU "
+        f"{update_err:.3e}; CPU step {cpu_s:.2f} s")
+    if not (loss_rel <= rel_tol and worst_grad <= rel_tol and update_err <= 1e-6):
+        raise AssertionError(f"card train step disagrees with the CPU plain path (loss {loss_rel}, "
+                             f"gradient {worst_grad} at {worst_name}, update {update_err})")
+    del cpu_model, trainers[1], card_params, replay, before
+
+    batch = int(training["batch_size"])
+    raw = torch.rand((batch, 1, 256, 256), generator=gen).cuda()
+    valid = torch.ones(batch, device="cuda")
+    noise_gen = torch.Generator("cuda").manual_seed(seed)
+    trainers[0].step(raw, valid, generator=noise_gen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(records)
+    start = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        metrics, _ = trainers[0].step(raw, valid, generator=noise_gen)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - start) / TRAIN_STEPS
+    train_counts = read_counts(records)
+    expect_counts("a timed VAE train step", train_counts, VAE_LAUNCHES["train step"], TRAIN_STEPS)
+    if not bool(torch.isfinite(metrics["loss"])):
+        raise AssertionError("the timed VAE train steps gave a non-finite loss")
+    log(f"  batch {batch}, {TRAIN_STEPS} steps: {step_s * 1e3:.2f} ms per step, "
+        f"{batch / step_s:.2f} images/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"launches per step {({k: v // TRAIN_STEPS for k, v in train_counts.items() if v})}, "
+        f"last loss {float(metrics['loss']):.6f} [{card}]")
+
+    log(f"[12] KL-VAE serving at batch {batch}, f32, TF32 off")
+    model.eval()
+    images = torch.rand((batch, 1, 256, 256), generator=gen).cuda()
+    with torch.no_grad():
+        latents = encode_vae_batch(model, images)
+        calls = (("encode", lambda: encode_vae_batch(model, images)),
+                 ("decode", lambda: decode_vae_batch(model, latents)),
+                 ("reconstruct", lambda: reconstruct_vae_batch(model, images)))
+        for what, fn in calls:
+            fn()  # warm-up
+            torch.cuda.synchronize()
+            reset_counts(records)
+            start = time.perf_counter()
+            for _ in range(SERVE_CALLS):
+                out = fn()
+            torch.cuda.synchronize()
+            call_s = (time.perf_counter() - start) / SERVE_CALLS
+            counts = read_counts(records)
+            expect_counts(f"VAE {what}", counts, VAE_LAUNCHES[what], SERVE_CALLS)
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"VAE {what}: non-finite output")
+            log(f"  {what}: output {tuple(out.shape)}, {call_s * 1e3:.2f} ms per call, "
+                f"{batch / call_s:.2f} images/s, launches per call "
+                f"{({k: v // SERVE_CALLS for k, v in counts.items() if v})} [{card}]")
+    return train_counts
+
+
 def reset_counts(records) -> None:
     for r in records:
         r.launches = 0
@@ -253,6 +551,7 @@ def main() -> int:
     from fmdm_tpu_torch.models.factories import DiffusionUNetFactory
     from fmdm_tpu_torch.nn.layers import init_weights
     from fmdm_tpu_torch.ops.kernels import build
+    from fmdm_tpu_torch.ops.kernels.flash_attention import K3, K4, K5
     from fmdm_tpu_torch.ops.kernels.group_norm import K1
     from fmdm_tpu_torch.ops.kernels.small_t_attention import K2
     from fmdm_tpu_torch.sample.engine import SamplingEngine
@@ -359,10 +658,15 @@ def main() -> int:
             f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches K1 {launches[0]} "
             f"K2 {launches[1]}, output mean {float(out.mean()):.4f} std {float(out.std()):.4f} [{card}]")
 
+    k3 = phase_k3(torch, card, gen)
+    k4, k5 = phase_k4_k5(torch, card, gen)
+    train_counts = phase_vae(torch, card, args.seed, gen, (K1, K2, K3, K4, K5))
+
     k1["launches"], k2["launches"] = main_launches
+    k3["launches"], k4["launches"], k5["launches"] = (train_counts[k] for k in ("K3", "K4", "K5"))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape", "dtype")
-    log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in (k1, k2)]}))
+    log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in (k1, k2, k3, k4, k5)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -1,17 +1,22 @@
 """
-Model factory: the JSON config vocabulary -> model constructors (counterpart
-of ``fmdm_tpu/models/factories.py:69-82,126-171``). Only the ``diffusers_nd``
-branch is ported; the ``efficient_nd`` branch raises.
+Model factories: the JSON config vocabulary -> model constructors
+(counterpart of ``fmdm_tpu/models/factories.py:69-82,126-236``). Of
+``DiffusionUNetFactory`` only the ``diffusers_nd`` branch is ported (the
+``efficient_nd`` branch raises); of ``VAEFactory`` the ``kl`` branch (``vq``
+raises).
 """
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Any, Dict, Optional
 
 from fmdm_tpu_torch.device import DeviceArg
 from fmdm_tpu_torch.models.unet_diffusers import UNetDiffusersND
+from fmdm_tpu_torch.models.vae import VQVAE, AutoencoderKL
 
-__all__ = ["DiffusionUNetFactory"]
+__all__ = ["DiffusionUNetFactory", "VAEFactory"]
 
 
 class _Cfg:
@@ -104,3 +109,53 @@ class DiffusionUNetFactory:
             cross_attention_dim=cfg.int("cross_attention_dim", cond_ch) if cond_mode == "attention" else None,
             device=device,
         )
+
+
+class VAEFactory:
+    """Builds ``AutoencoderKL`` from a ``{training, model}`` JSON config.
+
+    The selector keys (``latent_type``, ``model_type``, ``norm_type``,
+    ``act``) are peeled off and the rest is forwarded as constructor kwargs,
+    with the "None"-string normalization of the JAX factory."""
+
+    _STRING_NONE_KEYS = ("emb_channels", "ckpt_path", "down_channels")
+    _MODELS = {"kl": AutoencoderKL, "vq": VQVAE}
+
+    def build_from_json(self, json_path, *, device: DeviceArg = None):
+        path = Path(json_path)
+        if not path.exists():
+            raise FileNotFoundError(f"Config not found: {path}")
+        cfg = json.loads(path.read_text())
+        if "model" not in cfg:
+            raise ValueError("Config must contain a 'model' section.")
+        return self.build(cfg["model"], device=device)
+
+    def build(self, model_cfg: Dict[str, Any], *, device: DeviceArg = None):
+        """The model of a config's ``model`` section."""
+        if model_cfg.get("model_type", "vae").lower() != "vae":
+            raise ValueError(f"Expected model_type 'vae', got '{model_cfg.get('model_type')}'.")
+        vae_cfg = self._normalize(model_cfg)
+        latent_type = vae_cfg.get("latent_type", "kl").lower()
+        model_cls = self._MODELS.get(latent_type)
+        if model_cls is None:
+            raise ValueError(
+                f"Unsupported latent_type '{latent_type}'. Expected one of {list(self._MODELS)}.")
+        kwargs = {k: v for k, v in vae_cfg.items()
+                  if k not in ("latent_type", "model_type", "norm_type", "act")}
+        kwargs.setdefault("in_channels", 3)
+        kwargs.setdefault("out_channels", vae_cfg.get("in_channels", 3))
+        kwargs.setdefault("resolution", 256)
+        kwargs["block_norm_type"] = vae_cfg.get("norm_type", "gn")
+        kwargs["block_act"] = vae_cfg.get("act", "silu")
+        return model_cls(**kwargs, device=device)
+
+    @classmethod
+    def _normalize(cls, model_cfg: Dict[str, Any]) -> Dict[str, Any]:
+        out = dict(model_cfg)
+        for key in cls._STRING_NONE_KEYS:
+            value = out.get(key)
+            if isinstance(value, str) and value.lower() == "none":
+                out[key] = None
+            elif key == "down_channels" and isinstance(value, list):
+                out[key] = tuple(value)
+        return out

@@ -1,10 +1,11 @@
 """
 Reusable blocks (counterpart of ``fmdm_tpu/nn/blocks.py``): ``ResBlockND``
-(:42-169), ``DiffusersAttentionND`` with ``_ToOut`` (:262-357), and
+(:42-169), ``SpatialSelfAttention`` (:176-203, softmax branch),
+``DiffusersAttentionND`` with ``_ToOut`` (:262-357), and
 ``UpsampleND``/``DownsampleND`` (:364-394). Parameter paths match the JAX
 trees: norm1, conv1.conv, emb_layers, norm2, conv2.conv,
-skip_connection[.conv]; group_norm, to_q, to_k, to_v, to_out.0; conv.conv;
-op.conv.
+skip_connection[.conv]; norm, qkv, proj_out; group_norm, to_q, to_k, to_v,
+to_out.0; conv.conv; op.conv.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
-from fmdm_tpu_torch.nn.layers import ConvND, GroupNorm, Linear, make_activation, make_group_norm
+from fmdm_tpu_torch.nn.layers import Conv, ConvND, GroupNorm, Linear, make_activation, make_group_norm
 from fmdm_tpu_torch.ops.attention import sdpa
 from fmdm_tpu_torch.ops.kernels.group_norm import group_norm_act
 from fmdm_tpu_torch.ops.resample import avg_pool_nd, upsample_nearest
@@ -119,6 +120,42 @@ class ResBlockND(nn.Module):
         h = F.dropout(h, self.dropout_rate, training=self.training)
         h = self.conv2(h)
         return self.skip_connection(x) + h
+
+
+class SpatialSelfAttention(nn.Module):
+    """Flatten-spatial multi-head self-attention with a residual and a
+    zero-initialized output projection. Params: norm, qkv (Conv1d), proj_out
+    (Conv1d).
+
+    The head split and merge are the reference's raw reshapes, not
+    transposes: (b, 3·inner, T) is read as (b, heads, T, 3·head_dim) and split
+    on the last axis, and (b, heads, T, head_dim) is read back as
+    (b, inner, T). At T >= 1024 (the VAE's mid attention at 32²) ``sdpa``
+    runs the flash kernels on CUDA."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 64,
+                 use_linear: bool = False, *,
+                 device: DeviceArg = None):
+        super().__init__()
+        device = resolve_device(device)
+        if use_linear:
+            raise NotImplementedError("SpatialSelfAttention use_linear=True is not ported yet")
+        self.dim = dim
+        self.heads = heads
+        self.inner_dim = dim_head * heads
+        self.norm = GroupNorm(max(1, math.gcd(dim, 32)), dim, device=device)
+        self.qkv = Conv(1, dim, self.inner_dim * 3, kernel_size=1, padding=0, device=device)
+        self.proj_out = Conv(1, self.inner_dim, dim, kernel_size=1, padding=0, zero_init=True,
+                             device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c = x.shape[:2]
+        spatial = x.shape[2:]
+        x_flat = x.reshape(b, c, -1)  # (b, c, T)
+        qkv = self.qkv(self.norm(x_flat))  # (b, 3*inner, T)
+        q, k, v = qkv.reshape(b, self.heads, qkv.shape[-1], -1).chunk(3, dim=-1)
+        h = sdpa(q, k, v).reshape(b, self.inner_dim, -1)
+        return (x_flat + self.proj_out(h)).reshape(b, c, *spatial)
 
 
 class _ToOut(nn.Module):

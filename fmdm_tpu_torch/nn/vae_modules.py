@@ -1,0 +1,302 @@
+"""
+VAE building blocks (counterpart of ``fmdm_tpu/nn/vae_modules.py:29-282``):
+the SD-style hierarchical ``Encoder`` and ``Decoder`` and the
+``DiagonalGaussian`` posterior. Parameter paths match the JAX trees: conv_in,
+downs.N.blocks.M / downs.N.attns.M / downs.N.down, mid_block1 / mid_attn /
+mid_block2, norm_out, conv_out; ups mirror-ordered (ups.0 is the shallowest
+stage, run last).
+
+``norm_out`` + SiLU goes through kernel K1 with ``act=True``: the JAX
+``silu(GroupNorm(h))``, the same function in f32. The mid attention runs the
+flash kernels (K3, K4/K5 in training) at T >= 1024. The vector quantizers and
+the discriminators are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from fmdm_tpu_torch.device import DeviceArg, resolve_device
+from fmdm_tpu_torch.nn.blocks import DownsampleND, ResBlockND, SpatialSelfAttention, UpsampleND
+from fmdm_tpu_torch.nn.layers import ConvND, GroupNorm
+from fmdm_tpu_torch.ops.kernels.group_norm import group_norm_act
+
+
+class _Stage(nn.Module):
+    """Per-stage holder: ``blocks``, ``attns`` and the resample child
+    (``down`` or ``up``), as the reference names them."""
+
+    def __init__(self, blocks: Sequence[nn.Module], attns: Sequence[nn.Module],
+                 resample: Optional[nn.Module], resample_name: str):
+        super().__init__()
+        self.blocks = nn.ModuleList(blocks)
+        self.attns = nn.ModuleList(attns)
+        self.resample_name = resample_name if resample is not None else None
+        if resample is not None:
+            self.add_module(resample_name, resample)
+
+    def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for i, block in enumerate(self.blocks):
+            x = block(x, emb)
+            if i < len(self.attns):
+                x = self.attns[i](x)
+        if self.resample_name is not None:
+            x = self._modules[self.resample_name](x)
+        return x
+
+
+def _build_attention_layer(channels: int, attn_heads, attn_dim_head, *,
+                           device: DeviceArg = None) -> SpatialSelfAttention:
+    heads = attn_heads if attn_heads is not None else 1
+    if attn_dim_head is not None:
+        dim_head = attn_dim_head
+    elif heads == 1:
+        dim_head = channels
+    else:
+        dim_head = max(1, channels // heads)
+    return SpatialSelfAttention(dim=channels, heads=heads, dim_head=dim_head, device=device)
+
+
+def _norm_out_act(norm: GroupNorm, h: torch.Tensor) -> torch.Tensor:
+    """silu(norm_out(h)) through K1."""
+    return group_norm_act(h, norm.weight, norm.bias, num_groups=norm.num_groups, eps=norm.eps,
+                          act=True)
+
+
+def _zero_emb(emb_channels: Optional[int], x: torch.Tensor) -> Optional[torch.Tensor]:
+    if emb_channels is None:
+        return None
+    return torch.zeros((x.shape[0], emb_channels), dtype=x.dtype, device=x.device)
+
+
+def _channels(down_channels, base_ch: int, ch_mult) -> Tuple[int, ...]:
+    return tuple(down_channels) if down_channels is not None else tuple(base_ch * m for m in ch_mult)
+
+
+class Encoder(nn.Module):
+    def __init__(
+        self,
+        in_channels: int = 3,
+        base_ch: int = 128,
+        ch_mult: Tuple[int, ...] = (1, 2, 4, 4),
+        down_channels: Optional[Tuple[int, ...]] = None,
+        num_res_blocks: int = 2,
+        attn_resolutions: Tuple[int, ...] = (),
+        resolution: int = 256,
+        z_channels: int = 4,
+        dropout: float = 0.0,
+        use_attention: bool = True,
+        attn_heads: Optional[int] = None,
+        attn_dim_head: Optional[int] = None,
+        double_z: bool = True,
+        spatial_dims: int = 2,
+        emb_channels: Optional[int] = None,
+        use_scale_shift_norm: bool = False,
+        norm_groups: Optional[int] = None,
+        block_factory=None,
+        *,
+        device: DeviceArg = None,
+    ) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        self.double_z = double_z
+        self.z_channels = z_channels
+        self.emb_channels = emb_channels
+        use_ssn = use_scale_shift_norm and emb_channels is not None
+        if emb_channels is None and use_scale_shift_norm:
+            raise ValueError("use_scale_shift_norm requires emb_channels to be provided.")
+        factory = block_factory or ResBlockND
+
+        channels = _channels(down_channels, base_ch, ch_mult)
+        self.conv_in = ConvND(spatial_dims, in_channels, base_ch, 3, padding=1, device=device)
+
+        curr_res = resolution
+        in_ch = base_ch
+        stages = []
+        for idx, out_ch in enumerate(channels):
+            blocks, attns = [], []
+            for _ in range(num_res_blocks):
+                blocks.append(factory(
+                    channels=in_ch, emb_channels=emb_channels, dropout=dropout,
+                    out_channels=out_ch, use_conv=False,
+                    use_scale_shift_norm=use_ssn, spatial_dims=spatial_dims, device=device,
+                ))
+                in_ch = out_ch
+                if use_attention and curr_res in tuple(attn_resolutions):
+                    attns.append(_build_attention_layer(in_ch, attn_heads, attn_dim_head,
+                                                        device=device))
+            down = None
+            if idx != len(channels) - 1:
+                down = DownsampleND(spatial_dims, in_ch, use_conv=True, device=device)
+                curr_res //= 2
+            stages.append(_Stage(blocks, attns, down, "down"))
+        self.downs = nn.ModuleList(stages)
+
+        def mid_block():
+            return ResBlockND(channels=in_ch, emb_channels=emb_channels, dropout=dropout,
+                              out_channels=in_ch, use_conv=False, use_scale_shift_norm=use_ssn,
+                              spatial_dims=spatial_dims, device=device)
+
+        self.mid_block1 = mid_block()
+        self.mid_attn = (_build_attention_layer(in_ch, attn_heads, attn_dim_head, device=device)
+                         if use_attention else nn.Identity())
+        self.mid_block2 = mid_block()
+
+        groups = norm_groups if norm_groups is not None else max(1, math.gcd(in_ch, 32))
+        self.norm_out = GroupNorm(groups, in_ch, device=device)
+        self.out_channels = 2 * z_channels if double_z else z_channels
+        self.conv_out = ConvND(spatial_dims, in_ch, self.out_channels, 3, padding=1, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        emb = _zero_emb(self.emb_channels, x)
+        h = self.conv_in(x)
+        for stage in self.downs:
+            h = stage(h, emb)
+        h = self.mid_block1(h, emb)
+        h = self.mid_attn(h)
+        h = self.mid_block2(h, emb)
+        return self.conv_out(_norm_out_act(self.norm_out, h))
+
+
+class Decoder(nn.Module):
+    def __init__(
+        self,
+        out_ch: int = 3,
+        base_ch: int = 128,
+        ch_mult: Tuple[int, ...] = (1, 2, 4, 4),
+        down_channels: Optional[Tuple[int, ...]] = None,
+        num_res_blocks: int = 2,
+        attn_resolutions: Tuple[int, ...] = (),
+        resolution: int = 256,
+        z_channels: int = 4,
+        dropout: float = 0.0,
+        use_attention: bool = True,
+        attn_heads: Optional[int] = None,
+        attn_dim_head: Optional[int] = None,
+        tanh_out: bool = False,
+        spatial_dims: int = 2,
+        emb_channels: Optional[int] = None,
+        use_scale_shift_norm: bool = False,
+        norm_groups: Optional[int] = None,
+        block_factory=None,
+        *,
+        device: DeviceArg = None,
+    ) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        self.tanh_out = tanh_out
+        self.emb_channels = emb_channels
+        use_ssn = use_scale_shift_norm and emb_channels is not None
+        if emb_channels is None and use_scale_shift_norm:
+            raise ValueError("use_scale_shift_norm requires emb_channels to be provided.")
+        factory = block_factory or ResBlockND
+
+        channels = _channels(down_channels, base_ch, ch_mult)
+        lowest_res = resolution // (2 ** (len(channels) - 1))
+        block_in = channels[-1]
+        self.conv_in = ConvND(spatial_dims, z_channels, block_in, 3, padding=1, device=device)
+
+        def mid_block(ch):
+            return ResBlockND(channels=ch, emb_channels=emb_channels, dropout=dropout,
+                              out_channels=ch, use_conv=False, use_scale_shift_norm=use_ssn,
+                              spatial_dims=spatial_dims, device=device)
+
+        self.mid_block1 = mid_block(block_in)
+        self.mid_attn = (_build_attention_layer(block_in, attn_heads, attn_dim_head, device=device)
+                         if use_attention else nn.Identity())
+        self.mid_block2 = mid_block(block_in)
+
+        # built deepest first but inserted at index 0, so ups[0] is the
+        # shallowest stage and the forward runs reversed(ups)
+        stages = []
+        in_ch = block_in
+        curr_res = lowest_res
+        for idx, out_ch_stage in enumerate(reversed(channels)):
+            blocks, attns = [], []
+            for _ in range(num_res_blocks + 1):
+                blocks.append(factory(
+                    channels=in_ch, emb_channels=emb_channels, dropout=dropout,
+                    out_channels=out_ch_stage, use_conv=False,
+                    use_scale_shift_norm=use_ssn, spatial_dims=spatial_dims, device=device,
+                ))
+                in_ch = out_ch_stage
+                if use_attention and curr_res in tuple(attn_resolutions):
+                    attns.append(_build_attention_layer(in_ch, attn_heads, attn_dim_head,
+                                                        device=device))
+            up = None
+            if idx != len(channels) - 1:
+                up = UpsampleND(spatial_dims, in_ch, use_conv=True, device=device)
+                curr_res *= 2
+            stages.insert(0, _Stage(blocks, attns, up, "up"))
+        self.ups = nn.ModuleList(stages)
+        self.final_channels = out_ch
+
+        groups = norm_groups if norm_groups is not None else max(1, math.gcd(in_ch, 32))
+        self.norm_out = GroupNorm(groups, in_ch, device=device)
+        self.conv_out = ConvND(spatial_dims, in_ch, out_ch, 3, padding=1, device=device)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        emb = _zero_emb(self.emb_channels, z)
+        h = self.conv_in(z)
+        h = self.mid_block1(h, emb)
+        h = self.mid_attn(h)
+        h = self.mid_block2(h, emb)
+        for stage in reversed(self.ups):
+            h = stage(h, emb)
+        h = self.conv_out(_norm_out_act(self.norm_out, h))
+        return torch.tanh(h) if self.tanh_out else h
+
+
+class DiagonalGaussian:
+    """q(z|x) from the moment tensor (mean and log-variance stacked on dim 1);
+    logvar clamped to [-30, 20]."""
+
+    def __init__(self, parameters: torch.Tensor, deterministic: bool = False):
+        mu, logvar = parameters.chunk(2, dim=1)
+        self.mu = mu
+        self.logvar = torch.clamp(logvar, -30.0, 20.0)
+        self.deter = deterministic
+        if deterministic:
+            self.std = torch.zeros_like(mu)
+            self.var = torch.zeros_like(mu)
+        else:
+            self.std = torch.exp(0.5 * self.logvar)
+            self.var = torch.exp(self.logvar)
+
+    def sample(self, noise: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """mu + std · noise, with ``noise`` given or drawn from ``generator``
+        (a generator on mu's device)."""
+        if self.deter:
+            return self.mu
+        if noise is None:
+            noise = torch.randn(self.mu.shape, generator=generator, dtype=self.mu.dtype,
+                                device=self.mu.device)
+        return self.mu + self.std * noise
+
+    def mode(self) -> torch.Tensor:
+        return self.mu
+
+    def kl(self, other: Optional["DiagonalGaussian"] = None, reduce_dims=None) -> torch.Tensor:
+        if self.deter:
+            return torch.zeros((1,), dtype=self.mu.dtype, device=self.mu.device)
+        if reduce_dims is None:
+            reduce_dims = tuple(range(1, self.mu.dim()))
+        if other is None:
+            return 0.5 * torch.sum(self.mu ** 2 + self.var - 1.0 - self.logvar, dim=tuple(reduce_dims))
+        return 0.5 * torch.sum(
+            (self.mu - other.mu) ** 2 / other.var + self.var / other.var - 1.0 - self.logvar
+            + other.logvar,
+            dim=tuple(reduce_dims),
+        )
+
+    def nll(self, x: torch.Tensor, reduce_dims=None) -> torch.Tensor:
+        if reduce_dims is None:
+            reduce_dims = tuple(range(1, self.mu.dim()))
+        logtwopi = math.log(2.0 * math.pi)
+        return 0.5 * torch.sum(logtwopi + self.logvar + (x - self.mu) ** 2 / self.var,
+                               dim=tuple(reduce_dims))

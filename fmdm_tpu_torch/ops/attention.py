@@ -7,8 +7,10 @@ scores contract. ``sdpa`` dispatches:
 - a CPU tensor takes ``sdpa_xla``;
 - CUDA self-attention with T == S < 1024 (and d <= 64) goes to kernel K2
   (``ops/kernels/small_t_attention.py``);
-- any other CUDA call raises ``NotImplementedError``: its kernel, K3 (the
-  flash-attention forward), is not ported yet.
+- a CUDA call with Tq >= 1024 goes to the flash kernels, K3 forward and K4/K5
+  backward (``ops/kernels/flash_attention.py``), which raise on what they do
+  not take (d > 128, k and v of another head dim). JAX tests only Tq (:164);
+- any other CUDA call raises ``NotImplementedError``.
 
 The ring and sequence-parallel routing of the JAX module are not ported.
 """
@@ -20,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from fmdm_tpu_torch.ops.kernels.flash_attention import flash_attention
 from fmdm_tpu_torch.ops.kernels.small_t_attention import MAX_HEAD_DIM, small_t_attention
 
 FLASH_MIN_TOKENS = 1024  # from here on the JAX package uses flash attention (K3)
@@ -57,11 +60,12 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if t == s and t < FLASH_MIN_TOKENS and q.shape == k.shape == v.shape \
             and q.shape[-1] <= MAX_HEAD_DIM:
         return small_t_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale=scale)
+    if t >= FLASH_MIN_TOKENS:
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale=scale)
     raise NotImplementedError(
-        f"sdpa on CUDA: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} is not "
-        f"self-attention with T < {FLASH_MIN_TOKENS} and d <= {MAX_HEAD_DIM}, which is all "
-        f"that kernel K2 takes. Its kernel, K3 (fmdm_tpu/ops/pallas/flash_attention.py::"
-        f"_flash_fwd_kernel), is still to be ported.")
+        f"sdpa on CUDA: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} is neither "
+        f"self-attention with T < {FLASH_MIN_TOKENS} and d <= {MAX_HEAD_DIM} (kernel K2) nor "
+        f"Tq >= {FLASH_MIN_TOKENS} (kernels K3-K5); no kernel of the port takes it.")
 
 
 def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -8,11 +8,12 @@ Builds the flagship (``model.unet`` of ``configs/LDCT/LDCT_ddpm_diffusers_nd.jso
 concatenate conditioning, random weights from ``--seed``), runs DPM-Solver++
 (order 2) in bf16 through ``SamplingEngine`` over the first ``--steps`` of
 the 50-step schedule once to warm up, then once under ``torch.profiler``.
-Prints the device time per kernel class (K1, K2, convolution, matrix
-product, elementwise and copies, other), the share of the window the device
-was idle, the convolutions' FLOPs against the bf16 peak, and one JSON line
-with the same numbers. The card's name and power limit are printed beside
-them.
+Prints the device time per kernel class (the port's kernels, convolution,
+matrix product, optimizer, elementwise and copies, other), the share of the
+window the device was idle (busy time is the union of the kernels' intervals
+on the device timeline), the convolutions' FLOPs against the bf16 peak,
+and one JSON line with the same numbers. The card's name and power limit are
+printed beside them. ``train/profile_vae.py`` reuses the breakdown.
 """
 
 from __future__ import annotations
@@ -37,9 +38,13 @@ BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16, NVIDIA data sheet
 CLASSES = (
     ("K1 group_norm_act", ("gn_stats", "gn_apply")),
     ("K2 small_t_attention", ("small_t_attention",)),
+    ("K3 flash_forward", ("flash_fwd",)),
+    ("K4 flash_backward_dkv", ("flash_bwd_dkv",)),
+    ("K5 flash_backward_dq", ("flash_bwd_dq",)),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit", "nchwToNhwc", "nhwcToNchw",
                      "xmma", "cudnn")),
     ("matrix product", ("gemm", "cublas", "cutlass")),
+    ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("elementwise and copies", ("elementwise", "vectorized", "copy", "CatArray", "cat_", "fill",
                                 "reduce", "index")),
 )
@@ -53,13 +58,13 @@ def classify(name: str) -> str:
     return "other"
 
 
-def _card() -> str:
+def card() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
 
 
-def _conv_flops(model: torch.nn.Module):
+def conv_flops(model: torch.nn.Module):
     """Count 2*MACs of every Conv forward through hooks; returns (counter, handles)."""
     total = {"flops": 0}
 
@@ -68,6 +73,48 @@ def _conv_flops(model: torch.nn.Module):
         total["flops"] += 2 * k * output.numel()
 
     return total, [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, Conv)]
+
+
+def device_time_by_class(prof):
+    """Device ms per kernel class and per kernel name of a finished
+    ``torch.profiler`` run: two dicts. Annotated ranges on the device's
+    timeline (``Optimizer.step#AdamW.step``) span kernels and are skipped."""
+    by_class, by_kernel = defaultdict(float), defaultdict(float)
+    for event in prof.key_averages():
+        if event.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(event, "is_user_annotation", False):
+            continue
+        by_class[classify(event.key)] += event.self_device_time_total / 1e3
+        by_kernel[event.key] += event.self_device_time_total / 1e3
+    return by_class, by_kernel
+
+
+def device_busy_ms(prof) -> float:
+    """Device busy ms of a finished ``torch.profiler`` run: the union of its
+    kernels' and copies' intervals on the device timeline, so intervals that
+    overlap (several streams) count once."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    busy_us, covered = 0.0, float("-inf")
+    for start, end in spans:
+        if end > covered:
+            busy_us += end - max(start, covered)
+            covered = end
+    return busy_us / 1e3
+
+
+def print_breakdown(by_class, by_kernel, units: int, unit: str) -> float:
+    """Print device ms per ``unit`` by class, as shares of the summed kernel
+    time, and the top kernels."""
+    total_ms = sum(by_class.values())
+    if total_ms == 0.0:
+        print("the profiler recorded no device time: no breakdown")
+    for label, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"  {label:24s} {ms / units:9.3f} ms per {unit}  {100 * ms / max(total_ms, 1e-9):5.1f}%")
+    print("top kernels:")
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"  {ms / units:9.3f} ms per {unit}  {classify(name):22s} {name[:110]}")
 
 
 def main() -> None:
@@ -92,7 +139,7 @@ def main() -> None:
     gen = torch.Generator("cuda").manual_seed(args.seed)
     engine(shape, gen, conditioning_batch=cond)  # warm-up: build, cast, cuDNN plans
 
-    flops, handles = _conv_flops(engine._compute_model)
+    flops, handles = conv_flops(engine._compute_model)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     timing = {}
     with torch.profiler.profile(activities=activities) as prof:
@@ -101,37 +148,25 @@ def main() -> None:
         h.remove()
     window_ms = timing["model_seconds"] * 1e3
 
-    by_class = defaultdict(float)
-    by_kernel = defaultdict(float)
-    for event in prof.key_averages():
-        if event.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = event.self_device_time_total
-        by_class[classify(event.key)] += us / 1e3
-        by_kernel[event.key] += us / 1e3
-    busy_ms = sum(by_class.values())
-    card = _card()
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    by_class, by_kernel = device_time_by_class(prof)
+    busy_ms = device_busy_ms(prof)
+    name = card()
+    print(f"card: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"flagship bf16, batch {args.batch}, {args.steps} DPM++ steps: window {window_ms:.3f} ms "
-          f"({window_ms / args.steps:.3f} ms per step), device busy {busy_ms:.3f} ms, idle "
-          f"{100 * (1 - busy_ms / window_ms):.1f}% [{card}]")
-    if busy_ms == 0.0:
-        print("the profiler recorded no device time: no breakdown")
-    for label, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        print(f"  {label:24s} {ms / args.steps:9.3f} ms per step  {100 * ms / max(busy_ms, 1e-9):5.1f}%")
-    print("top kernels:")
-    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
-        print(f"  {ms / args.steps:9.3f} ms per step  {classify(name):22s} {name[:110]}")
+          f"({window_ms / args.steps:.3f} ms per step), device busy {busy_ms:.3f} ms (kernel "
+          f"times summed {sum(by_class.values()):.3f} ms), idle "
+          f"{100 * (1 - busy_ms / window_ms):.1f}% [{name}]")
+    print_breakdown(by_class, by_kernel, args.steps, "step")
     conv_ms = by_class.get("convolution", 0.0)
     conv_tflops = flops["flops"] / max(conv_ms, 1e-9) / 1e9
     print(f"convolutions: {flops['flops'] / args.steps / 1e12:.3f} TFLOP per step, "
           f"{conv_tflops:.1f} TFLOP/s = {100 * conv_tflops * 1e12 / BF16_OPS_PER_S:.1f}% "
-          f"of the bf16 peak [{card}]")
+          f"of the bf16 peak [{name}]")
     if args.trace:
         Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(args.trace)
     print(json.dumps({
-        "card": card, "batch": args.batch, "steps": args.steps,
+        "card": name, "batch": args.batch, "steps": args.steps,
         "ms_per_step": window_ms / args.steps, "busy_ms_per_step": busy_ms / args.steps,
         "idle_share": 1 - busy_ms / window_ms,
         "ms_per_step_by_class": {k: v / args.steps for k, v in by_class.items()},

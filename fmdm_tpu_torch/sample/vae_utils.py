@@ -1,0 +1,51 @@
+"""
+VAE construction and batch encode/decode/reconstruct (counterpart of
+``fmdm_tpu/sample/vae_utils.py:21-65``).
+
+Weights come from a flat JAX parameter dict (``load_jax_params``) or are
+drawn from a ``torch.Generator``; checkpoint files are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from fmdm_tpu_torch.device import DeviceArg
+from fmdm_tpu_torch.models.factories import VAEFactory
+from fmdm_tpu_torch.nn.layers import init_weights
+from fmdm_tpu_torch.utils.weights import load_jax_params
+
+
+def build_vae_model(cfg: Dict[str, Any], flat_params: Optional[Mapping[str, np.ndarray]] = None,
+                    generator: Optional[torch.Generator] = None, device: DeviceArg = None):
+    """The VAE of a ``{training, model}`` config dict, with ``flat_params``
+    loaded (strict) or, without them, weights drawn from ``generator`` (a CPU
+    generator; by default one seeded with ``training.seed``)."""
+    model = VAEFactory().build(cfg["model"], device=device)
+    if flat_params is not None:
+        return load_jax_params(model, flat_params)
+    if generator is None:
+        seed = int(cfg.get("training", {}).get("seed") or 0)
+        generator = torch.Generator().manual_seed(seed)
+    return init_weights(model, generator)
+
+
+def encode_vae_batch(model, batch: torch.Tensor) -> torch.Tensor:
+    """Images in [0, 1] -> latents, the posterior's mode."""
+    out = model.encode(model.image_to_model_range(batch))
+    return out.mode() if hasattr(out, "mode") else out
+
+
+def decode_vae_batch(model, latents: torch.Tensor, recon_type: str = "l1") -> torch.Tensor:
+    """Latents -> images in [0, 1]."""
+    rec = model.decode(latents)
+    return torch.clamp(model.raw_output_to_image(rec, recon_type=recon_type), 0.0, 1.0)
+
+
+def reconstruct_vae_batch(model, batch: torch.Tensor, recon_type: str = "l1") -> torch.Tensor:
+    """Images -> reconstructed images in [0, 1], through the posterior's mode."""
+    rec, _ = model(model.image_to_model_range(batch), sample_posterior=False)
+    return torch.clamp(model.raw_output_to_image(rec, recon_type=recon_type), 0.0, 1.0)

@@ -48,16 +48,20 @@ def test_importing_the_port_loads_no_jax():
 
 
 def _entry_points():
-    from fmdm_tpu_torch.models.factories import DiffusionUNetFactory
+    from fmdm_tpu_torch.models.factories import DiffusionUNetFactory, VAEFactory
     from fmdm_tpu_torch.models.unet_diffusers import UNetDiffusersND
-    from fmdm_tpu_torch.nn.blocks import ResBlockND
+    from fmdm_tpu_torch.models.vae import AutoencoderKL
+    from fmdm_tpu_torch.nn.blocks import ResBlockND, SpatialSelfAttention
     from fmdm_tpu_torch.sample.engine import SamplingEngine
+    from fmdm_tpu_torch.sample.vae_utils import build_vae_model
     from fmdm_tpu_torch.schedulers import DPMSolverMultistepScheduler
 
     cfg = {"unet_impl": "diffusers_nd", "block_out_channels": [8, 16], "norm_num_groups": 4,
            "layers_per_block": 1, "down_block_types": ["DownBlock2D", "DownBlock2D"],
            "up_block_types": ["UpBlock2D", "UpBlock2D"]}
     sched = DPMSolverMultistepScheduler.create()
+    vae = {"resolution": 8, "base_ch": 8, "down_channels": [8, 8], "num_res_blocks": 1,
+           "in_channels": 1, "out_channels": 1, "attn_heads": 2, "attn_dim_head": 4}
     return {
         "factory": lambda **kw: DiffusionUNetFactory().build(cfg, "concatenate", 1, **kw),
         "unet": lambda **kw: UNetDiffusersND(block_out_channels=(8, 16), norm_num_groups=4,
@@ -66,10 +70,15 @@ def _entry_points():
         "resblock": lambda **kw: ResBlockND(8, None, 0.0, norm_groups=4, **kw),
         "engine": lambda **kw: SamplingEngine(torch.nn.Linear(1, 1), sched,
                                               sched.set_timesteps(3), **kw),
+        "vae_factory": lambda **kw: VAEFactory().build(vae, **kw),
+        "autoencoder_kl": lambda **kw: AutoencoderKL(**vae, **kw),
+        "build_vae_model": lambda **kw: build_vae_model({"model": vae}, **kw),
+        "spatial_attention": lambda **kw: SpatialSelfAttention(8, heads=2, dim_head=4, **kw),
     }
 
 
-@pytest.mark.parametrize("name", ["factory", "unet", "resblock", "engine"])
+@pytest.mark.parametrize("name", ["factory", "unet", "resblock", "engine", "vae_factory",
+                                  "autoencoder_kl", "build_vae_model", "spatial_attention"])
 def test_entry_points_default_to_cuda_and_never_fall_back(name, monkeypatch):
     make = _entry_points()[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -81,15 +90,21 @@ def test_entry_points_default_to_cuda_and_never_fall_back(name, monkeypatch):
 
 
 def test_cpu_forward_launches_no_kernel():
+    from fmdm_tpu_torch.ops.kernels.flash_attention import K3, K4, K5
     from fmdm_tpu_torch.ops.kernels.group_norm import K1
     from fmdm_tpu_torch.ops.kernels.small_t_attention import K2
+    from fmdm_tpu_torch.train.vae_impl import KLTrainStep
 
+    records = (K1, K2, K3, K4, K5)
+    for r in records:
+        r.launches = 0
     model = _entry_points()["factory"](device="cpu")
-    K1.launches = K2.launches = 0
     with torch.no_grad():
         out = model(torch.randn(1, 2, 8, 8), 3)
     assert out.shape == (1, 1, 8, 8)
-    assert (K1.launches, K2.launches) == (0, 0)
+    vae = _entry_points()["vae_factory"](device="cpu")
+    KLTrainStep(vae, {}).step(torch.rand(2, 1, 8, 8), torch.ones(2))
+    assert [r.launches for r in records] == [0] * 5
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
