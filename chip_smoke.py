@@ -7,11 +7,15 @@ Drive the PyTorch port (``fmdm_tpu_torch``) on one NVIDIA GPU.
 Run from the repository root on a machine with a CUDA card and ``nvcc``.
 Phases, each printing one or more lines:
 
-1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
+1. the card (``nvidia-smi`` name and power limit, maximum SM clock), torch
+   and CUDA versions;
 2. the build of every kernel from ``fmdm_tpu_torch/csrc`` with ``nvcc``;
 3. K1 (fused GroupNorm+SiLU) against its plain version at the flagship's
    shapes, f32 and bf16, SiLU on/off, FiLM on/off, and its timings;
-4. K2 (small-T attention) against its plain version, and its timings;
+4. K2 (small-T attention) against its plain version: the flagship's two
+   calls in f32 and bf16, T = 1, T = 17, ragged T = 100 at d = 24, T = 1000
+   at d = 64, the 8² call at batch 32, and bf16 logits scaled up 8x; its
+   timings, and the name of the kernel SDPA launches at the timed shape;
 5. the full-width flagship forward (batch 1, f32, TF32 off) on the card
    through K1 and K2, against the same module on the CPU's plain path, and
    the kernels' launch counts per forward;
@@ -21,7 +25,8 @@ Phases, each printing one or more lines:
    ``SamplingEngine``: finite output, launch counts, seconds and denoise
    steps/s;
 8. K3 (flash forward) against its plain version: the VAE's shape in f32
-   and bf16, a ragged T, cross-attention to 77 keys, d = 32 and 128; timings;
+   and bf16, a ragged T, cross-attention to 77 keys, d = 32 and 128, one key,
+   17 queries; timings, and the name of the kernel SDPA launches;
 9. K4 (dK/dV) and K5 (dQ) against the plain backward at the same shapes;
    timings;
 10. the full-width KL-VAE forward at the posterior's mode (batch 1, f32,
@@ -48,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import functools
 import json
 import subprocess
 import sys
@@ -61,7 +67,11 @@ VAE_CONFIG = REPO_ROOT / "configs" / "LDCT" / "LDCT_autoencoder_kl.json"
 # H100 SXM, NVIDIA data sheet (dense): HBM rate and peak operation rates
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12    # TF32 tensor cores
 BF16_OPS_PER_S = 989e12    # bf16 tensor cores
+# exponentials (ex2) per clock per SM on the SFUs of compute capability 9.0
+# (CUDA C++ Programming Guide, arithmetic instruction throughput)
+SFU_EXP_PER_CLOCK_PER_SM = 16
 
 SPIN_CYCLES = 100_000_000  # ~60 ms at the H100's clocks: longer than queuing 20 calls
 
@@ -127,10 +137,68 @@ def host_us(fn, iters: int = 20) -> float:
     return elapsed / iters * 1e6
 
 
-def bound_ms(bytes_moved: float, ops: float, ops_per_s: float):
-    """Least time for the work on this card, and what sets it."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+def max_sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+@functools.lru_cache(maxsize=1)
+def exp_per_s() -> float:
+    """Exponentials per second on this card's SFUs: 16 per clock per SM, at
+    the maximum SM clock, over every SM."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return SFU_EXP_PER_CLOCK_PER_SM * sms * max_sm_clock_mhz() * 1e6
+
+
+def product_seconds(ops: float, dtype: str) -> dict:
+    """Least time for ``ops`` matrix-product operations on inputs of
+    ``dtype``: bf16 on the tensor cores; f32 the faster of f32 FMAs and
+    3xTF32 (three TF32 products per f32 product, which keeps f32 accuracy)."""
+    if dtype == "bfloat16":
+        return {"bf16 tensor cores": ops / BF16_OPS_PER_S}
+    fma, tf32x3 = ops / F32_OPS_PER_S, 3 * ops / TF32_OPS_PER_S
+    return {"3xTF32": tf32x3} if tf32x3 <= fma else {"f32 FMA": fma}
+
+
+def bound_ms(bytes_moved: float, **op_seconds: float):
+    """Least time for the work on this card in ms, the larger of the bytes
+    over the HBM rate and each operation term (seconds, by name), and what
+    sets it: ("bytes" or "operations", the term's name)."""
+    terms = {"bytes": bytes_moved / HBM_BYTES_PER_S, **op_seconds}
+    term = max(terms, key=terms.get)
+    return terms[term] * 1e3, ("bytes" if term == "bytes" else "operations"), term
+
+
+def attention_bound(bytes_moved: float, ops: float, exps: float, dtype: str):
+    """bound_ms of an attention kernel: its bytes, its products at the
+    dtype's rate, and its exponentials on the SFUs."""
+    return bound_ms(bytes_moved, **product_seconds(ops, dtype), **{"exp (SFU)": exps / exp_per_s()})
+
+
+def sdpa_kernels(torch, cases) -> dict:
+    """The names of the device kernels ``F.scaled_dot_product_attention``
+    launches at each (shape, dtype) of ``cases`` (q, k and v of one shape),
+    from one ``torch.profiler`` pass each. Taken at the start of the run:
+    after the sampling phases the profiler has recorded no device events at
+    all on the H100, while the same pass at the start records them."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    names = {}
+    for shape, dtype in cases:
+        q = torch.zeros(shape, device="cuda", dtype=getattr(torch, dtype))
+        torch.nn.functional.scaled_dot_product_attention(q, q, q)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            torch.nn.functional.scaled_dot_product_attention(q, q, q)
+            torch.cuda.synchronize()
+        kernels = dict.fromkeys(e.name[:120] for e in prof.events()
+                                if e.device_type == torch.autograd.DeviceType.CUDA
+                                and not getattr(e, "is_user_annotation", False))
+        names[(tuple(shape), dtype)] = "; ".join(kernels) or "not recorded"
+    return names
 
 
 def max_err(got, ref) -> float:
@@ -199,14 +267,16 @@ def phase_k1(torch, card: str, gen, main_batch: int) -> dict:
             torch.nn.functional.group_norm(x, groups, w, b, eps)))
         # one read of x, one write of out, the affine once; ~11 f32 operations
         # per element (statistics 3, normalize+affine 4, SiLU 4)
-        bound, bound_by = bound_ms(2 * x.numel() * x.element_size() + 2 * c * w.element_size(),
-                                   11 * x.numel(), F32_OPS_PER_S)
+        bound, bound_by, term = bound_ms(
+            2 * x.numel() * x.element_size() + 2 * c * w.element_size(),
+            **{"f32 elementwise": 11 * x.numel() / F32_OPS_PER_S})
         host = host_us(lambda: group_norm_act(x, w, b, **kw))
         log(f"  timing {shape} {str(dtype)[6:]} G={groups} SiLU: kernel {ms:.4f} ms, bound "
             f"{bound:.4f} ms ({bound_by}), plain {plain:.4f} ms, F.group_norm+F.silu "
             f"{library:.4f} ms; host {host:.1f} us per call [{card}]")
         return dict(max_abs_err=max(err, worst), ms=ms, plain_ms=plain, bound_ms=bound,
-                    bound_by=bound_by, library_ms=library, shape=list(shape), dtype=str(dtype)[6:])
+                    bound_by=bound_by, bound_term=term, library_ms=library, shape=list(shape),
+                    dtype=str(dtype)[6:])
 
     timed((2, 128, 256, 256), torch.float32)
     timed((2, 128, 256, 256), torch.bfloat16)
@@ -215,46 +285,65 @@ def phase_k1(torch, card: str, gen, main_batch: int) -> dict:
     return dict(name=K1.name, route="cuda", source=K1.source, replaces=K1.replaces, **main)
 
 
-def phase_k2(torch, card: str, gen, main_batch: int) -> dict:
+def k2_timed(main_batch: int):
+    """K2's timed (shape, dtype): the flagship's two calls at batch 2 (and
+    the 16² call in f32), the 8² call at the sample's batch, the 16² call at
+    batch 32; last the main path's 16² call at the sample's batch."""
+    return [((2, 64, 256, 8), "float32"), ((2, 64, 256, 8), "bfloat16"),
+            ((2, 64, 64, 8), "bfloat16"), ((main_batch, 64, 64, 8), "bfloat16"),
+            ((32, 64, 256, 8), "bfloat16"), ((main_batch, 64, 256, 8), "bfloat16")]
+
+
+def phase_k2(torch, card: str, gen, main_batch: int, library_kernels: dict) -> dict:
     from fmdm_tpu_torch.ops.kernels.small_t_attention import (
         K2, small_t_attention, small_t_attention_reference)
 
     log("[4] K2 small_t_attention vs its plain version")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # the flagship's two calls, T = 1, T = 17 (16-row tiles filled raggedly);
+    # off-path: ragged T with d padded to 32, T near the limit at d = 64; then
+    # the 8² call at the sample's batch 32, and logits 8x larger in bf16
+    # (q * 8, exact), where one or two keys carry most of a row. There P's
+    # rounding to bf16 can fall on either side for kernel and plain version
+    # when p sits within f32 ulps of a midpoint; at this shape no output
+    # moves past the tolerance that way (PERF.md §6 has larger shapes).
+    cases = [(shape, dtype, 1.0) for shape in ((2, 64, 256, 8), (2, 64, 64, 8), (2, 4, 1, 8),
+                                                (2, 64, 17, 8), (3, 5, 100, 24), (1, 2, 1000, 64))
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [((32, 64, 64, 8), torch.bfloat16, 1.0), ((2, 64, 256, 8), torch.bfloat16, 8.0)]
     worst = 0.0
-    # the flagship's two calls; then off-path: ragged T with d padded to 32,
-    # and T near the limit at d=64
-    for shape in ((2, 64, 256, 8), (2, 64, 64, 8), (3, 5, 100, 24), (1, 2, 1000, 64)):
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.randn(shape, generator=gen).to("cuda", dtype) for _ in range(3))
-            got = small_t_attention(q, k, v)
-            torch.cuda.synchronize()
-            ref = small_t_attention_reference(q, k, v)
-            rtol, atol = TOL[str(dtype).split(".")[1]]
-            err = check_close(f"{shape} {str(dtype)[6:]}", got, ref, rtol, atol)
-            if dtype == torch.bfloat16:
-                worst = max(worst, err)
+    for shape, dtype, q_mul in cases:
+        q, k, v = (torch.randn(shape, generator=gen).to("cuda", dtype) for _ in range(3))
+        q = q * q_mul
+        got = small_t_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = small_t_attention_reference(q, k, v)
+        rtol, atol = TOL[str(dtype).split(".")[1]]
+        err = check_close(f"{shape} {str(dtype)[6:]}{' q*8' if q_mul != 1.0 else ''}", got, ref,
+                          rtol, atol)
+        if dtype == torch.bfloat16:
+            worst = max(worst, err)
 
     def timed(shape, dtype):
         q, k, v = (torch.randn(shape, generator=gen).to("cuda", dtype) for _ in range(3))
         err = max_err(small_t_attention(q, k, v), small_t_attention_reference(q, k, v))
         ms = time_ms(lambda: small_t_attention(q, k, v))
         plain = time_ms(lambda: small_t_attention_reference(q, k, v))
-        library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+        library = time_ms(lambda: sdpa(q, k, v))
+        library_kernel = library_kernels[(shape, str(dtype)[6:])]
         bh, t, d = shape[0] * shape[1], shape[2], shape[3]
-        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
-        bound, bound_by = bound_ms(4 * q.numel() * q.element_size(), 4 * bh * t * t * d, peak)
+        # q, k, v read, out written; QK^T and PV, 2 operations per FMA; T*T exponentials
+        bound, bound_by, term = attention_bound(4 * q.numel() * q.element_size(),
+                                                4 * bh * t * t * d, bh * t * t, str(dtype)[6:])
         host = host_us(lambda: small_t_attention(q, k, v))
         log(f"  timing {shape} {str(dtype)[6:]}: kernel {ms:.4f} ms, bound {bound:.4f} ms "
-            f"({bound_by}), plain {plain:.4f} ms, F.scaled_dot_product_attention {library:.4f} ms; "
-            f"host {host:.1f} us per call [{card}]")
+            f"({term}), plain {plain:.4f} ms, F.scaled_dot_product_attention {library:.4f} ms "
+            f"[{library_kernel}]; host {host:.1f} us per call [{card}]")
         return dict(max_abs_err=max(err, worst), ms=ms, plain_ms=plain, bound_ms=bound,
-                    bound_by=bound_by, library_ms=library, shape=list(shape), dtype=str(dtype)[6:])
+                    bound_by=bound_by, bound_term=term, library_ms=library,
+                    library_kernel=library_kernel, shape=list(shape), dtype=str(dtype)[6:])
 
-    timed((2, 64, 256, 8), torch.float32)
-    timed((2, 64, 256, 8), torch.bfloat16)
-    timed((2, 64, 64, 8), torch.bfloat16)
-    # the main path's 16² call at the sample's batch
-    main = timed((main_batch, 64, 256, 8), torch.bfloat16)
+    main = [timed(shape, getattr(torch, dtype)) for shape, dtype in k2_timed(main_batch)][-1]
     return dict(name=K2.name, route="cuda", source=K2.source, replaces=K2.replaces, **main)
 
 
@@ -264,6 +353,10 @@ def phase_k2(torch, card: str, gen, main_batch: int) -> dict:
 FLASH_CASES = (((4, 4, 1024, 64), 1024, "float32"), ((4, 4, 1024, 64), 1024, "bfloat16"),
                ((1, 2, 1000, 64), 1000, "float32"), ((2, 4, 1024, 64), 77, "float32"),
                ((1, 2, 1024, 32), 1024, "float32"), ((1, 2, 1024, 128), 1024, "float32"))
+# K3 also at one key, and at 17 queries (one 64-row tile, its warps filled raggedly)
+K3_CASES = FLASH_CASES + tuple((q_shape, tk, dtype) for q_shape, tk in
+                               (((1, 2, 64, 64), 1), ((1, 2, 17, 64), 1024))
+                               for dtype in ("float32", "bfloat16"))
 
 
 def flash_inputs(torch, gen, q_shape, tk, dtype):
@@ -273,13 +366,19 @@ def flash_inputs(torch, gen, q_shape, tk, dtype):
             for s in (q_shape, kv_shape, kv_shape, q_shape)]
 
 
-def phase_k3(torch, card: str, gen) -> dict:
+def flash_product_ms(ops: float) -> str:
+    return (f"f32 FMA {ops / F32_OPS_PER_S * 1e3:.4f} ms, "
+            f"3xTF32 {3 * ops / TF32_OPS_PER_S * 1e3:.4f} ms")
+
+
+def phase_k3(torch, card: str, gen, library_kernels: dict) -> dict:
     from fmdm_tpu_torch.ops.kernels.flash_attention import (
         K3, flash_attention_reference, flash_forward)
 
     log("[8] K3 flash_forward vs its plain version")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     worst = 0.0
-    for q_shape, tk, dtype in FLASH_CASES:
+    for q_shape, tk, dtype in K3_CASES:
         q, k, v, _ = flash_inputs(torch, gen, q_shape, tk, dtype)
         scale = q_shape[-1] ** -0.5
         out, lse = flash_forward(q, k, v, scale)
@@ -294,15 +393,21 @@ def phase_k3(torch, card: str, gen) -> dict:
     scale = q_shape[-1] ** -0.5
     ms = time_ms(lambda: flash_forward(q, k, v, scale))
     plain = time_ms(lambda: flash_attention_reference(q, k, v, scale))
-    library = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+    library = time_ms(lambda: sdpa(q, k, v))
+    library_kernel = library_kernels[(q_shape, dtype)]
     bh, t, d = q_shape[0] * q_shape[1], q_shape[2], q_shape[3]
-    # q, k, v read, out and lse written; QK^T and PV, 2 operations per FMA
-    bound, bound_by = bound_ms(4 * q.numel() * 4 + bh * t * 4, 4 * bh * t * tk * d, F32_OPS_PER_S)
-    log(f"  timing {q_shape} {dtype}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({bound_by}), "
-        f"plain {plain:.4f} ms, F.scaled_dot_product_attention {library:.4f} ms [{card}]")
+    # q, k, v read, out and lse written; QK^T and PV, 2 operations per FMA;
+    # one exponential per score
+    ops = 4 * bh * t * tk * d
+    bound, bound_by, term = attention_bound(4 * q.numel() * q.element_size() + bh * t * 4, ops,
+                                            bh * t * tk, dtype)
+    log(f"  timing {q_shape} {dtype}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({term}; "
+        f"products {flash_product_ms(ops)}), plain {plain:.4f} ms, "
+        f"F.scaled_dot_product_attention {library:.4f} ms [{library_kernel}] [{card}]")
     return dict(name=K3.name, route="cuda", source=K3.source, replaces=K3.replaces,
                 max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=bound_by,
-                library_ms=library, shape=list(q_shape), dtype=dtype)
+                bound_term=term, library_ms=library, library_kernel=library_kernel,
+                shape=list(q_shape), dtype=dtype)
 
 
 def phase_k4_k5(torch, card: str, gen):
@@ -340,18 +445,20 @@ def phase_k4_k5(torch, card: str, gen):
     library = time_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True))
     bh, t, d = q_shape[0] * q_shape[1], q_shape[2], q_shape[3]
     reads = 4 * q.numel() * 4 + 2 * bh * t * 4  # q, k, v, dO; lse, delta
-    # K4: QK^T, dO V^T, P^T dO, dS^T Q; K5: QK^T, dO V^T, dS K
-    bounds = {"K4": bound_ms(reads + 2 * q.numel() * 4, 8 * bh * t * tk * d, F32_OPS_PER_S),
-              "K5": bound_ms(reads + q.numel() * 4, 6 * bh * t * tk * d, F32_OPS_PER_S)}
+    # K4: QK^T, dO V^T, P^T dO, dS^T Q; K5: QK^T, dO V^T, dS K; each
+    # recomputes one exponential per score
+    ops = {"K4": 8 * bh * t * tk * d, "K5": 6 * bh * t * tk * d}
+    bounds = {"K4": attention_bound(reads + 2 * q.numel() * 4, ops["K4"], bh * t * tk, dtype),
+              "K5": attention_bound(reads + q.numel() * 4, ops["K5"], bh * t * tk, dtype)}
     records = []
     for name, record in (("K4", K4), ("K5", K5)):
-        bound, bound_by = bounds[name]
+        bound, bound_by, term = bounds[name]
         log(f"  timing {name} {q_shape} {dtype}: kernel {ms[name]:.4f} ms, bound {bound:.4f} ms "
-            f"({bound_by}) [{card}]")
+            f"({term}; products {flash_product_ms(ops[name])}) [{card}]")
         records.append(dict(name=record.name, route="cuda", source=record.source,
                             replaces=record.replaces, max_abs_err=worst[name], ms=ms[name],
-                            plain_ms=plain, bound_ms=bound, bound_by=bound_by, library_ms=library,
-                            shape=list(q_shape), dtype=dtype))
+                            plain_ms=plain, bound_ms=bound, bound_by=bound_by, bound_term=term,
+                            library_ms=library, shape=list(q_shape), dtype=dtype))
     log(f"  plain backward (dq, dk, dv) {plain:.4f} ms; autograd of "
         f"F.scaled_dot_product_attention (dq, dk, dv) {library:.4f} ms [{card}]")
     return records
@@ -559,7 +666,8 @@ def main() -> int:
 
     records = (K1, K2)
     card = card_line()
-    log(f"[1] card: {card}")
+    log(f"[1] card: {card}; maximum SM clock {max_sm_clock_mhz():.0f} MHz, "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     log(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
 
@@ -572,9 +680,12 @@ def main() -> int:
         if "ptxas" in line and ("Used" in line or "spill" in line or "Compiling" in line):
             log(f"    {line.strip()}")
 
+    # the kernels SDPA launches at K2's and K3's timed shapes (self-attention)
+    library_kernels = sdpa_kernels(torch, k2_timed(batches[0]) + [FLASH_CASES[0][::2]])
+
     gen = torch.Generator().manual_seed(args.seed)
     k1 = phase_k1(torch, card, gen, batches[0])
-    k2 = phase_k2(torch, card, gen, batches[0])
+    k2 = phase_k2(torch, card, gen, batches[0], library_kernels)
 
     log("[5] full-width flagship forward: card (K1, K2) vs CPU plain path, f32, TF32 off")
     torch.backends.cudnn.allow_tf32 = False
@@ -658,15 +769,16 @@ def main() -> int:
             f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches K1 {launches[0]} "
             f"K2 {launches[1]}, output mean {float(out.mean()):.4f} std {float(out.std()):.4f} [{card}]")
 
-    k3 = phase_k3(torch, card, gen)
+    k3 = phase_k3(torch, card, gen, library_kernels)
     k4, k5 = phase_k4_k5(torch, card, gen)
     train_counts = phase_vae(torch, card, args.seed, gen, (K1, K2, K3, K4, K5))
 
     k1["launches"], k2["launches"] = main_launches
     k3["launches"], k4["launches"], k5["launches"] = (train_counts[k] for k in ("K3", "K4", "K5"))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "shape", "dtype")
-    log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in (k1, k2, k3, k4, k5)]}))
+            "bound_ms", "bound_by", "bound_term", "library_ms", "shape", "dtype")
+    log(json.dumps({"kernels": [{**{k: r[k] for k in keys}, "library_kernel": r.get("library_kernel")}
+                                for r in (k1, k2, k3, k4, k5)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -18,10 +18,6 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
 }
 
-// Round an f32 value to T's precision and back (identity for float).
-template <typename T>
-__device__ __forceinline__ float round_to(float v) { return to_float(from_float<T>(v)); }
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int offset = 16; offset > 0; offset >>= 1) v += __shfl_xor_sync(0xffffffffu, v, offset);

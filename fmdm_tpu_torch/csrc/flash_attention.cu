@@ -12,34 +12,48 @@
 // The T x T scores never reach device memory in either direction.
 //
 // What bounds them: at the VAE's mid attention, (B, 4 heads, T = 1024,
-// d = 64) in f32, the operations (4, 8 and 6 T*T*d per head for K3, K4, K5)
-// over the 67 TFLOP/s of f32 outside the tensor cores; the bytes (q, k, v,
-// dO, out, lse, delta: a few MB) are 10x below that. f32 inputs compute in
-// f32 FMAs, never TF32, so they stay within f32 rounding of the plain version.
-// bf16 inputs are widened to f32 on load and the outputs rounded once.
+// d = 64) in f32, the operations (4, 8 and 6 T*T*d per head for K3, K4, K5);
+// the bytes (q, k, v, dO, out, lse, delta: a few MB) are 10x below them.
 //
-// Design: one block of 256 threads per (batch*head, 64-row tile): a Q tile for
-// K3 and K5, a KV tile for K4. The block's own tile stays in shared memory and
-// the other operand streams through it in 64-row tiles, all as f32 with a
-// padded row stride (D + 1) so that the column reads hit 32 banks. Thread
-// (ty, tx) of the 16 x 16 grid owns score rows ty + 16 i and columns tx + 16 j
-// (i, j < 4) of each 64 x 64 score tile; a row's 16 threads are one half-warp,
-// so row max and row sum are shuffles. Ragged tails are masked: keys past Tk
-// get a score of -inf in K3 and p = 0 in K5, query rows past Tq get p = 0 in
-// K4 (where JAX pads them with lse = 1e30), and nothing past either end is
-// stored. K4 owns its KV tile and K5 its Q tile, so neither needs atomics and
-// both are deterministic. Head dims up to 128 are padded with zeros to D = 32,
-// 64 or 128. wgmma, TMA and warp specialisation are later work.
+// K3 runs both products on the tensor cores in 3xTF32 (mma.cuh): each f32
+// operand is split into a TF32 head and a TF32 remainder and three products
+// are summed in f32, which keeps the plain version's f32 accuracy where one
+// TF32 product (3 digits) would not; the least time for that is 3x the
+// operations at the 495 TFLOP/s TF32 rate, 2.5x below the 67 TFLOP/s of f32
+// FMAs. One block of 4 warps per (batch*head, 64-row Q tile), 16 query rows
+// per warp; q * scale stays in registers, K and V pass through a 2-slot
+// cp.async ring, and P goes from the score accumulators to the PV operands in
+// registers (see flash_fwd). Each warp splits the K and V values it reads;
+// splitting a tile once per block for all four warps was measured slower. Its exponentials are the SFU's exp2 of
+// (s - max) * log2(e), a few f32 ulps from expf.
+//
+// K4 and K5 compute in f32 FMAs. One block of 256 threads per (batch*head,
+// 64-row tile): a KV tile for K4, a Q tile for K5. The block's own tile stays
+// in shared memory and the other operand streams through it in 64-row tiles,
+// all as f32 with a padded row stride (D + 1) so that the column reads hit 32
+// banks. Thread (ty, tx) of the 16 x 16 grid owns score rows ty + 16 i and
+// columns tx + 16 j (i, j < 4) of each 64 x 64 score tile; a row's 16 threads
+// are one half-warp, so row max and row sum are shuffles.
+//
+// bf16 inputs are widened to f32 as they are read and the outputs rounded
+// once. Ragged tails are masked: keys past Tk get a score of -inf in K3 and
+// p = 0 in K5, query rows past Tq get p = 0 in K4 (where JAX pads them with
+// lse = 1e30), and nothing past either end is stored. K4 owns its KV tile and
+// K5 its Q tile, so neither needs atomics and both are deterministic. Head
+// dims up to 128 are padded with zeros to D = 32, 64 or 128. wgmma, TMA and
+// warp specialisation are later work.
 
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
 constexpr int kTile = 64;                 // rows of every tile
-constexpr int kThreads = 256;             // a 16 x 16 grid
+constexpr int kThreads = 256;             // K4, K5: a 16 x 16 grid
+constexpr int kFwdThreads = 128;          // K3: 4 warps of 16 query rows
 constexpr int kPer = kTile / 16;          // score rows (and columns) per thread
 constexpr int kPStride = kTile + 1;       // row stride of a 64 x 64 score tile
 constexpr int kPFloats = kTile * kPStride;
@@ -94,107 +108,119 @@ __device__ __forceinline__ void tile_dot(float (&s)[kPer][kPer], const float* __
   }
 }
 
-// reductions over the 16 threads of a half-warp (one score row)
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int offset = 8; offset > 0; offset >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, offset));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int offset = 8; offset > 0; offset >>= 1) v += __shfl_xor_sync(0xffffffffu, v, offset);
-  return v;
-}
-
-// K3: out = softmax(scale * q k^T) v and lse = m + log l, per 64-row Q tile
+// K3: out = softmax(scale * q k^T) v and lse = m + log l, per 64-row Q tile,
+// on the tensor cores in 3xTF32 (mma.cuh). Warp w owns query rows 16 w ..
+// 16 w + 15 of the tile: q * scale stays in registers as f32 A fragments,
+// the scores and the output accumulate in C fragments, and rows g and g + 8
+// of a fragment belong to one quad, so row max and row sum are quad shuffles.
+// K and V pass through a 2-slot cp.async ring of 64-key tiles.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFwdThreads)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              T* __restrict__ o, float* __restrict__ lse, int tq, int tk, int d, float scale) {
-  using S = Shape<D>;
-  extern __shared__ __align__(16) float smem[];
-  float* sq = smem;             // q * scale, this block's rows
-  float* sk = sq + S::kFloats;  // the current KV tile
-  float* sv = sk + S::kFloats;
-  float* sp = sv + S::kFloats;  // exp(s - m) of the current tile
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = blockIdx.x * kTile;
+              T* __restrict__ o, float* __restrict__ lse, int tq, int tk, int d, float scale,
+              int aligned) {
+  constexpr int S = fmdm::smem_stride<T, D>();
+  constexpr int kTileElems = kTile * S;
+  extern __shared__ __align__(16) unsigned char fwd_tiles[];
+  T* ks = reinterpret_cast<T*>(fwd_tiles);  // two slots of 64 keys
+  T* vs = ks + 2 * kTileElems;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int64_t bh = blockIdx.y;
+  const int row0 = blockIdx.x * kTile + 16 * warp;
+  const bool live = row0 < tq;  // uniform over the warp
   const T* kh = k + bh * tk * d;
   const T* vh = v + bh * tk * d;
 
-  load_tile<T, D>(sq, q + bh * tq * d, q0, tq, d, scale);
+  float qa[D / 8][4];  // q * scale in f32, as JAX scales it before the dot (:37)
+  fmdm::load_a_tf32<T, D>(qa, q + bh * tq * d, row0, tq, d, scale, g, t);
 
-  float m[kPer], l[kPer], acc[kPer][S::kCols];
+  // rows g and g + 8: the running max, this lane's share of the running sum
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
+  for (int n = 0; n < D / 8; ++n) {
 #pragma unroll
-    for (int c = 0; c < S::kCols; ++c) acc[i][c] = 0.f;
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
   }
 
-  for (int k0 = 0; k0 < tk; k0 += kTile) {
-    const int nk = min(kTile, tk - k0);
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(sk, kh, k0, tk, d, 1.f);
-    load_tile<T, D>(sv, vh, k0, tk, d, 1.f);
+  auto stage = [&](int tile) {
+    const int slot = tile % 2;
+    fmdm::stage_rows<T, D, S, kTile>(ks + slot * kTileElems, kh, tile * kTile, tk, d, aligned);
+    fmdm::stage_rows<T, D, S, kTile>(vs + slot * kTileElems, vh, tile * kTile, tk, d, aligned);
+    fmdm::cp_async_commit();
+  };
+  const int ntiles = (tk + kTile - 1) / kTile;
+  stage(0);
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + 1 < ntiles) stage(i + 1); else fmdm::cp_async_commit();
+    fmdm::cp_async_wait<1>();
     __syncthreads();
-
-    float s[kPer][kPer];
-    tile_dot<D>(s, sq, sk, ty, tx);
+    if (live) {
+      const int slot = i % 2;
+      float s[8][4];
+      fmdm::qk_3xtf32<T, D, S>(s, qa, ks + slot * kTileElems, g, t);
+      if ((i + 1) * kTile > tk) {  // the last tile is ragged: keys past Tk score -inf
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      float mx = -INFINITY;
+        for (int n = 0; n < 8; ++n) {
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        if (tx + 16 * j >= nk) s[i][j] = -INFINITY;  // keys past Tk
-        mx = fmaxf(mx, s[i][j]);
+          for (int j = 0; j < 4; ++j) {
+            if (i * kTile + 8 * n + 2 * t + (j & 1) >= tk) s[n][j] = -INFINITY;
+          }
+        }
       }
-      const float m_new = fmaxf(m[i], row_max(mx));  // finite: a tile holds >= 1 key
-      float ps = 0.f;
+      float m_new[2] = {m[0], m[1]};
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sp[(ty + 16 * i) * kPStride + tx + 16 * j] = p;
-        ps += p;
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) m_new[j >> 1] = fmaxf(m_new[j >> 1], s[n][j]);
       }
-      const float correction = expf(m[i] - m_new);
-      l[i] = l[i] * correction + row_sum(ps);
 #pragma unroll
-      for (int c = 0; c < S::kCols; ++c) acc[i][c] *= correction;
-      m[i] = m_new;
+      for (int h = 0; h < 2; ++h) {
+        m_new[h] = fmdm::quad_max(m_new[h]);  // finite: a tile holds >= 1 key
+        const float correction = fmdm::exp2_approx((m[h] - m_new[h]) * fmdm::kLog2e);
+        l[h] *= correction;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          acc[n][2 * h] *= correction;
+          acc[n][2 * h + 1] *= correction;
+        }
+        m[h] = m_new[h];
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[n][j] = fmdm::exp2_approx((s[n][j] - m[j >> 1]) * fmdm::kLog2e);
+          l[j >> 1] += s[n][j];
+        }
+      }
+      fmdm::pv_3xtf32<T, D, S>(acc, s, vs + slot * kTileElems, g, t);
     }
-    __syncthreads();
-
-    // acc[row][col] += sum_j p[row][j] * v[j][col]
-    for (int j = 0; j < nk; ++j) {
-      float vv[S::kCols];
-#pragma unroll
-      for (int c = 0; c < S::kCols; ++c) vv[c] = sv[j * S::kStride + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const float p = sp[(ty + 16 * i) * kPStride + j];
-#pragma unroll
-        for (int c = 0; c < S::kCols; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
-      }
-    }
+    __syncthreads();  // the slot is free for the copy issued next
   }
 
+  if (!live) return;
+  l[0] = fmdm::quad_sum(l[0]);
+  l[1] = fmdm::quad_sum(l[1]);
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
     if (row >= tq) continue;
     T* orow = o + (bh * tq + row) * d;
 #pragma unroll
-    for (int c = 0; c < S::kCols; ++c) {
-      const int col = tx + 16 * c;
-      if (col < d) orow[col] = fmdm::from_float<T>(acc[i][c] / l[i]);
+    for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = 8 * n + 2 * t + j;
+        if (col < d) orow[col] = fmdm::from_float<T>(acc[n][2 * h + j] / l[h]);
+      }
     }
-    if (tx == 0) lse[bh * tq + row] = m[i] + logf(l[i]);
+    if (t == 0) lse[bh * tq + row] = m[h] + logf(l[h]);
   }
 }
+
+template <typename T, int D>
+constexpr int fwd_smem() { return 4 * kTile * fmdm::smem_stride<T, D>() * sizeof(T); }  // K, V x 2
 
 // K4: dK and dV of one 64-key tile, looping over the Q tiles
 template <typename T, int D>
@@ -377,8 +403,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int D>
-constexpr int fwd_smem() { return (3 * Shape<D>::kFloats + kPFloats) * 4; }
-template <int D>
 constexpr int dkv_smem() { return (4 * Shape<D>::kFloats + 2 * kPFloats + 2 * kTile) * 4; }
 template <int D>
 constexpr int dq_smem() { return (4 * Shape<D>::kFloats + kPFloats + 2 * kTile) * 4; }
@@ -386,27 +410,29 @@ constexpr int dq_smem() { return (4 * Shape<D>::kFloats + kPFloats + 2 * kTile) 
 // Set the kernel's dynamic shared memory limit, launch, and return
 // cudaGetLastError(). grid: (tiles along the block's own rows, batch*heads).
 template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int smem, int rows, int bh, cudaStream_t stream, Args... args) {
+cudaError_t launch(Kernel kernel, int threads, int smem, int rows, int bh, cudaStream_t stream,
+                   Args... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((rows + kTile - 1) / kTile, bh);
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t forward(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int tq,
                     int tk, int d, float scale, cudaStream_t s) {
-  return launch(flash_fwd<T, D>, fwd_smem<D>(), tq, bh, s, static_cast<const T*>(q),
-                static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o),
-                static_cast<float*>(lse), tq, tk, d, scale);
+  return launch(flash_fwd<T, D>, kFwdThreads, fwd_smem<T, D>(), tq, bh, s,
+                static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                static_cast<T*>(o), static_cast<float*>(lse), tq, tk, d, scale,
+                static_cast<int>(fmdm::rows_aligned<T>(d, k, v)));
 }
 
 template <typename T, int D>
 cudaError_t backward_dkv(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dk, void* dv, int bh, int tq,
                          int tk, int d, float scale, cudaStream_t s) {
-  return launch(flash_bwd_dkv<T, D>, dkv_smem<D>(), tk, bh, s, static_cast<const T*>(q),
+  return launch(flash_bwd_dkv<T, D>, kThreads, dkv_smem<D>(), tk, bh, s, static_cast<const T*>(q),
                 static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout),
                 static_cast<const float*>(lse), static_cast<const float*>(delta),
                 static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, d, scale);
@@ -416,7 +442,7 @@ template <typename T, int D>
 cudaError_t backward_dq(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* delta, void* dq, int bh, int tq, int tk,
                         int d, float scale, cudaStream_t s) {
-  return launch(flash_bwd_dq<T, D>, dq_smem<D>(), tq, bh, s, static_cast<const T*>(q),
+  return launch(flash_bwd_dq<T, D>, kThreads, dq_smem<D>(), tq, bh, s, static_cast<const T*>(q),
                 static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout),
                 static_cast<const float*>(lse), static_cast<const float*>(delta),
                 static_cast<T*>(dq), tq, tk, d, scale);

@@ -12,8 +12,10 @@ with the CUDA kernels in ``fmdm_tpu_torch/csrc/flash_attention.cu``:
   over the KV tiles.
 
 At the VAE's mid attention (B, 4, 1024, 64) in f32 the operations bound all
-three (f32 FMAs, not TF32). The T x T scores stay on chip in both directions;
-the backward recomputes p = exp(scale * q kᵀ - lse) from the saved lse.
+three. K3 runs its two products on the tensor cores in 3xTF32 (three TF32
+products per f32 product, which keeps f32 accuracy); K4 and K5 in f32 FMAs.
+The T x T scores stay on chip in both directions; the backward recomputes
+p = exp(scale * q kᵀ - lse) from the saved lse.
 ``flash_forward`` and ``flash_backward`` have the signatures of
 ``flash_forward_partials`` and ``flash_backward_chunk`` (:297, :328).
 

@@ -5,11 +5,12 @@ Replaces the Pallas TPU kernel
 ``fmdm_tpu/ops/pallas/flash_attention.py::_mha_packed_kernel`` (:436-449,
 entry ``mha_small_t`` :499-523) with the CUDA kernel in
 ``fmdm_tpu_torch/csrc/small_t_attention.cu``. At the flagship's shapes (64
-heads x d=8 at T=256 and T=64) the bytes bound it in bf16 and the operations
-in f32. One block per (head, tile of query rows), one thread per row, K and V
-streamed through shared memory in f32 tiles: the T x T scores are never formed
-in memory. Two passes over K (row max, then exp and PV) keep the TPU kernel's
-rounding: P is rounded to V's dtype against the final row max.
+heads x d=8 at T=256 and T=64) the T² exponentials per head bound it in bf16
+and the products (3xTF32) in f32. Both products run on the tensor cores: one
+warp per 16 query rows of a head, K and V staged through shared memory, the
+T x T scores only in registers. Two passes over K (row max, then exp and PV)
+keep the TPU kernel's rounding: P is rounded to V's dtype against the final
+row max.
 
 :func:`small_t_attention` launches the kernel for CUDA tensors and takes the
 plain version, :func:`small_t_attention_reference`, only for CPU tensors. The
@@ -36,7 +37,7 @@ K2 = build.KernelRecord(
 
 MAX_T = 1024
 MAX_HEAD_DIM = 64
-_MAX_ROWS = 128  # kMaxRows in small_t_attention.cu
+_MAX_ROWS = 64  # query rows per block: kMaxWarps in small_t_attention.cu x 16
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -96,7 +97,7 @@ def _launch(q, k, v, scale: float) -> torch.Tensor:
     out = torch.empty_like(q)
     if bh == 0:
         return out
-    rows = min(_MAX_ROWS, 32 * math.ceil(t / 32))
+    rows = min(_MAX_ROWS, 16 * math.ceil(t / 16))
     index = q.device.index if q.device.index is not None else torch.cuda.current_device()
     status = _entry()(
         index, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -8,6 +8,8 @@ On the CPU the port's wrappers take the plain version, so these tests pin the
 function each CUDA kernel is held to on the card (``chip_smoke.py``).
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -19,7 +21,7 @@ import fmdm_tpu.ops.pallas.group_norm as jgn
 from fmdm_tpu.ops.pallas.flash_attention import mha_small_t
 from fmdm_tpu_torch.ops.kernels.group_norm import K1, group_norm_act, group_norm_act_reference
 from fmdm_tpu_torch.ops.kernels.small_t_attention import (
-    K2, small_t_attention, small_t_attention_reference)
+    K2, _SmallTAttention, small_t_attention, small_t_attention_reference)
 
 RNG = np.random.default_rng(1)
 
@@ -139,6 +141,36 @@ def test_k2_gradients_follow_the_plain_version():
     small_t_attention_reference(*ref).pow(2).sum().backward()
     for got, want in zip((q, k, v), ref):
         torch.testing.assert_close(got.grad, want.grad)
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", [
+    ("float32", 1e-5, 1e-5),
+    # bf16: JAX scales q before the dot and leaves P unrounded in its VJP;
+    # the gradients are rounded to bf16 on both sides: one bf16 ulp
+    ("bfloat16", 2.0 ** -7, 1e-2),
+])
+def test_k2_backward_matches_jax_vjp(dtype, rtol, atol):
+    """The backward that a card forward of K2 takes (``_SmallTAttention.backward``,
+    through the plain version's autograd) and the CPU wrapper's autograd,
+    against ``jax.vjp`` of ``mha_small_t`` (its reference VJP, :484-493)."""
+    rng = np.random.default_rng(5)
+    shape = (2, 4, 64, 8)
+    q, k, v, g = (rng.standard_normal(shape).astype(np.float32) for _ in range(4))
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    _, vjp = jax.vjp(mha_small_t, *(jnp.asarray(a).astype(jd) for a in (q, k, v)))
+    want = [np.asarray(x.astype(jnp.float32)) for x in vjp(jnp.asarray(g).astype(jd))]
+
+    inputs = [_t(a).to(td) for a in (q, k, v)]
+    ctx = SimpleNamespace(saved_tensors=tuple(inputs), needs_input_grad=(True, True, True, False),
+                          scale=shape[-1] ** -0.5)
+    from_kernel = _SmallTAttention.backward(ctx, _t(g).to(td))
+    assert from_kernel[3] is None
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    from_cpu = torch.autograd.grad(small_t_attention(*leaves), leaves, _t(g).to(td))
+    for got in (from_kernel[:3], from_cpu):
+        for a, b in zip(got, want):
+            assert a.dtype == td
+            np.testing.assert_allclose(a.float().numpy(), b, rtol=rtol, atol=atol)
 
 
 def test_cpu_calls_launch_no_kernel():
