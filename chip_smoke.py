@@ -27,8 +27,10 @@ Phases, each printing one or more lines:
 8. K3 (flash forward) against its plain version: the VAE's shape in f32
    and bf16, a ragged T, cross-attention to 77 keys, d = 32 and 128, one key,
    17 queries; timings, and the name of the kernel SDPA launches;
-9. K4 (dK/dV) and K5 (dQ) against the plain backward at the same shapes;
-   timings;
+9. K4 (dK/dV) and K5 (dQ) against the plain backward at the same shapes, at
+   one key, at 17 queries, and at a head dim whose rows are not 16-byte
+   aligned; two calls on the same inputs bitwise equal; timings, and the pair
+   beside autograd of SDPA;
 10. the full-width KL-VAE forward at the posterior's mode (batch 1, f32,
     TF32 off) on the card through K1 and K3, against the same module on the
     CPU's plain path, and the launch counts per reconstruct;
@@ -357,6 +359,10 @@ FLASH_CASES = (((4, 4, 1024, 64), 1024, "float32"), ((4, 4, 1024, 64), 1024, "bf
 K3_CASES = FLASH_CASES + tuple((q_shape, tk, dtype) for q_shape, tk in
                                (((1, 2, 64, 64), 1), ((1, 2, 17, 64), 1024))
                                for dtype in ("float32", "bfloat16"))
+# K4 and K5 at all of these (17 queries are a column mask in K4, whose lse and
+# delta then take the plain copy), and at d = 18, where no row starts 16-byte
+# aligned and every tile is staged by the plain copy
+BACKWARD_CASES = K3_CASES + (((1, 2, 100, 18), 50, "float32"), ((1, 2, 100, 18), 50, "bfloat16"))
 
 
 def flash_inputs(torch, gen, q_shape, tk, dtype):
@@ -424,13 +430,17 @@ def phase_k4_k5(torch, card: str, gen):
         delta = (dout.float() * out.float()).sum(dim=-1, keepdim=True)
         return q, k, v, dout, out, lse, delta, scale
 
-    for q_shape, tk, dtype in FLASH_CASES:
+    for q_shape, tk, dtype in BACKWARD_CASES:
         q, k, v, dout, out, lse, delta, scale = prepared(q_shape, tk, dtype)
         dk, dv = flash_backward_dkv(q, k, v, dout, lse, delta, scale)
         dq = flash_backward_dq(q, k, v, dout, lse, delta, scale)
         torch.cuda.synchronize()
         ref_dq, ref_dk, ref_dv = flash_backward_reference(q, k, v, out, lse, dout, scale)
         what = f"q {q_shape} Tk={tk} {dtype}"
+        again = (*flash_backward_dkv(q, k, v, dout, lse, delta, scale),
+                 flash_backward_dq(q, k, v, dout, lse, delta, scale))
+        if not all(torch.equal(a, b) for a, b in zip(again, (dk, dv, dq))):
+            raise AssertionError(f"K4/K5 {what}: two calls on the same inputs differ")
         worst["K4"] = max(worst["K4"], check_close(f"K4 {what} dk", dk, ref_dk, *TOL[dtype]),
                           check_close(f"K4 {what} dv", dv, ref_dv, *TOL[dtype]))
         worst["K5"] = max(worst["K5"], check_close(f"K5 {what} dq", dq, ref_dq, *TOL[dtype]))
@@ -459,7 +469,8 @@ def phase_k4_k5(torch, card: str, gen):
                             replaces=record.replaces, max_abs_err=worst[name], ms=ms[name],
                             plain_ms=plain, bound_ms=bound, bound_by=bound_by, bound_term=term,
                             library_ms=library, shape=list(q_shape), dtype=dtype))
-    log(f"  plain backward (dq, dk, dv) {plain:.4f} ms; autograd of "
+    log(f"  every case bitwise equal across two calls; K4 + K5 {ms['K4'] + ms['K5']:.4f} ms, "
+        f"plain backward (dq, dk, dv) {plain:.4f} ms, autograd of "
         f"F.scaled_dot_product_attention (dq, dk, dv) {library:.4f} ms [{card}]")
     return records
 

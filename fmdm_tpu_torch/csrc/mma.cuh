@@ -18,9 +18,13 @@
 // 3xTF32 (CUTLASS's OpMultiplyAddFastF32): an f32 x is split into
 // hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest with ties away
 // (cvt.rna); x - hi is exact in f32. a*b is then hi_a*lo_b + lo_a*hi_b +
-// hi_a*hi_b, each product exact in the tensor core's f32 accumulator, the two
-// small terms first. Only lo_a*lo_b (about 2^-22 relative) is dropped, so the
-// result keeps f32-level accuracy where one TF32 product keeps about 3 digits.
+// hi_a*hi_b, each product exact, the two small terms first. Only lo_a*lo_b
+// (about 2^-22 relative) is dropped, so the result keeps f32-level accuracy
+// where one TF32 product keeps about 3 digits. What remains is the
+// accumulator: the tensor core rounds every sum toward zero, a bias of half
+// an f32 ulp of the running sum per mma. Where that shows (a difference of
+// near-equal values, a sum over many tiles) the products below can keep the
+// small terms apart (kApart) or sum each tile afresh (kFresh).
 #pragma once
 
 #include <stdint.h>
@@ -175,6 +179,26 @@ __device__ __forceinline__ void stage_rows(T* __restrict__ dst, const T* __restr
   }
 }
 
+// Stage entries [r0, r0 + kRows) of an f32 vector of `rows` entries,
+// zero-filled past its end: 16-byte cp.async copies when every group of four
+// starts 16-byte aligned and ends inside the vector or starts past it
+// (`aligned`: an aligned base, and rows and every r0 multiples of 4), else a
+// plain copy. The caller commits the group and waits for it.
+template <int kRows>
+__device__ __forceinline__ void stage_vector(float* __restrict__ dst, const float* __restrict__ src,
+                                             int r0, int rows, bool aligned) {
+  if (aligned) {
+    for (int idx = threadIdx.x; idx < kRows / 4; idx += blockDim.x) {
+      const bool live = r0 + 4 * idx < rows;
+      cp_async16(dst + 4 * idx, live ? src + r0 + 4 * idx : src, live ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kRows; idx += blockDim.x) {
+      dst[idx] = r0 + idx < rows ? src[r0 + idx] : 0.f;
+    }
+  }
+}
+
 // ---- an f32 attention tile in 3xTF32 ---------------------------------------
 
 // The tf32 A fragments of the 16 rows [row0, row0 + 16) of a row-major
@@ -204,41 +228,104 @@ __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// s[n] (C fragments) = A (16 x D) K[8n .. 8n + 7]^T for the 64 keys of a tile
-// of T with row stride S, in 3xTF32, A as load_a_tf32 orders it.
-template <typename T, int D, int S>
-__device__ __forceinline__ void qk_3xtf32(float (&s)[8][4], const float (&a)[D / 8][4],
-                                          const T* __restrict__ ks, int g, int t) {
+// The same fragments (one 8-column chunk, p at its first column) for rows g
+// and g + 8 of a tile of T with row stride S in shared memory, where
+// p = tile + (row0 + g) * S + 8 c + 2 t: two 8-byte (f32) or 4-byte loads.
+template <typename T, int S>
+__device__ __forceinline__ void load_a_tile(float (&f)[4], const T* __restrict__ p) {
+  const float2 top = load_pair(p), bottom = load_pair(p + 8 * S);
+  f[0] = top.x;
+  f[1] = bottom.x;
+  f[2] = top.y;
+  f[3] = bottom.y;
+}
+
+// s[n] (C fragments) = A (16 x D) B[8n .. 8n + 7]^T for the 64 rows of a tile
+// B of T with row stride S, in 3xTF32. a(c, f) fills f with A's fragments of
+// chunk c in the order of load_a_tf32, from registers or from shared memory.
+// kApart: the two small products of every chunk sum into accumulators of
+// their own, added at the end. The tensor core rounds each sum toward zero
+// at the size of its accumulator, so this takes two of every three roundings
+// off the large sum: for a result that the caller subtracts from a value
+// near it (dP - delta), at the cost of 32 registers while the product runs.
+template <typename T, int D, int S, bool kApart, typename A>
+__device__ __forceinline__ void dot_rows_3xtf32(float (&s)[8][4], const A& a,
+                                                const T* __restrict__ bs, int g, int t) {
+  float small[kApart ? 8 : 1][4];
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+    for (int i = 0; i < 4; ++i) {
+      s[n][i] = 0.f;
+      if constexpr (kApart) small[n][i] = 0.f;
+    }
   }
 #pragma unroll
   for (int c = 0; c < D / 8; ++c) {
+    float f[4];
+    a(c, f);
     uint32_t a_hi[4], a_lo[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) split_tf32(a[c][i], a_hi[i], a_lo[i]);
+    for (int i = 0; i < 4; ++i) split_tf32(f[i], a_hi[i], a_lo[i]);
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      const float2 b = load_pair(ks + (8 * n + g) * S + 8 * c + 2 * t);  // k = t, t + 4
+      const float2 b = load_pair(bs + (8 * n + g) * S + 8 * c + 2 * t);  // k = t, t + 4
       uint32_t b_hi[2], b_lo[2];
       split_tf32(b.x, b_hi[0], b_lo[0]);
       split_tf32(b.y, b_hi[1], b_lo[1]);
-      mma_3xtf32(s[n], a_hi, a_lo, b_hi, b_lo);
+      if constexpr (kApart) {
+        mma_tf32(small[n], a_hi, b_lo);
+        mma_tf32(small[n], a_lo, b_hi);
+        mma_tf32(s[n], a_hi, b_hi);
+      } else {
+        mma_3xtf32(s[n], a_hi, a_lo, b_hi, b_lo);
+      }
+    }
+  }
+  if constexpr (kApart) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] += small[n][i];
     }
   }
 }
 
+// dot_rows_3xtf32 with A held in registers as load_a_tf32 left it: the scores
+// of 16 query rows against the 64 keys of a tile.
+template <typename T, int D, int S>
+__device__ __forceinline__ void qk_3xtf32(float (&s)[8][4], const float (&a)[D / 8][4],
+                                          const T* __restrict__ ks, int g, int t) {
+  const auto held = [&a](int c, float (&f)[4]) {
+    f[0] = a[c][0];
+    f[1] = a[c][1];
+    f[2] = a[c][2];
+    f[3] = a[c][3];
+  };
+  dot_rows_3xtf32<T, D, S, false>(s, held, ks, g, t);
+}
+
 // o[n] (C fragments) += P V[:, 8n .. 8n + 7] over the 64 keys of a tile of T
 // with row stride S, in 3xTF32, where p holds P (16 x 64, f32) as the C
-// fragments that qk_3xtf32 left. A C fragment holds columns 2t and 2t + 1
+// fragments that dot_rows_3xtf32 left. A C fragment holds columns 2t and 2t + 1
 // where an A fragment wants t and t + 4, so each 8-key chunk is summed in
 // the key order (0, 2, 4, 6, 1, 3, 5, 7) and B is read in the same order:
 // P goes from accumulators to operands without a shuffle.
-template <typename T, int D, int S>
+// kFresh: the tile's 24 products per output sum into zeroed accumulators that
+// one f32 add (round to nearest) then folds into o, so the tensor core's
+// rounding toward zero acts at the size of one tile's share and not of a sum
+// that grows over many tiles; 32 registers (D = 64) while the product runs.
+template <typename T, int D, int S, bool kFresh = false>
 __device__ __forceinline__ void pv_3xtf32(float (&o)[D / 8][4], const float (&p)[8][4],
                                           const T* __restrict__ vs, int g, int t) {
+  float fresh[kFresh ? D / 8 : 1][4];
+  if constexpr (kFresh) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fresh[n][i] = 0.f;
+    }
+  }
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     uint32_t a_hi[4], a_lo[4];
@@ -253,7 +340,18 @@ __device__ __forceinline__ void pv_3xtf32(float (&o)[D / 8][4], const float (&p)
       uint32_t b_hi[2], b_lo[2];
       split_tf32(to_float(even[8 * n + g]), b_hi[0], b_lo[0]);
       split_tf32(to_float(odd[8 * n + g]), b_hi[1], b_lo[1]);
-      mma_3xtf32(o[n], a_hi, a_lo, b_hi, b_lo);
+      if constexpr (kFresh) {
+        mma_3xtf32(fresh[n], a_hi, a_lo, b_hi, b_lo);
+      } else {
+        mma_3xtf32(o[n], a_hi, a_lo, b_hi, b_lo);
+      }
+    }
+  }
+  if constexpr (kFresh) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[n][i] += fresh[n][i];
     }
   }
 }

@@ -1,17 +1,19 @@
 """
-Timings of the attention kernels K2 and K3 against SDPA, and the rounding of
+Timings of the attention kernels K2 to K5 against SDPA, and the rounding of
 P in K2 at large logits, on one CUDA card.
 
     python -m fmdm_tpu_torch.ops.kernels.attention_report [--seed 0]
 
-Times K2 at the flagship's shapes and K3 at the VAE's (device time of
-back-to-back calls behind a spin kernel, CUDA events) beside
-``F.scaled_dot_product_attention``. Then, for K2 in bf16 with q scaled 8x, it
-counts the outputs outside ``chip_smoke.py``'s bf16 tolerance of the plain
-version and prints each against float64 with P rounded to bf16 as the plain
-version rounds it, and the row's largest shares p/l: when one of the two
-sides lands a bf16 ulp of P away from float64 on a key that carries much of
-the row, the difference is the rounding of P and not a fault of the kernel.
+Times K2 at the flagship's shapes and K3, K4 and K5 at the VAE's (device time
+of back-to-back calls behind a spin kernel, CUDA events) beside
+``F.scaled_dot_product_attention`` and, for the backward, autograd of it
+(dq, dk and dv in one call, the work of K4 and K5 together). Then, for K2 in
+bf16 with q scaled 8x, it counts the outputs outside ``chip_smoke.py``'s bf16
+tolerance of the plain version and prints each against float64 with P rounded
+to bf16 as the plain version rounds it, and the row's largest shares p/l:
+when one of the two sides lands a bf16 ulp of P away from float64 on a key
+that carries much of the row, the difference is the rounding of P and not a
+fault of the kernel.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import subprocess
 
 import torch
 
-from fmdm_tpu_torch.ops.kernels.flash_attention import flash_forward
+from fmdm_tpu_torch.ops.kernels.flash_attention import (
+    flash_backward_dkv, flash_backward_dq, flash_forward)
 from fmdm_tpu_torch.ops.kernels.small_t_attention import (
     small_t_attention, small_t_attention_reference)
 
@@ -87,6 +90,16 @@ def main() -> None:
     print(f"  K3 (4, 4, 1024, 64) float32: kernel "
           f"{time_ms(lambda: flash_forward(q, k, v, 0.125)):.4f} ms, SDPA "
           f"{time_ms(lambda: sdpa(q, k, v)):.4f} ms")
+    dout = torch.randn_like(q)  # not from gen: the draws below stay what they were
+    out, lse = flash_forward(q, k, v, 0.125)
+    delta = (dout * out).sum(dim=-1, keepdim=True)
+    k4 = time_ms(lambda: flash_backward_dkv(q, k, v, dout, lse, delta, 0.125))
+    k5 = time_ms(lambda: flash_backward_dq(q, k, v, dout, lse, delta, 0.125))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    sdpa_out = sdpa(*leaves)
+    library = time_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True))
+    print(f"  K4 (4, 4, 1024, 64) float32: kernel {k4:.4f} ms; K5: kernel {k5:.4f} ms; K4 + K5 "
+          f"{k4 + k5:.4f} ms, autograd of SDPA (dq, dk, dv) {library:.4f} ms")
 
     print(f"K2 with logits scaled 8x [{card}]")
     for shape in ((2, 64, 256, 8), (8, 64, 256, 8), (8, 64, 64, 8), (32, 64, 64, 8)):

@@ -2,7 +2,9 @@
 K3, K4, K5: flash attention forward and backward at long T.
 
 Replaces the Pallas TPU kernels of ``fmdm_tpu/ops/pallas/flash_attention.py``
-with the CUDA kernels in ``fmdm_tpu_torch/csrc/flash_attention.cu``:
+with the CUDA kernels in ``fmdm_tpu_torch/csrc/`` (``flash_attention.cu``,
+``flash_backward_dkv.cu``, ``flash_backward_dq.cu``; ``flash.cuh`` holds what
+they share):
 
 - K3, ``_flash_fwd_kernel`` (:35-62): ``flash_forward`` returns ``out`` and
   ``lse = m + log l``, with the scale folded into q before the dot (:37);
@@ -12,10 +14,10 @@ with the CUDA kernels in ``fmdm_tpu_torch/csrc/flash_attention.cu``:
   over the KV tiles.
 
 At the VAE's mid attention (B, 4, 1024, 64) in f32 the operations bound all
-three. K3 runs its two products on the tensor cores in 3xTF32 (three TF32
-products per f32 product, which keeps f32 accuracy); K4 and K5 in f32 FMAs.
-The T x T scores stay on chip in both directions; the backward recomputes
-p = exp(scale * q kᵀ - lse) from the saved lse.
+three, and all three run every product on the tensor cores in 3xTF32 (three
+TF32 products per f32 product, which keeps f32 accuracy). The T x T scores
+stay on chip in both directions; the backward recomputes
+p = exp(scale * q kᵀ - lse) from the saved lse, in K4 and again in K5.
 ``flash_forward`` and ``flash_backward`` have the signatures of
 ``flash_forward_partials`` and ``flash_backward_chunk`` (:297, :328).
 
@@ -37,12 +39,12 @@ import torch
 
 from fmdm_tpu_torch.ops.kernels import build
 
-_SOURCE = "fmdm_tpu_torch/csrc/flash_attention.cu"
-K3 = build.KernelRecord(name="K3 flash_forward", source=_SOURCE,
+_CSRC = "fmdm_tpu_torch/csrc/"
+K3 = build.KernelRecord(name="K3 flash_forward", source=_CSRC + "flash_attention.cu",
                         replaces="fmdm_tpu/ops/pallas/flash_attention.py:35")
-K4 = build.KernelRecord(name="K4 flash_backward_dkv", source=_SOURCE,
+K4 = build.KernelRecord(name="K4 flash_backward_dkv", source=_CSRC + "flash_backward_dkv.cu",
                         replaces="fmdm_tpu/ops/pallas/flash_attention.py:143")
-K5 = build.KernelRecord(name="K5 flash_backward_dq", source=_SOURCE,
+K5 = build.KernelRecord(name="K5 flash_backward_dq", source=_CSRC + "flash_backward_dq.cu",
                         replaces="fmdm_tpu/ops/pallas/flash_attention.py:174")
 
 MAX_HEAD_DIM = 128

@@ -83,6 +83,29 @@ def test_flash_backward_matches_jax_grad(q_shape, tk):
         np.testing.assert_allclose(a.numpy(), b, **GRAD_TOL)
 
 
+def test_flash_backward_matches_jax_vjp_at_a_cross_attention_length():
+    """Tk = 77 with q (1, 2, 256, 32): JAX's forward takes the 77 keys as one
+    block (interpret mode) and its backward the XLA formulation (:266-280),
+    since 77 is no multiple of 128 lanes; the port's plain backward, the one
+    K4 and K5 are held to on the card, is that same function."""
+    q_shape, tk = (1, 2, 256, 32), 77
+    q, k, v, g = _inputs(4, q_shape, tk)
+    scale = q_shape[-1] ** -0.5
+    _, vjp = jax.vjp(lambda q, k, v: jax_flash_attention(q, k, v, scale=scale, **BLOCKS),
+                     *map(jnp.asarray, (q, k, v)))
+    want = [np.asarray(a) for a in vjp(jnp.asarray(g))]
+
+    tq_, tk_, tv_, tg = map(torch.from_numpy, (q, k, v, g))
+    out, lse = flash_forward(tq_, tk_, tv_, scale)
+    delta = (tg * out).sum(-1, keepdim=True)
+    parts = (flash_backward_dq(tq_, tk_, tv_, tg, lse, delta, scale),
+             *flash_backward_dkv(tq_, tk_, tv_, tg, lse, delta, scale))
+    for got in (flash_backward_reference(tq_, tk_, tv_, out, lse, tg, scale), parts):
+        for a, b, shape in zip(got, want, (q.shape, k.shape, v.shape)):
+            assert a.shape == shape
+            np.testing.assert_allclose(a.numpy(), b, **GRAD_TOL)
+
+
 @pytest.mark.parametrize("q_shape,tk", BACKWARD_CASES)
 def test_flash_backward_matches_autograd_of_the_plain_forward(q_shape, tk):
     q, k, v, g = (torch.from_numpy(a) for a in _inputs(2, q_shape, tk))

@@ -1,13 +1,15 @@
 """The f32 arithmetic of the tensor-core attention kernels, emulated in numpy.
 
-K3 (and K2 on f32 inputs) compute their two products on the tensor cores in
-3xTF32: each f32 operand x is split into hi = tf32(x) and lo = tf32(x - hi),
+K3, K4 and K5 (and K2 on f32 inputs) compute their products on the tensor
+cores in 3xTF32: each f32 operand x is split into hi = tf32(x) and lo = tf32(x - hi),
 both rounded as ``cvt.rna.tf32.f32`` rounds (to nearest, ties away from zero,
 10 explicit mantissa bits), and a * b is taken as hi*lo + lo*hi + hi*hi, each
 TF32 product exact and summed in f32 per k = 8 step of ``mma.m16n8k8``. These
 tests pin why the kernels take three products: at the VAE's head geometry
-the 3xTF32 attention stays within ``chip_smoke.py``'s f32 tolerance of the
-float64 result, where one TF32 product does not.
+the 3xTF32 attention, forward and backward, stays within ``chip_smoke.py``'s
+f32 tolerance of the float64 result, where one TF32 product does not. The
+emulation rounds every sum to nearest; how the tensor core rounds its
+accumulator is not modelled here.
 """
 
 import numpy as np
@@ -106,3 +108,45 @@ def test_3xtf32_attention_keeps_f32_accuracy_where_one_tf32_product_does_not():
     out1, lse1 = attention(q, k, v, scale, matmul_1xtf32)
     assert not within(out1, ref_out)
     assert np.abs(out1 - ref_out).max() > 1e-4
+
+
+def backward(q, k, v, g, lse, delta, scale, matmul):
+    """(dq, dk, dv) as K4 and K5 form them: p = exp(scale * q k^T - lse) scaled
+    after the dot, dV = P^T dO, dS = P (dO V^T - delta), dK = scale * dS^T q,
+    dQ = scale * dS k; f32 elementwise, products by ``matmul``."""
+    t = lambda x: np.swapaxes(x, -1, -2)
+    p = np.exp(matmul(q, t(k)) * np.float32(scale) - lse).astype(np.float32)
+    ds = p * (matmul(g, t(v)) - delta)
+    return (matmul(ds, k) * np.float32(scale), matmul(t(ds), q) * np.float32(scale),
+            matmul(t(p), g))
+
+
+def backward_f64(q, k, v, g, scale):
+    """(dq, dk, dv), and the lse and delta the kernels are given, in float64."""
+    q, k, v, g = (x.astype(np.float64) for x in (q, k, v, g))
+    t = lambda x: np.swapaxes(x, -1, -2)
+    out, lse = attention_f64(q, k, v, scale)
+    delta = (g * out).sum(-1, keepdims=True)
+    p = np.exp((q @ t(k)) * scale - lse)
+    ds = p * (g @ t(v) - delta)
+    return (ds @ k * scale, t(ds) @ q * scale, t(p) @ g), lse, delta
+
+
+def test_3xtf32_backward_keeps_f32_accuracy_where_one_tf32_product_does_not():
+    """(1, 2, 1024, 64): dq, dk and dv of the emulated 3xTF32 backward, from
+    the float64 lse and delta rounded to f32, are within the f32 tolerance of
+    float64; with one TF32 product each of them falls outside. So the
+    backward's four and three products take three TF32 products each too."""
+    rng = np.random.default_rng(1)
+    q, k, v, g = (rng.standard_normal((1, 2, 1024, 64)).astype(np.float32) for _ in range(4))
+    scale = 64 ** -0.5
+    want, lse, delta = backward_f64(q, k, v, g, scale)
+    lse, delta = lse.astype(np.float32), delta.astype(np.float32)
+
+    got3 = backward(q, k, v, g, lse, delta, scale, matmul_3xtf32)
+    got1 = backward(q, k, v, g, lse, delta, scale, matmul_1xtf32)
+    for name, a3, a1, ref in zip(("dq", "dk", "dv"), got3, got1, want):
+        assert within(a3, ref), name
+        assert np.abs(a3 - ref).max() < 2e-6, name
+        assert not within(a1, ref), name
+        assert np.abs(a1 - ref).max() > 1e-4, name
