@@ -10,8 +10,12 @@ Phases, each printing one or more lines:
 1. the card (``nvidia-smi`` name and power limit, maximum SM clock), torch
    and CUDA versions;
 2. the build of every kernel from ``fmdm_tpu_torch/csrc`` with ``nvcc``;
-3. K1 (fused GroupNorm+SiLU) against its plain version at the flagship's
-   shapes, f32 and bf16, SiLU on/off, FiLM on/off, and its timings;
+3. K1 (fused GroupNorm+SiLU) against its plain version, f32 and bf16, each
+   case twice and bitwise equal: both variants (the single-pass cluster
+   kernel, and the split forced) and every group-size class of the main
+   paths (2 KB at batch 32 to 1 MB in bf16, 2 MB in f32), a ragged last
+   chunk, 7x7 and an unaligned x (one element per load), SiLU and FiLM on
+   and off, f32 weights under bf16; its timings at the largest call;
 4. K2 (small-T attention) against its plain version: the flagship's two
    calls in f32 and bf16, T = 1, T = 17, ragged T = 100 at d = 24, T = 1000
    at d = 64, the 8² call at batch 32, and bf16 logits scaled up 8x; its
@@ -39,7 +43,12 @@ Phases, each printing one or more lines:
     parameters after the update; then 10 timed steps at the config's batch 4
     with launches per step (K1, K3, K4, K5) and peak memory;
 12. encode, decode and reconstruct at batch 4: images/s, launches per call;
-13. a ``{"kernels": [...]}`` line, then the result line
+13. K1 over the calls recorded in [5] and [10], replayed at the sample's
+    first batch in bf16 and the VAE's batch 4 in f32, each call on inputs
+    of its own: every call against its plain version, the device launches
+    per variant (every bf16 flagship call one single-pass launch), the
+    summed kernel time against the summed bound and F.group_norm+F.silu;
+14. a ``{"kernels": [...]}`` line, then the result line
     ``{"ok": true, "device": {...}}``.
 
 The flagship is ``model.unet`` of ``configs/LDCT/LDCT_ddpm_diffusers_nd.json``
@@ -54,6 +63,7 @@ device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import functools
 import json
@@ -226,52 +236,100 @@ def check_close(what: str, got, ref, rtol: float, atol: float) -> float:
 TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2.0 ** -7, 2e-3)}
 
 
-def phase_k1(torch, card: str, gen, main_batch: int) -> dict:
-    from fmdm_tpu_torch.ops.kernels.group_norm import K1, group_norm_act, group_norm_act_reference
+def k1_inputs(torch, gen, shape, dtype, w_dtype=None, film=False, offset=0):
+    """x (``offset`` elements into its buffer, so a non-zero offset leaves it
+    unaligned), weight, bias, and FiLM's scale and shift or None, on the card."""
+    import math
 
-    log("[3] K1 group_norm_act vs its plain version")
+    n, c = shape[:2]
+    flat = torch.randn(offset + math.prod(shape), generator=gen).to("cuda", dtype)
+    x = flat[offset:].view(shape)
+    w = (1 + 0.1 * torch.randn(c, generator=gen)).to("cuda", w_dtype or dtype)
+    b = (0.1 * torch.randn(c, generator=gen)).to("cuda", w_dtype or dtype)
+    s = (0.2 * torch.randn(n, c, generator=gen)).to("cuda", dtype) if film else None
+    t = (0.2 * torch.randn(n, c, generator=gen)).to("cuda", dtype) if film else None
+    return x, w, b, s, t
+
+
+def k1_bound(x, w):
+    """bound_ms of one K1 call: one read of x, one write of out, the affine
+    once; ~11 f32 operations per element (statistics 3, normalize+affine 4,
+    SiLU 4)."""
+    return bound_ms(2 * x.numel() * x.element_size() + 2 * w.numel() * w.element_size(),
+                    **{"f32 elementwise": 11 * x.numel() / F32_OPS_PER_S})
+
+
+def k1_library(torch, x, w, b, s, t, groups, eps, act):
+    """The same function in PyTorch calls: F.group_norm, FiLM, F.silu."""
+    y = torch.nn.functional.group_norm(x, groups, w.to(x.dtype), b.to(x.dtype), eps)
+    if s is not None:
+        nd = x.dim() - 2
+        y = y * (1 + s.reshape(s.shape + (1,) * nd)) + t.reshape(t.shape + (1,) * nd)
+    return torch.nn.functional.silu(y) if act else y
+
+
+def phase_k1(torch, card: str, gen, own_gen, main_batch: int) -> dict:
+    from fmdm_tpu_torch.ops.kernels.group_norm import (
+        K1, _launch, group_norm_act, group_norm_act_reference, split_plan, vector_aligned)
+
+    log("[3] K1 group_norm_act vs its plain version, each case twice (bitwise equal)")
     groups, eps = 32, 1e-5
-    # the flagship's largest call, a skip concatenation at 256² and at 8²; then
-    # off-path shapes: 7x7 takes the one-element-per-load path, f32 weights
-    # with bf16 activations the mixed instantiation
-    cases = [((2, 128, 256, 256), act, film, None) for act in (True, False) for film in (False, True)]
-    cases += [((2, 256, 256, 256), True, False, None), ((2, 1024, 8, 8), True, True, None),
-              ((3, 96, 7, 7), True, True, None), ((2, 64, 32, 32), True, False, torch.float32)]
+    # group sizes of the main paths: 512 KB and 1 MB in bf16 (clusters of 8,
+    # or 16), 2 MB in f32 (a cluster of 16 where it schedules, else the
+    # split), 2 KB at batch 32 (a cluster of one); 70,000 elements, which no
+    # cluster divides into whole sweeps (ragged last chunk and piece); 7x7
+    # and an unaligned x take one element per load (the second in a cluster
+    # of 2 or 4); f32 weights under bf16 activations; then the split variant
+    # forced at the flagship's shape and at 7x7. The flagship-shape cases
+    # draw from `gen`, which the later phases share; the others draw from
+    # `own_gen`, so the inputs of every later phase do not depend on them.
+    cases = [((2, 128, 256, 256), act, film, None, 0, False, gen)
+             for act in (True, False) for film in (False, True)]
+    cases += [((2, 256, 256, 256), True, False, None, 0, False, gen),
+              ((32, 512, 8, 8), True, True, None, 0, False, own_gen),
+              ((2, 1024, 8, 8), True, True, None, 0, False, gen),
+              ((2, 224, 100, 100), True, True, None, 0, False, own_gen),
+              ((3, 96, 7, 7), True, True, None, 0, False, gen),
+              ((2, 128, 128, 128), True, False, None, 1, False, own_gen),
+              ((2, 64, 32, 32), True, False, torch.float32, 0, False, gen),
+              ((2, 128, 256, 256), True, True, None, 0, True, own_gen),
+              ((3, 96, 7, 7), True, False, None, 0, True, own_gen)]
     worst = 0.0
-    for shape, act, film, w_dtype in cases:
+    for shape, act, film, w_dtype, offset, split, draw in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            n, c = shape[:2]
-            x = torch.randn(shape, generator=gen).to("cuda", dtype)
-            w = (1 + 0.1 * torch.randn(c, generator=gen)).to("cuda", w_dtype or dtype)
-            b = (0.1 * torch.randn(c, generator=gen)).to("cuda", w_dtype or dtype)
-            s = (0.2 * torch.randn(n, c, generator=gen)).to("cuda", dtype) if film else None
-            t = (0.2 * torch.randn(n, c, generator=gen)).to("cuda", dtype) if film else None
+            x, w, b, s, t = k1_inputs(torch, draw, shape, dtype, w_dtype, film, offset)
             kw = dict(num_groups=groups, eps=eps, act=act, scale=s, shift=t)
-            got = group_norm_act(x, w, b, **kw)
+            if split:
+                out = torch.empty_like(x)
+                p = split_plan(x[0, :shape[1] // groups].numel(), x.element_size(),
+                               vector_aligned(x, out), shape[0] * groups,
+                               sm_count=torch.cuda.get_device_properties(0).multi_processor_count)
+                call = functools.partial(_launch, x, w, b, s, t, groups, eps, act, p)
+            else:
+                call = functools.partial(group_norm_act, x, w, b, **kw)
+            before = dict(K1.variants)
+            got = call()
+            again = call()
             torch.cuda.synchronize()
+            variant = next(k for k in K1.variants if K1.variants[k] != before[k])
+            if not torch.equal(got, again):
+                raise AssertionError(f"K1 {shape} {dtype}: two calls on the same inputs differ")
             ref = group_norm_act_reference(x, w, b, **kw)
             rtol, atol = TOL[str(dtype).split(".")[1]]
             err = check_close(f"{tuple(shape)} G={groups} {str(dtype)[6:]} act={act} film={film} "
-                              f"weights {str(w.dtype)[6:]}", got, ref, rtol, atol)
+                              f"weights {str(w.dtype)[6:]}{' offset 1' if offset else ''} "
+                              f"[{variant.replace('_', ' ')}]", got, ref, rtol, atol)
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
 
     def timed(shape, dtype):
-        c = shape[1]
-        x = torch.randn(shape, generator=gen).to("cuda", dtype)
-        w = (1 + 0.1 * torch.randn(c, generator=gen)).to("cuda", dtype)
-        b = (0.1 * torch.randn(c, generator=gen)).to("cuda", dtype)
+        x, w, b, _, _ = k1_inputs(torch, gen, shape, dtype)
         kw = dict(num_groups=groups, eps=eps, act=True)
         err = max_err(group_norm_act(x, w, b, **kw), group_norm_act_reference(x, w, b, **kw))
         ms = time_ms(lambda: group_norm_act(x, w, b, **kw))
         plain = time_ms(lambda: group_norm_act_reference(x, w, b, **kw))
-        library = time_ms(lambda: torch.nn.functional.silu(
-            torch.nn.functional.group_norm(x, groups, w, b, eps)))
-        # one read of x, one write of out, the affine once; ~11 f32 operations
-        # per element (statistics 3, normalize+affine 4, SiLU 4)
-        bound, bound_by, term = bound_ms(
-            2 * x.numel() * x.element_size() + 2 * c * w.element_size(),
-            **{"f32 elementwise": 11 * x.numel() / F32_OPS_PER_S})
+        library = time_ms(lambda: k1_library(torch, x, w, b, None, None, groups, eps, True))
+        bound, bound_by, term = k1_bound(x, w)
         host = host_us(lambda: group_norm_act(x, w, b, **kw))
         log(f"  timing {shape} {str(dtype)[6:]} G={groups} SiLU: kernel {ms:.4f} ms, bound "
             f"{bound:.4f} ms ({bound_by}), plain {plain:.4f} ms, F.group_norm+F.silu "
@@ -285,6 +343,73 @@ def phase_k1(torch, card: str, gen, main_batch: int) -> dict:
     # the main path's largest call: (batch, 128, 256, 256) bf16, SiLU, no FiLM
     main = timed((main_batch, 128, 256, 256), torch.bfloat16)
     return dict(name=K1.name, route="cuda", source=K1.source, replaces=K1.replaces, **main)
+
+
+@contextlib.contextmanager
+def recording_k1():
+    """Record the K1 calls the models make (per-sample shape, groups, eps,
+    act, FiLM) while passing each on to the kernel."""
+    from fmdm_tpu_torch.nn import blocks, vae_modules
+
+    calls = []
+    kernel = blocks.group_norm_act
+
+    def record(x, weight, bias, **kw):
+        calls.append((tuple(x.shape[1:]), kw["num_groups"], kw.get("eps", 1e-5),
+                      kw.get("act", True), kw.get("scale") is not None))
+        return kernel(x, weight, bias, **kw)
+
+    blocks.group_norm_act = vae_modules.group_norm_act = record
+    try:
+        yield calls
+    finally:
+        blocks.group_norm_act = vae_modules.group_norm_act = kernel
+
+
+def phase_k1_path(torch, card: str, gen, what: str, calls, batch: int, dtype) -> dict:
+    """K1 over one pass's recorded calls at ``batch`` in ``dtype``, each on
+    inputs of its own (so L2 does not carry one call's x into the next):
+    every call against its plain version, the launches per variant, and the
+    summed kernel time against the summed bound and the same calls in PyTorch."""
+    from fmdm_tpu_torch.ops.kernels.group_norm import K1, group_norm_act, group_norm_act_reference
+
+    inputs = []
+    for shape, groups, eps, act, film in calls:
+        # the models run with every weight in the activations' dtype
+        x, w, b, s, t = k1_inputs(torch, gen, (batch,) + shape, dtype, film=film)
+        inputs.append(((x, w, b), dict(num_groups=groups, eps=eps, act=act, scale=s, shift=t)))
+    rtol, atol = TOL[str(dtype).split(".")[1]]
+    worst = 0.0
+    K1.reset()
+    for args, kw in inputs:
+        got = group_norm_act(*args, **kw)
+        ref = group_norm_act_reference(*args, **kw)
+        worst = max(worst, max_err(got, ref))
+        if not bool(torch.all((got.float() - ref.float()).abs() <= atol + rtol * ref.float().abs())):
+            raise AssertionError(f"K1 {tuple(args[0].shape)} {dtype} disagrees with its plain version")
+    torch.cuda.synchronize()
+    variants = dict(K1.variants)
+    if K1.launches != len(calls):
+        raise AssertionError(f"{what}: {K1.launches} K1 calls for {len(calls)}")
+
+    def kernel_pass():
+        for args, kw in inputs:
+            group_norm_act(*args, **kw)
+
+    def library_pass():
+        for (x, w, b), kw in inputs:
+            k1_library(torch, x, w, b, kw["scale"], kw["shift"], kw["num_groups"], kw["eps"],
+                       kw["act"])
+
+    ms = time_ms(kernel_pass, iters=10, warmup=2)
+    library = time_ms(library_pass, iters=10, warmup=2)
+    bound = sum(k1_bound(args[0], args[1])[0] for args, _ in inputs)
+    log(f"  {what}: {len(calls)} calls at batch {batch} {str(dtype)[6:]}, max_abs_err "
+        f"{worst:.3e} (tolerance {atol:g} + {rtol:g}*|ref|); kernel {ms:.4f} ms summed, bound "
+        f"{bound:.4f} ms (bytes), F.group_norm+F.silu {library:.4f} ms; device launches by "
+        f"variant {variants} [{card}]")
+    return dict(ms=ms, bound_ms=bound, library_ms=library, calls=len(calls), batch=batch,
+                dtype=str(dtype)[6:], variants=variants, max_abs_err=worst)
 
 
 def k2_timed(main_batch: int):
@@ -507,8 +632,9 @@ def rel_err(got, ref) -> float:
     return max_err(got, ref) / float(ref.float().abs().max())
 
 
-def phase_vae(torch, card: str, seed: int, gen, records) -> dict:
-    """Phases [10]-[12]; returns the launch counts of the timed train steps."""
+def phase_vae(torch, card: str, seed: int, gen, records):
+    """Phases [10]-[12]; returns the launch counts of the timed train steps
+    and the K1 calls of one reconstruct."""
     from fmdm_tpu_torch.sample.vae_utils import (
         build_vae_model, decode_vae_batch, encode_vae_batch, reconstruct_vae_batch)
     from fmdm_tpu_torch.train.vae_impl import KLTrainStep
@@ -525,7 +651,8 @@ def phase_vae(torch, card: str, seed: int, gen, records) -> dict:
     x = torch.rand((1, 1, 256, 256), generator=gen)
     inputs = model.image_to_model_range(x)
     with torch.no_grad():
-        model(inputs.cuda(), sample_posterior=False)  # warm-up
+        with recording_k1() as k1_calls:
+            model(inputs.cuda(), sample_posterior=False)  # warm-up
         torch.cuda.synchronize()
         reset_counts(records)
         start = time.perf_counter()
@@ -542,8 +669,9 @@ def phase_vae(torch, card: str, seed: int, gen, records) -> dict:
     log(f"  {n_params} parameters; reconstruction {tuple(rec.shape)}, latent "
         f"{tuple(posterior.mode().shape)}; max|gpu-cpu|/max|cpu| = {errs[0]:.3e} "
         f"(reconstruction), {errs[1]:.3e} (latent mean) (tolerance {rel_tol:g})")
-    log(f"  launches per reconstruct: K1 {counts['K1']}, K3 {counts['K3']}; forward "
-        f"{fwd_s * 1e3:.2f} ms on the card, {cpu_s:.2f} s on the CPU [{card}]")
+    log(f"  launches per reconstruct: K1 {counts['K1']} (device launches by variant "
+        f"{records[0].variants}), K3 {counts['K3']}; forward {fwd_s * 1e3:.2f} ms on the card, "
+        f"{cpu_s:.2f} s on the CPU [{card}]")
     if not (torch.isfinite(rec).all() and max(errs) <= rel_tol):
         raise AssertionError(f"card VAE forward disagrees with the CPU plain path ({errs})")
 
@@ -644,12 +772,12 @@ def phase_vae(torch, card: str, seed: int, gen, records) -> dict:
             log(f"  {what}: output {tuple(out.shape)}, {call_s * 1e3:.2f} ms per call, "
                 f"{batch / call_s:.2f} images/s, launches per call "
                 f"{({k: v // SERVE_CALLS for k, v in counts.items() if v})} [{card}]")
-    return train_counts
+    return train_counts, k1_calls
 
 
 def reset_counts(records) -> None:
     for r in records:
-        r.launches = 0
+        r.reset()
 
 
 def main() -> int:
@@ -695,7 +823,8 @@ def main() -> int:
     library_kernels = sdpa_kernels(torch, k2_timed(batches[0]) + [FLASH_CASES[0][::2]])
 
     gen = torch.Generator().manual_seed(args.seed)
-    k1 = phase_k1(torch, card, gen, batches[0])
+    k1_gen = torch.Generator().manual_seed(args.seed + 1)
+    k1 = phase_k1(torch, card, gen, k1_gen, batches[0])
     k2 = phase_k2(torch, card, gen, batches[0], library_kernels)
 
     log("[5] full-width flagship forward: card (K1, K2) vs CPU plain path, f32, TF32 off")
@@ -708,7 +837,8 @@ def main() -> int:
     x = torch.randn((1, 2, 256, 256), generator=gen)
     t = torch.tensor([500])
     with torch.no_grad():
-        model(x.cuda(), t.cuda())  # warm-up
+        with recording_k1() as flagship_k1_calls:
+            model(x.cuda(), t.cuda())  # warm-up
         torch.cuda.synchronize()
         reset_counts(records)
         start = time.perf_counter()
@@ -733,6 +863,8 @@ def main() -> int:
         f"(tolerance {rel_tol:g})")
     log(f"  launches per forward: K1 {counts[0]}, K2 {counts[1]}; forward {fwd_s * 1e3:.2f} ms "
         f"on the card, {cpu_s:.2f} s on the CPU [{card}]")
+    if len(flagship_k1_calls) != K1_PER_FORWARD:
+        raise AssertionError(f"recorded {len(flagship_k1_calls)} K1 calls in one forward")
     if not (torch.isfinite(y_gpu).all() and rel <= rel_tol):
         raise AssertionError(f"card forward disagrees with the CPU plain path (rel {rel})")
 
@@ -771,10 +903,13 @@ def main() -> int:
         want = (NUM_STEPS * K1_PER_FORWARD, NUM_STEPS * K2_PER_FORWARD)
         if launches != want:
             raise AssertionError(f"sample batch {batch} launched {launches}; expected {want}")
+        # every bf16 flagship call is one launch of the single pass
+        if K1.variants != {"single_pass": want[0], "split": 0}:
+            raise AssertionError(f"sample batch {batch}: K1 device launches {K1.variants}")
         if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"sample batch {batch}: shape {tuple(out.shape)} or non-finite values")
         if main_launches is None:
-            main_launches = launches
+            main_launches, main_variants = launches, dict(K1.variants)
         secs = timing["model_seconds"]
         log(f"  batch {batch}: {secs:.4f} s, {batch * NUM_STEPS / secs:.2f} denoise steps/s, "
             f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches K1 {launches[0]} "
@@ -782,13 +917,25 @@ def main() -> int:
 
     k3 = phase_k3(torch, card, gen, library_kernels)
     k4, k5 = phase_k4_k5(torch, card, gen)
-    train_counts = phase_vae(torch, card, args.seed, gen, (K1, K2, K3, K4, K5))
+    train_counts, vae_k1_calls = phase_vae(torch, card, args.seed, gen, (K1, K2, K3, K4, K5))
+    vae_batch = int(json.loads(VAE_CONFIG.read_text())["training"]["batch_size"])
+
+    log("[13] K1 over the recorded calls of one flagship forward and one VAE reconstruct")
+    forward = phase_k1_path(torch, card, k1_gen, "flagship forward", flagship_k1_calls, batches[0],
+                            torch.bfloat16)
+    if forward["variants"] != {"single_pass": K1_PER_FORWARD, "split": 0}:
+        raise AssertionError(f"flagship forward: K1 device launches {forward['variants']}")
+    reconstruct = phase_k1_path(torch, card, k1_gen, "VAE reconstruct", vae_k1_calls, vae_batch,
+                                torch.float32)
+    k1["per_forward"] = {"flagship forward": forward, "VAE reconstruct": reconstruct}
+    k1["variants"] = main_variants
 
     k1["launches"], k2["launches"] = main_launches
     k3["launches"], k4["launches"], k5["launches"] = (train_counts[k] for k in ("K3", "K4", "K5"))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_term", "library_ms", "shape", "dtype")
-    log(json.dumps({"kernels": [{**{k: r[k] for k in keys}, "library_kernel": r.get("library_kernel")}
+    extra = ("library_kernel", "variants", "per_forward")
+    log(json.dumps({"kernels": [{**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
                                 for r in (k1, k2, k3, k4, k5)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

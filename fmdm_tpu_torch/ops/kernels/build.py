@@ -23,7 +23,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import List
+from typing import Dict, List
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -41,12 +41,19 @@ class KernelRecord:
 
     ``launches`` is a plain integer that the wrapper increments where it
     launches the kernel and nowhere else; a run resets it to 0 and reads it
-    back to show that its path went through the kernel."""
+    back to show that its path went through the kernel. A kernel with
+    variants also counts its device launches per variant in ``variants``."""
 
     name: str
     source: str     # CUDA source, relative to the repository root
     replaces: str   # the TPU kernel it replaces, file:line
     launches: int = 0
+    variants: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def reset(self) -> None:
+        self.launches = 0
+        for key in self.variants:
+            self.variants[key] = 0
 
 
 @dataclasses.dataclass

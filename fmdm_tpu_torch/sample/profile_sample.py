@@ -36,7 +36,7 @@ BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16, NVIDIA data sheet
 
 # kernel-name fragments -> class, first match wins
 CLASSES = (
-    ("K1 group_norm_act", ("gn_stats", "gn_apply")),
+    ("K1 group_norm_act", ("gn_cluster", "gn_stats", "gn_apply")),
     ("K2 small_t_attention", ("small_t_attention",)),
     ("K3 flash_forward", ("flash_fwd",)),
     ("K4 flash_backward_dkv", ("flash_bwd_dkv",)),
