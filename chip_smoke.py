@@ -18,8 +18,10 @@ Phases, each printing one or more lines:
    and off, f32 weights under bf16; its timings at the largest call;
 4. K2 (small-T attention) against its plain version: the flagship's two
    calls in f32 and bf16, T = 1, T = 17, ragged T = 100 at d = 24, T = 1000
-   at d = 64, the 8² call at batch 32, and bf16 logits scaled up 8x; its
-   timings, and the name of the kernel SDPA launches at the timed shape;
+   at d = 64, the 8² call at batch 32, and bf16 logits scaled up 8x on five
+   draws (where P's rounding may tie, an output also passes no farther from
+   float64 than the plain version); its timings, and the name of the kernel
+   SDPA launches at the timed shape;
 5. the full-width flagship forward (batch 1, f32, TF32 off) on the card
    through K1 and K2, against the same module on the CPU's plain path, and
    the kernels' launch counts per forward;
@@ -30,7 +32,8 @@ Phases, each printing one or more lines:
    steps/s;
 8. K3 (flash forward) against its plain version: the VAE's shape in f32
    and bf16, a ragged T, cross-attention to 77 keys, d = 32 and 128, one key,
-   17 queries; timings, and the name of the kernel SDPA launches;
+   17 queries, the f32 cases on four draws each; timings, and the name of
+   the kernel SDPA launches;
 9. K4 (dK/dV) and K5 (dQ) against the plain backward at the same shapes, at
    one key, at 17 queries, and at a head dim whose rows are not 16-byte
    aligned; two calls on the same inputs bitwise equal; timings, and the pair
@@ -48,11 +51,29 @@ Phases, each printing one or more lines:
     of its own: every call against its plain version, the device launches
     per variant (every bf16 flagship call one single-pass launch), the
     summed kernel time against the summed bound and F.group_norm+F.silu;
-14. a ``{"kernels": [...]}`` line, then the result line
+14. ``sdpa`` at shapes no kernel takes (cross-attention at Tq < 1024, d = 96
+    at T = 256, d = 160 at T = 1024) on its plain route on the card, against
+    ``sdpa_xla`` on the CPU, with no kernel launched;
+15. the full-width forward of the attention-conditioned flagship
+    (``configs/LDCT/PixelAttention/LDCT_ddpm_attention_diffusers_nd.json``,
+    mid block ``UNetMidBlock2DCrossAttn`` attending to a 4x32x32 latent),
+    card against the CPU plain path, and its launches;
+16. the flagship's denoise train step (DDPM, AdamW at the cosine-warmup
+    rate) through ``build_denoise_trainer``, f32, TF32 off, at batch 1 on the
+    card against the CPU plain path with the same noise and t: loss, every
+    gradient, the card's update against AdamW replayed on the CPU, launches;
+17. 10 timed train steps at the config's batch 8 (ms per step, images/s,
+    peak memory, launches per step) and one flow-matching step of
+    ``configs/LDCT/LDCT_flow_matching_diffusers_nd.json``;
+18. the first 3 DDPM steps of the config's schedule through
+    ``SamplingEngine``, f32, batch 1, card against CPU with the same noise
+    per step; then 5 bf16 DDPM steps at batch 8 drawing from a CUDA generator;
+19. a ``{"kernels": [...]}`` line, then the result line
     ``{"ok": true, "device": {...}}``.
 
 The flagship is ``model.unet`` of ``configs/LDCT/LDCT_ddpm_diffusers_nd.json``
-with concatenate conditioning and random weights drawn from ``--seed``; the
+with concatenate conditioning and random weights drawn from ``--seed`` (in
+the train step every weight, the zero-initialized ones too); the
 VAE is ``configs/LDCT/LDCT_autoencoder_kl.json`` at its published widths with
 every weight drawn from ``--seed`` (the zero-initialized projections too, so
 every gradient path carries signal). Any failed check raises, and the script
@@ -74,6 +95,9 @@ from pathlib import Path
 
 REPO_ROOT = Path(__file__).resolve().parent
 CONFIG = REPO_ROOT / "configs" / "LDCT" / "LDCT_ddpm_diffusers_nd.json"
+FLOW_CONFIG = REPO_ROOT / "configs" / "LDCT" / "LDCT_flow_matching_diffusers_nd.json"
+ATTENTION_CONFIG = (REPO_ROOT / "configs" / "LDCT" / "PixelAttention"
+                    / "LDCT_ddpm_attention_diffusers_nd.json")
 VAE_CONFIG = REPO_ROOT / "configs" / "LDCT" / "LDCT_autoencoder_kl.json"
 
 # H100 SXM, NVIDIA data sheet (dense): HBM rate and peak operation rates
@@ -99,8 +123,26 @@ VAE_LAUNCHES = {
     "reconstruct": {"K1": 50, "K3": 2},
     "train step": {"K1": 50, "K3": 2, "K4": 2, "K5": 2},  # K1's backward is plain
 }
+# the flagship's denoise train step (and each DDPM step): the forward's
+# kernels, K1's and K2's backward being the autograd of their plain versions
+DENOISE_LAUNCHES = {"K1": K1_PER_FORWARD, "K2": K2_PER_FORWARD}
+# the attention-conditioned flagship: its mid block cross-attends (sdpa_xla)
+# instead of self-attending, so K2 serves the other five calls
+CROSS_ATTENTION_LAUNCHES = {"K1": K1_PER_FORWARD, "K2": K2_PER_FORWARD - 1}
+DDPM_STEPS = 3       # card vs CPU
+DDPM_BF16_STEPS = 5  # at the config's batch
+REL_TOL = 1e-3  # card vs CPU plain path: conv algorithms and sum orders differ
+# sdpa at shapes no kernel takes (q shape, Tk, dtype, what)
+SDPA_PLAIN_CASES = (
+    ((1, 64, 64, 8), 1024, "float32", "cross-attention, 8² to a 32² latent"),
+    ((2, 8, 256, 64), 77, "bfloat16", "cross-attention to 77 tokens"),
+    ((2, 4, 256, 96), 256, "float32", "self-attention, d = 96 at T = 256"),
+    ((1, 2, 1024, 160), 1024, "float32", "self-attention, d = 160 at T = 1024"),
+)
 TRAIN_STEPS = 10
 SERVE_CALLS = 5
+K2_X8_DRAWS = 4   # further draws of K2's bf16 case at logits x8
+K3_F32_DRAWS = 3  # further draws of each f32 K3 case
 
 
 def log(msg: str = "") -> None:
@@ -421,7 +463,35 @@ def k2_timed(main_batch: int):
             ((32, 64, 256, 8), "bfloat16"), ((main_batch, 64, 256, 8), "bfloat16")]
 
 
-def phase_k2(torch, card: str, gen, main_batch: int, library_kernels: dict) -> dict:
+def small_t_float64(torch, q, k, v):
+    """K2's function in float64 on the same inputs, P rounded to V's dtype
+    as the kernel and the plain version round it."""
+    s = (q.double() @ k.double().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return (p.to(v.dtype).double() @ v.double()) / p.sum(-1, keepdim=True)
+
+
+def check_close_or_nearer(torch, what: str, got, ref, exact, rtol: float, atol: float) -> float:
+    """check_close, except that an output outside the tolerance of the plain
+    version also passes where it is no farther from the float64 evaluation
+    ``exact`` than the plain version is, plus the tolerance: where p sits
+    within f32 ulps of a bf16 midpoint, P's rounding may fall on either side
+    in the kernel and in the plain version, and the plain side may be the one
+    off."""
+    diff = (got.double() - ref.double()).abs()
+    near = diff <= atol + rtol * ref.double().abs()
+    nearer = (got.double() - exact).abs() <= (ref.double() - exact).abs() + atol + rtol * exact.abs()
+    ok = bool(torch.all(near | nearer))
+    err = float(diff.max())
+    log(f"  {what}: max_abs_err {err:.3e} (tolerance {atol:g} + {rtol:g}*|ref|, or no farther "
+        f"from float64 than the plain version; {int((~near).sum())} outputs by the second) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: kernel disagrees with its plain version (max_abs_err {err})")
+    return err
+
+
+def phase_k2(torch, card: str, gen, own_gen, main_batch: int, library_kernels: dict) -> dict:
     from fmdm_tpu_torch.ops.kernels.small_t_attention import (
         K2, small_t_attention, small_t_attention_reference)
 
@@ -432,22 +502,29 @@ def phase_k2(torch, card: str, gen, main_batch: int, library_kernels: dict) -> d
     # the 8² call at the sample's batch 32, and logits 8x larger in bf16
     # (q * 8, exact), where one or two keys carry most of a row. There P's
     # rounding to bf16 can fall on either side for kernel and plain version
-    # when p sits within f32 ulps of a midpoint; at this shape no output
-    # moves past the tolerance that way (PERF.md §6 has larger shapes).
-    cases = [(shape, dtype, 1.0) for shape in ((2, 64, 256, 8), (2, 64, 64, 8), (2, 4, 1, 8),
-                                                (2, 64, 17, 8), (3, 5, 100, 24), (1, 2, 1000, 64))
+    # when p sits within f32 ulps of a midpoint, so that case is also judged
+    # against float64 (check_close_or_nearer), on the draw from `gen` and on
+    # further draws from `own_gen`, which leave the later phases' inputs as
+    # they were.
+    cases = [(shape, dtype, 1.0, gen) for shape in ((2, 64, 256, 8), (2, 64, 64, 8), (2, 4, 1, 8),
+                                                     (2, 64, 17, 8), (3, 5, 100, 24), (1, 2, 1000, 64))
              for dtype in (torch.float32, torch.bfloat16)]
-    cases += [((32, 64, 64, 8), torch.bfloat16, 1.0), ((2, 64, 256, 8), torch.bfloat16, 8.0)]
+    cases += [((32, 64, 64, 8), torch.bfloat16, 1.0, gen)]
+    cases += [((2, 64, 256, 8), torch.bfloat16, 8.0, draw) for draw in (gen,) + (own_gen,) * K2_X8_DRAWS]
     worst = 0.0
-    for shape, dtype, q_mul in cases:
-        q, k, v = (torch.randn(shape, generator=gen).to("cuda", dtype) for _ in range(3))
+    for shape, dtype, q_mul, draw in cases:
+        q, k, v = (torch.randn(shape, generator=draw).to("cuda", dtype) for _ in range(3))
         q = q * q_mul
         got = small_t_attention(q, k, v)
         torch.cuda.synchronize()
         ref = small_t_attention_reference(q, k, v)
         rtol, atol = TOL[str(dtype).split(".")[1]]
-        err = check_close(f"{shape} {str(dtype)[6:]}{' q*8' if q_mul != 1.0 else ''}", got, ref,
-                          rtol, atol)
+        if q_mul != 1.0:
+            err = check_close_or_nearer(
+                torch, f"{shape} {str(dtype)[6:]} q*8{'' if draw is gen else ' (own draw)'}", got,
+                ref, small_t_float64(torch, q, k, v), rtol, atol)
+        else:
+            err = check_close(f"{shape} {str(dtype)[6:]}", got, ref, rtol, atol)
         if dtype == torch.bfloat16:
             worst = max(worst, err)
 
@@ -502,20 +579,26 @@ def flash_product_ms(ops: float) -> str:
             f"3xTF32 {3 * ops / TF32_OPS_PER_S * 1e3:.4f} ms")
 
 
-def phase_k3(torch, card: str, gen, library_kernels: dict) -> dict:
+def phase_k3(torch, card: str, gen, own_gen, library_kernels: dict) -> dict:
     from fmdm_tpu_torch.ops.kernels.flash_attention import (
         K3, flash_attention_reference, flash_forward)
 
     log("[8] K3 flash_forward vs its plain version")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     worst = 0.0
-    for q_shape, tk, dtype in K3_CASES:
-        q, k, v, _ = flash_inputs(torch, gen, q_shape, tk, dtype)
+    # every case on a draw from `gen`; the f32 ones, whose tolerance is a few
+    # ulps, also on K3_F32_DRAWS draws from `own_gen`, which leave the later
+    # phases' inputs as they were
+    draws = [(case, gen) for case in K3_CASES]
+    draws += [(case, own_gen) for case in K3_CASES if case[2] == "float32"
+              for _ in range(K3_F32_DRAWS)]
+    for (q_shape, tk, dtype), draw in draws:
+        q, k, v, _ = flash_inputs(torch, draw, q_shape, tk, dtype)
         scale = q_shape[-1] ** -0.5
         out, lse = flash_forward(q, k, v, scale)
         torch.cuda.synchronize()
         ref_out, ref_lse = flash_attention_reference(q, k, v, scale)
-        what = f"q {q_shape} Tk={tk} {dtype}"
+        what = f"q {q_shape} Tk={tk} {dtype}{'' if draw is gen else ' (own draw)'}"
         worst = max(worst, check_close(f"{what} out", out, ref_out, *TOL[dtype]),
                     check_close(f"{what} lse", lse, ref_lse, *TOL["float32"]))
 
@@ -664,15 +747,14 @@ def phase_vae(torch, card: str, seed: int, gen, records):
         rec_cpu, posterior_cpu = cpu_model(inputs, sample_posterior=False)
         cpu_s = time.perf_counter() - start
     expect_counts("the VAE reconstruct", counts, VAE_LAUNCHES["reconstruct"])
-    rel_tol = 1e-3  # conv algorithms and sum orders differ between cuDNN and the CPU
     errs = (rel_err(rec.cpu(), rec_cpu), rel_err(posterior.mode().cpu(), posterior_cpu.mode()))
     log(f"  {n_params} parameters; reconstruction {tuple(rec.shape)}, latent "
         f"{tuple(posterior.mode().shape)}; max|gpu-cpu|/max|cpu| = {errs[0]:.3e} "
-        f"(reconstruction), {errs[1]:.3e} (latent mean) (tolerance {rel_tol:g})")
+        f"(reconstruction), {errs[1]:.3e} (latent mean) (tolerance {REL_TOL:g})")
     log(f"  launches per reconstruct: K1 {counts['K1']} (device launches by variant "
         f"{records[0].variants}), K3 {counts['K3']}; forward {fwd_s * 1e3:.2f} ms on the card, "
         f"{cpu_s:.2f} s on the CPU [{card}]")
-    if not (torch.isfinite(rec).all() and max(errs) <= rel_tol):
+    if not (torch.isfinite(rec).all() and max(errs) <= REL_TOL):
         raise AssertionError(f"card VAE forward disagrees with the CPU plain path ({errs})")
 
     log("[11] KL-VAE train step (L1 + kl_weight * KL, AdamW), f32, TF32 off: batch 1 card vs "
@@ -721,7 +803,7 @@ def phase_vae(torch, card: str, seed: int, gen, records):
         f"({worst_name}); parameters after AdamW: {flips} of {n_params} elements differ by more "
         f"than 1e-3*lr, none by more than 2*lr; card update vs AdamW replayed on the CPU "
         f"{update_err:.3e}; CPU step {cpu_s:.2f} s")
-    if not (loss_rel <= rel_tol and worst_grad <= rel_tol and update_err <= 1e-6):
+    if not (loss_rel <= REL_TOL and worst_grad <= REL_TOL and update_err <= 1e-6):
         raise AssertionError(f"card train step disagrees with the CPU plain path (loss {loss_rel}, "
                              f"gradient {worst_grad} at {worst_name}, update {update_err})")
     del cpu_model, trainers[1], card_params, replay, before
@@ -780,6 +862,236 @@ def reset_counts(records) -> None:
         r.reset()
 
 
+def phase_sdpa_routes(torch, card: str, gen, records) -> None:
+    """[14]: sdpa on the card at shapes no kernel takes, against sdpa_xla on
+    the CPU; no kernel may launch."""
+    from fmdm_tpu_torch.ops.attention import kernel_route, sdpa, sdpa_xla
+
+    log("[14] sdpa's plain route on the card (shapes no kernel takes) vs sdpa_xla on the CPU")
+    reset_counts(records)
+    for q_shape, tk, dtype, what in SDPA_PLAIN_CASES:
+        q, k, v, _ = flash_inputs(torch, gen, q_shape, tk, dtype)
+        route = kernel_route(q, k, v)
+        if route != "sdpa_xla":
+            raise AssertionError(f"sdpa q {q_shape} Tk={tk} {dtype}: route {route}, not sdpa_xla")
+        got = sdpa(q, k, v)
+        torch.cuda.synchronize()
+        ref = sdpa_xla(q.cpu(), k.cpu(), v.cpu())
+        check_close(f"{what}: q {q_shape} Tk={tk} {dtype} [{route}]", got.cpu(), ref, *TOL[dtype])
+    if any(r.launches for r in records):
+        raise AssertionError(f"sdpa's plain route launched a kernel: {read_counts(records)}")
+
+
+def phase_cross_attention(torch, card: str, seed: int, gen, records) -> None:
+    """[15]: the attention-conditioned flagship's forward, card vs CPU."""
+    from fmdm_tpu_torch.models.factories import DiffusionUNetFactory
+    from fmdm_tpu_torch.sample.engine import normalize_latent_conditioning, prepare_attention_context
+
+    log("[15] full-width forward of the attention-conditioned flagship (mid block "
+        "UNetMidBlock2DCrossAttn to a 4x32x32 latent): card (K1, K2, sdpa_xla) vs CPU plain path, "
+        "f32, TF32 off")
+    cfg = json.loads(ATTENTION_CONFIG.read_text())
+    model = DiffusionUNetFactory().build(cfg["model"]["unet"], conditioning="attention", channels=1,
+                                         device="cuda")
+    random_weights(torch, model, torch.Generator().manual_seed(seed))
+    model.eval()
+    cpu_model = copy.deepcopy(model).cpu()
+    x = torch.randn((1, 1, 256, 256), generator=gen)
+    # the conditioning is a KL-VAE latent of a 256² slice, standardized per sample
+    latent = torch.randn((1, 4, 32, 32), generator=gen)
+    ctx = prepare_attention_context(normalize_latent_conditioning(latent,
+                                                                  cfg["training"]["latent_norm"]))
+    t = torch.tensor([500])
+    with torch.no_grad():
+        model(x.cuda(), t.cuda(), context_ca=ctx.cuda())  # warm-up
+        torch.cuda.synchronize()
+        reset_counts(records)
+        y = model(x.cuda(), t.cuda(), context_ca=ctx.cuda())
+        torch.cuda.synchronize()
+        counts = read_counts(records)
+        start = time.perf_counter()
+        y_cpu = cpu_model(x, t, context_ca=ctx)
+        cpu_s = time.perf_counter() - start
+    expect_counts("the cross-attention forward", counts, CROSS_ATTENTION_LAUNCHES)
+    rel = rel_err(y.cpu(), y_cpu)
+    log(f"  output {tuple(y.shape)}; max|gpu-cpu|/max|cpu| = {rel:.3e} (tolerance {REL_TOL:g}); "
+        f"launches per forward {({k: v for k, v in counts.items() if v})}; the mid block's "
+        f"cross-attention takes sdpa_xla; {cpu_s:.2f} s on the CPU [{card}]")
+    if not (torch.isfinite(y).all() and rel <= REL_TOL):
+        raise AssertionError(f"card cross-attention forward disagrees with the CPU plain path ({rel})")
+
+
+def grad_errors(model, cpu_model):
+    """The worst (error, name) over the parameters: max|gpu - cpu| of the
+    gradients over max|cpu|. A key projection's bias gets no gradient but
+    rounding (the softmax cancels a shift of the keys), so its error is taken
+    over the largest gradient of the projection's weight instead."""
+    cpu_grads = {name: p.grad for name, p in cpu_model.named_parameters()}
+    worst = (0.0, "")
+    for name, p in model.named_parameters():
+        ref = cpu_grads[name]
+        scale = cpu_grads[name[:-len("bias")] + "weight"] if name.endswith("to_k.bias") else ref
+        worst = max(worst, (max_err(p.grad.cpu(), ref) / float(scale.abs().max()), name))
+    return worst
+
+
+class InjectedNoise:
+    """A stochastic scheduler whose step ``i`` adds ``noises[i]`` (moved to the
+    sample's device) instead of drawing from the generator the engine hands
+    it, so that the card and the CPU take the same steps."""
+
+    def __init__(self, scheduler, noises):
+        self.scheduler, self.noises = scheduler, noises
+
+    def __getattr__(self, name):
+        return getattr(self.scheduler, name)
+
+    def step(self, state, model_output, index, sample, timesteps, generator=None):
+        return self.scheduler.step(state, model_output, index, sample, timesteps,
+                                   noise=self.noises[index].to(sample.device))
+
+
+def train_batch(torch, gen, batch: int, device: str) -> dict:
+    """A synthetic batch of 256² slices in [-1, 1] (targets and conditioning)."""
+    shape = (batch, 1, 256, 256)
+    return {"target": (torch.rand(shape, generator=gen) * 2 - 1).to(device),
+            "image": (torch.rand(shape, generator=gen) * 2 - 1).to(device),
+            "valid": torch.ones(batch, device=device)}
+
+
+def phase_denoise(torch, card: str, seed: int, gen, records):
+    """Phases [16]-[18]: the flagship's denoise train step and DDPM sampling;
+    returns the launch counts of the timed train steps."""
+    from fmdm_tpu_torch.sample.engine import SamplingEngine
+    from fmdm_tpu_torch.schedulers import build_scheduler
+    from fmdm_tpu_torch.train.denoise_lib import build_denoise_trainer
+
+    log("[16] flagship denoise train step (DDPM, AdamW at the cosine-warmup rate), f32, TF32 off: "
+        "batch 1 card vs CPU plain path, same noise and t")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = json.loads(CONFIG.read_text())
+    training = cfg["training"]
+    batch = int(training["train_batch_size"])
+    warmup = int(training["lr_warmup_steps"])
+    # num_samples sets only the schedule's length: every step here runs past
+    # the warmup, where the rate is the config's learning rate
+    model, scheduler, step = build_denoise_trainer(cfg, variant="diffusion", num_samples=batch,
+                                                   device="cuda")
+    random_weights(torch, model, torch.Generator().manual_seed(seed))
+    cpu_model, _, cpu_step = build_denoise_trainer(cfg, variant="diffusion", num_samples=batch,
+                                                   device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    step.global_step = cpu_step.global_step = warmup
+    lr = step.lr_schedule(warmup)
+    n_params = sum(p.numel() for p in model.parameters())
+    data = train_batch(torch, gen, 1, "cpu")
+    noise = torch.randn((1, 1, 256, 256), generator=gen)
+    t = torch.randint(0, scheduler.num_train_timesteps, (1,), generator=gen)
+    before = [p.detach().cpu().clone() for p in model.parameters()]
+    reset_counts(records)
+    loss_gpu, _ = step.step({k: v.cuda() for k, v in data.items()}, noise=noise.cuda(), t=t.cuda())
+    torch.cuda.synchronize()
+    expect_counts("the flagship train step", read_counts(records), DENOISE_LAUNCHES)
+    start = time.perf_counter()
+    loss_cpu, _ = cpu_step.step(data, noise=noise, t=t)
+    cpu_s = time.perf_counter() - start
+    loss_rel = abs(float(loss_gpu) - float(loss_cpu)) / abs(float(loss_cpu))
+    worst_grad, worst_name = grad_errors(model, cpu_model)
+    # the card's update is AdamW's: the CPU optimizer on the card's own
+    # gradients and parameters gives the card's parameters within f32 ulps
+    replay = [p0.clone().requires_grad_(True) for p0 in before]
+    for p, pg in zip(replay, model.parameters()):
+        p.grad = pg.grad.cpu()
+    torch.optim.AdamW(replay, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                      weight_decay=float(training["weight_decay"])).step()
+    update_err = max(max_err(p.detach(), pg.detach().cpu())
+                     for p, pg in zip(replay, model.parameters()))
+    moved = max(max_err(pg.detach().cpu(), p0) for pg, p0 in zip(model.parameters(), before))
+    log(f"  {n_params} parameters, t = {int(t)}, rate {lr:g}; loss card {float(loss_gpu):.6f} CPU "
+        f"{float(loss_cpu):.6f} (rel {loss_rel:.3e}); worst gradient max|gpu-cpu|/max|cpu| "
+        f"{worst_grad:.3e} ({worst_name}; each to_k.bias over its weight's largest); card "
+        f"update vs AdamW replayed on the CPU {update_err:.3e} "
+        f"(largest move {moved:.3e}); launches per step {DENOISE_LAUNCHES}; CPU step "
+        f"{cpu_s:.2f} s [{card}]")
+    if not (loss_rel <= REL_TOL and worst_grad <= REL_TOL and update_err <= 1e-6 and moved > 0):
+        raise AssertionError(f"card train step disagrees with the CPU plain path (loss {loss_rel}, "
+                             f"gradient {worst_grad} at {worst_name}, update {update_err})")
+    del cpu_step, replay, before
+
+    log(f"[17] flagship denoise train step, {TRAIN_STEPS} timed steps at the config's batch "
+        f"{batch}, f32, TF32 off; one flow-matching step")
+    data = train_batch(torch, gen, batch, "cuda")
+    noise_gen = torch.Generator("cuda").manual_seed(seed)
+    step.step(data, generator=noise_gen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(records)
+    start = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        loss_sum, count = step.step(data, generator=noise_gen)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - start) / TRAIN_STEPS
+    train_counts = read_counts(records)
+    expect_counts("a timed flagship train step", train_counts, DENOISE_LAUNCHES, TRAIN_STEPS)
+    if not (bool(torch.isfinite(loss_sum)) and float(count) == batch):
+        raise AssertionError(f"the timed train steps gave loss {float(loss_sum)}, count {float(count)}")
+    log(f"  batch {batch}, {TRAIN_STEPS} steps: {step_s * 1e3:.2f} ms per step, "
+        f"{batch / step_s:.2f} images/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"launches per step {({k: v // TRAIN_STEPS for k, v in train_counts.items() if v})}, "
+        f"last mean loss {float(loss_sum) / batch:.6f} [{card}]")
+    flow_cfg = json.loads(FLOW_CONFIG.read_text())
+    _, flow_sched, flow_step = build_denoise_trainer(flow_cfg, variant="flow_matching",
+                                                     num_samples=batch, device="cuda")
+    flow_step.global_step = warmup
+    reset_counts(records)
+    flow_loss, _ = flow_step.step(data, generator=noise_gen)
+    torch.cuda.synchronize()
+    expect_counts("a flow-matching train step", read_counts(records), DENOISE_LAUNCHES)
+    log(f"  flow matching ({type(flow_sched).__name__}), batch {batch}: mean loss "
+        f"{float(flow_loss) / batch:.6f}")
+    if not bool(torch.isfinite(flow_loss)):
+        raise AssertionError("the flow-matching train step gave a non-finite loss")
+    del flow_step, flow_sched
+
+    log(f"[18] DDPM sampling: the first {DDPM_STEPS} steps of the config's schedule, f32, batch 1, "
+        f"card vs CPU plain path with the same noise per step; then {DDPM_BF16_STEPS} bf16 steps "
+        f"at batch {batch} from a CUDA generator")
+    ddpm, n_inference = build_scheduler(cfg["model"]["scheduler"], training)
+    timesteps = ddpm.set_timesteps(n_inference)
+    shape = (1, 1, 256, 256)
+    init = torch.randn(shape, generator=gen)
+    cond = torch.rand(shape, generator=gen) * 2 - 1
+    noises = [torch.randn(shape, generator=gen) for _ in range(DDPM_STEPS)]
+    cpu_model.load_state_dict(model.state_dict())
+    short = []
+    for m, d in ((model, "cuda"), (cpu_model, "cpu")):
+        engine = SamplingEngine(m, InjectedNoise(ddpm, noises), timesteps[:DDPM_STEPS],
+                                conditioning_mode="concatenate", device=d)
+        short.append(engine(shape, conditioning_batch=cond, init_sample=init).cpu())
+    rel = rel_err(*short)
+    log(f"  timesteps {timesteps[:DDPM_STEPS].tolist()}: max|gpu-cpu|/max|cpu| = {rel:.3e} "
+        f"(tolerance {REL_TOL:g})")
+    if not (torch.isfinite(short[0]).all() and rel <= REL_TOL):
+        raise AssertionError(f"card DDPM steps disagree with the CPU plain path (rel {rel})")
+    del cpu_model
+    engine = SamplingEngine(model, ddpm, timesteps[:DDPM_BF16_STEPS], conditioning_mode="concatenate",
+                            compute_dtype=torch.bfloat16, device="cuda")
+    shape = (batch, 1, 256, 256)
+    cond = torch.full(shape, 0.5, device="cuda")
+    engine(shape, torch.Generator("cuda").manual_seed(seed), conditioning_batch=cond)  # warm-up
+    reset_counts(records)
+    timing = {}
+    out = engine(shape, torch.Generator("cuda").manual_seed(seed), conditioning_batch=cond,
+                 timing=timing)
+    expect_counts("bf16 DDPM sampling", read_counts(records), DENOISE_LAUNCHES, DDPM_BF16_STEPS)
+    if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"bf16 DDPM sample: shape {tuple(out.shape)} or non-finite values")
+    log(f"  bf16, batch {batch}: {DDPM_BF16_STEPS} steps in {timing['model_seconds']:.4f} s, "
+        f"output mean {float(out.mean()):.4f} std {float(out.std()):.4f} [{card}]")
+    return train_counts
+
+
 def main() -> int:
     import torch
 
@@ -825,7 +1137,8 @@ def main() -> int:
     gen = torch.Generator().manual_seed(args.seed)
     k1_gen = torch.Generator().manual_seed(args.seed + 1)
     k1 = phase_k1(torch, card, gen, k1_gen, batches[0])
-    k2 = phase_k2(torch, card, gen, batches[0], library_kernels)
+    k2 = phase_k2(torch, card, gen, torch.Generator().manual_seed(args.seed + 2), batches[0],
+                  library_kernels)
 
     log("[5] full-width flagship forward: card (K1, K2) vs CPU plain path, f32, TF32 off")
     torch.backends.cudnn.allow_tf32 = False
@@ -857,15 +1170,14 @@ def main() -> int:
     if (K1.launches, K2.launches) != counts:
         raise AssertionError("the CPU forward launched a kernel")
     rel = max_err(y_gpu, y_cpu) / float(y_cpu.abs().max())
-    rel_tol = 1e-3  # conv algorithms and sum orders differ between cuDNN and the CPU
     log(f"  {n_params} parameters; output {tuple(y_gpu.shape)} finite="
         f"{bool(torch.isfinite(y_gpu).all())}; max|gpu-cpu|/max|cpu| = {rel:.3e} "
-        f"(tolerance {rel_tol:g})")
+        f"(tolerance {REL_TOL:g})")
     log(f"  launches per forward: K1 {counts[0]}, K2 {counts[1]}; forward {fwd_s * 1e3:.2f} ms "
         f"on the card, {cpu_s:.2f} s on the CPU [{card}]")
     if len(flagship_k1_calls) != K1_PER_FORWARD:
         raise AssertionError(f"recorded {len(flagship_k1_calls)} K1 calls in one forward")
-    if not (torch.isfinite(y_gpu).all() and rel <= rel_tol):
+    if not (torch.isfinite(y_gpu).all() and rel <= REL_TOL):
         raise AssertionError(f"card forward disagrees with the CPU plain path (rel {rel})")
 
     scheduler = DPMSolverMultistepScheduler.create(
@@ -881,8 +1193,8 @@ def main() -> int:
                             device=d)(shape, conditioning_batch=cond, init_sample=init).cpu()
              for m, d in ((model, "cuda"), (cpu_model, "cpu"))]
     rel = max_err(*short) / float(short[1].abs().max())
-    log(f"  max|gpu-cpu|/max|cpu| = {rel:.3e} (tolerance {rel_tol:g})")
-    if not (torch.isfinite(short[0]).all() and rel <= rel_tol):
+    log(f"  max|gpu-cpu|/max|cpu| = {rel:.3e} (tolerance {REL_TOL:g})")
+    if not (torch.isfinite(short[0]).all() and rel <= REL_TOL):
         raise AssertionError(f"card sampling loop disagrees with the CPU plain path (rel {rel})")
     del cpu_model
 
@@ -915,9 +1227,10 @@ def main() -> int:
             f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches K1 {launches[0]} "
             f"K2 {launches[1]}, output mean {float(out.mean()):.4f} std {float(out.std()):.4f} [{card}]")
 
-    k3 = phase_k3(torch, card, gen, library_kernels)
+    k3 = phase_k3(torch, card, gen, torch.Generator().manual_seed(args.seed + 3), library_kernels)
     k4, k5 = phase_k4_k5(torch, card, gen)
-    train_counts, vae_k1_calls = phase_vae(torch, card, args.seed, gen, (K1, K2, K3, K4, K5))
+    all_records = (K1, K2, K3, K4, K5)
+    train_counts, vae_k1_calls = phase_vae(torch, card, args.seed, gen, all_records)
     vae_batch = int(json.loads(VAE_CONFIG.read_text())["training"]["batch_size"])
 
     log("[13] K1 over the recorded calls of one flagship forward and one VAE reconstruct")
@@ -930,11 +1243,24 @@ def main() -> int:
     k1["per_forward"] = {"flagship forward": forward, "VAE reconstruct": reconstruct}
     k1["variants"] = main_variants
 
+    phase_sdpa_routes(torch, card, gen, all_records)
+    phase_cross_attention(torch, card, args.seed, gen, all_records)
+    denoise_counts = phase_denoise(torch, card, args.seed, gen, all_records)
+
     k1["launches"], k2["launches"] = main_launches
     k3["launches"], k4["launches"], k5["launches"] = (train_counts[k] for k in ("K3", "K4", "K5"))
+    # each path's launches, counted from 0 over its run: the sample's, and
+    # the TRAIN_STEPS timed steps of each train step
+    sample_counts = {"K1": main_launches[0], "K2": main_launches[1]}
+    for r in (k1, k2, k3, k4, k5):
+        kernel = r["name"].split()[0]
+        r["launches_by_path"] = {
+            f"{NUM_STEPS}-step sample, batch {batches[0]}": sample_counts.get(kernel, 0),
+            f"flagship train step x {TRAIN_STEPS}": denoise_counts[kernel],
+            f"VAE train step x {TRAIN_STEPS}": train_counts[kernel]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_term", "library_ms", "shape", "dtype")
-    extra = ("library_kernel", "variants", "per_forward")
+    extra = ("library_kernel", "variants", "per_forward", "launches_by_path")
     log(json.dumps({"kernels": [{**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
                                 for r in (k1, k2, k3, k4, k5)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,11 +38,12 @@
 // core's rounding. K4 works on the transposed tile and leaves K and V in
 // shared memory; K5 holds q and reads dO from shared memory (see each
 // kernel's note). The tensor core rounds its sums toward zero: dP, from
-// which delta is subtracted, keeps its small products apart, and dK, dV and
-// dQ, which sum over every tile of the loop, take each tile's share from
-// fresh accumulators by one f32 add. Without the two, the error against the
-// plain version was 3x larger and passed the f32 tolerance at Tk = 1 and
-// Tk = 77 only by the draw; they cost about 1% of the kernels' time.
+// which delta is subtracted, keeps its small products apart, and K3's output,
+// dK, dV and dQ, which sum over every tile of the loop, take each tile's
+// share from fresh accumulators by one f32 add. Without the two, the error
+// against the plain version was 3x larger and passed the f32 tolerance at
+// Tk = 1 and Tk = 77 only by the draw; they cost about 1% of K4's and K5's
+// time.
 //
 // bf16 inputs are widened to f32 as they are read and the outputs rounded
 // once. Ragged tails are masked: keys past Tk get a score of -inf in K3 and

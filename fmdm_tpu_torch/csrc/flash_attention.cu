@@ -10,7 +10,9 @@ namespace {
 // 16 w + 15 of the tile: q * scale stays in registers as f32 A fragments,
 // the scores and the output accumulate in C fragments, and rows g and g + 8
 // of a fragment belong to one quad, so row max and row sum are quad shuffles.
-// K and V pass through a 2-slot cp.async ring of 64-key tiles.
+// K and V pass through a 2-slot cp.async ring of 64-key tiles. Each tile's PV
+// product sums in fresh accumulators that one f32 add folds into the
+// corrected running output, as K4 and K5 sum dK, dV and dQ (flash.cuh).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -91,7 +93,7 @@ __global__ void __launch_bounds__(kThreads)
           l[j >> 1] += s[n][j];
         }
       }
-      fmdm::pv_3xtf32<T, D, S>(acc, s, vs + slot * kTileElems, g, t);
+      fmdm::pv_3xtf32<T, D, S, true>(acc, s, vs + slot * kTileElems, g, t);
     }
     __syncthreads();  // the slot is free for the copy issued next
   }

@@ -5,7 +5,9 @@ The JAX engine compiles the reverse process into one ``lax.scan``; here it is
 a Python loop over the selected timesteps. The model computes in
 ``compute_dtype`` (bf16 on the serving path) while the sample and the
 scheduler math stay in f32. ``start_step``/``last_n_steps`` filtering happens
-host-side on the timestep array. Not ported: the device mesh and DeepCache.
+host-side on the timestep array. A stochastic scheduler (``needs_noise``)
+draws each step's noise from a generator on the engine's device, where JAX
+splits one key per step. Not ported: the device mesh and DeepCache.
 """
 
 from __future__ import annotations
@@ -82,6 +84,18 @@ def select_timesteps(timesteps: np.ndarray, start_step: Optional[int] = None,
     return timesteps
 
 
+def step_generator(generator: Optional[torch.Generator], device: torch.device) -> torch.Generator:
+    """The generator a stochastic scheduler's steps draw from: ``generator``
+    when it lives on ``device``, else a new one on ``device`` seeded by a
+    draw from ``generator`` (from torch's default generator when it is None)."""
+    if generator is not None and generator.device.type == device.type and \
+            (device.index is None or generator.device.index == device.index):
+        return generator
+    seed = torch.randint(2**62, (), generator=generator,
+                         device=None if generator is None else generator.device)
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -135,7 +149,8 @@ class SamplingEngine:
         timing: Optional[Dict[str, Any]] = None,
     ) -> torch.Tensor:
         """Sample ``sample_shape`` from pure noise (drawn with ``generator``,
-        which must live on the engine's device) or from ``init_sample``.
+        which must live on the engine's device) or from ``init_sample``. A
+        stochastic scheduler's steps draw from :func:`step_generator`.
 
         ``timing`` receives ``model_seconds`` (device-synchronized seconds of
         the step loop; set-up, the kernel build and host-to-device copies are
@@ -154,6 +169,7 @@ class SamplingEngine:
                 cond = prepare_attention_context(normalize_latent_conditioning(cond, self.latent_norm))
             if self.compute_dtype is not None:
                 cond = cond.to(self.compute_dtype)
+        step_gen = step_generator(generator, device) if scheduler.needs_noise else None
         int_t = np.issubdtype(self.timesteps.dtype, np.integer)
         t_all = torch.as_tensor(self.timesteps, device=device,
                                 dtype=torch.int32 if int_t else torch.float32)
@@ -175,7 +191,7 @@ class SamplingEngine:
                 elif self.conditioning_mode == "attention" and cond is not None:
                     ctx = cond
                 pred = model(model_input, t_all[i].expand(x.shape[0]), context_ca=ctx).float()
-                state, x = scheduler.step(state, pred, i, x, self.timesteps)
+                state, x = scheduler.step(state, pred, i, x, self.timesteps, generator=step_gen)
         _synchronize(device)
         if timing is not None:
             timing["model_seconds"] = timing.get("model_seconds", 0.0) + (time.perf_counter() - start)

@@ -13,7 +13,8 @@ matrix product, optimizer, elementwise and copies, other), the share of the
 window the device was idle (busy time is the union of the kernels' intervals
 on the device timeline), the convolutions' FLOPs against the bf16 peak,
 and one JSON line with the same numbers. The card's name and power limit are
-printed beside them. ``train/profile_vae.py`` reuses the breakdown.
+printed beside them. ``train/profile_vae.py`` and ``train/profile_denoise.py``
+reuse the breakdown.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ CLASSES = (
     ("K4 flash_backward_dkv", ("flash_bwd_dkv",)),
     ("K5 flash_backward_dq", ("flash_bwd_dq",)),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit", "nchwToNhwc", "nhwcToNchw",
-                     "xmma", "cudnn")),
+                     "xmma", "cudnn", "fft", "pointwise_mult_and_sum_complex", "region_transform")),
     ("matrix product", ("gemm", "cublas", "cutlass")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("elementwise and copies", ("elementwise", "vectorized", "copy", "CatArray", "cat_", "fill",

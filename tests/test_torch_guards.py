@@ -54,7 +54,9 @@ def _entry_points():
     from fmdm_tpu_torch.nn.blocks import ResBlockND, SpatialSelfAttention
     from fmdm_tpu_torch.sample.engine import SamplingEngine
     from fmdm_tpu_torch.sample.vae_utils import build_vae_model
-    from fmdm_tpu_torch.schedulers import DPMSolverMultistepScheduler
+    from fmdm_tpu_torch.schedulers import DDPMScheduler, DPMSolverMultistepScheduler
+    from fmdm_tpu_torch.train.common import make_adamw, make_denoise_train_step
+    from fmdm_tpu_torch.train.denoise_lib import build_denoise_trainer
 
     cfg = {"unet_impl": "diffusers_nd", "block_out_channels": [8, 16], "norm_num_groups": 4,
            "layers_per_block": 1, "down_block_types": ["DownBlock2D", "DownBlock2D"],
@@ -62,6 +64,15 @@ def _entry_points():
     sched = DPMSolverMultistepScheduler.create()
     vae = {"resolution": 8, "base_ch": 8, "down_channels": [8, 8], "num_res_blocks": 1,
            "in_channels": 1, "out_channels": 1, "attn_heads": 2, "attn_dim_head": 4}
+    denoise = {"training": {"batch_size": 2}, "model": {"unet": cfg, "model_type": "diffusion"}}
+
+    def train_step(**kw):
+        model = DiffusionUNetFactory().build(cfg, "concatenate", 1, device="cpu")
+        optimizer, schedule = make_adamw(model.parameters(), 1e-4, 0.0, 1, 10)
+        return make_denoise_train_step(model, DDPMScheduler.create(), optimizer, schedule,
+                                       variant="diffusion", conditioning_mode="concatenate",
+                                       latent_norm=None, **kw)
+
     return {
         "factory": lambda **kw: DiffusionUNetFactory().build(cfg, "concatenate", 1, **kw),
         "unet": lambda **kw: UNetDiffusersND(block_out_channels=(8, 16), norm_num_groups=4,
@@ -74,11 +85,15 @@ def _entry_points():
         "autoencoder_kl": lambda **kw: AutoencoderKL(**vae, **kw),
         "build_vae_model": lambda **kw: build_vae_model({"model": vae}, **kw),
         "spatial_attention": lambda **kw: SpatialSelfAttention(8, heads=2, dim_head=4, **kw),
+        "build_denoise_trainer": lambda **kw: build_denoise_trainer(denoise, variant="diffusion",
+                                                                    num_samples=4, **kw),
+        "make_denoise_train_step": train_step,
     }
 
 
 @pytest.mark.parametrize("name", ["factory", "unet", "resblock", "engine", "vae_factory",
-                                  "autoencoder_kl", "build_vae_model", "spatial_attention"])
+                                  "autoencoder_kl", "build_vae_model", "spatial_attention",
+                                  "build_denoise_trainer", "make_denoise_train_step"])
 def test_entry_points_default_to_cuda_and_never_fall_back(name, monkeypatch):
     make = _entry_points()[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -104,6 +119,10 @@ def test_cpu_forward_launches_no_kernel():
     assert out.shape == (1, 1, 8, 8)
     vae = _entry_points()["vae_factory"](device="cpu")
     KLTrainStep(vae, {}).step(torch.rand(2, 1, 8, 8), torch.ones(2))
+    batch = {"target": torch.rand(2, 1, 8, 8), "image": torch.rand(2, 1, 8, 8),
+             "valid": torch.ones(2)}
+    _entry_points()["make_denoise_train_step"](device="cpu").step(
+        batch, generator=torch.Generator().manual_seed(0))
     assert [r.launches for r in records] == [0] * 5
 
 
