@@ -68,8 +68,26 @@ Phases, each printing one or more lines:
 18. the first 3 DDPM steps of the config's schedule through
     ``SamplingEngine``, f32, batch 1, card against CPU with the same noise
     per step; then 5 bf16 DDPM steps at batch 8 drawing from a CUDA generator;
-19. a ``{"kernels": [...]}`` line, then the result line
-    ``{"ok": true, "device": {...}}``.
+19. each scheduler ported for the decode path (DDIM at eta 0 and 1, UniPC
+    bh1/bh2 at orders 1-3 with and without Karras sigmas, DPM-Solver++ at
+    order 3, with Karras sigmas and as 'sde-dpmsolver++', DPM-SDE) over a
+    whole 25-step schedule at the decode's sample shape, card against CPU on
+    the same model outputs and noise, no model;
+20. a trained run's decode at full width: a run dir written with the
+    config's ``train_config.json`` and a ``diff_last.pt`` from the port's
+    ``save_checkpoint`` (the ``--seed`` weights after one AdamW step, their
+    EMA, the optimizer's state), read back through ``load_run_config``,
+    ``resolve_checkpoint`` and ``build_diffusion_model`` bitwise (``model``
+    and, under ``set_use_ema``, ``ema``); ``decode_diffusion_batch`` in f32
+    at batch 4, 8 inference steps, under the config's DDPM and seven
+    scheduler overrides, a partial decode from ``start_step`` 700 with
+    ``init_from_reference``, and a flow-matching run dir: model calls, K1
+    and K2 launches per call, denoise steps/s, peak memory; then two decodes
+    of 3 model calls at batch 1 (DPM-SDE with injected noise, UniPC order 3
+    with Karras sigmas), card against the CPU plain path, with PSNR and SSIM
+    between them;
+21. the whole run's seconds, a ``{"kernels": [...]}`` line, then the result
+    line ``{"ok": true, "device": {...}}``.
 
 The flagship is ``model.unet`` of ``configs/LDCT/LDCT_ddpm_diffusers_nd.json``
 with concatenate conditioning and random weights drawn from ``--seed`` (in
@@ -140,6 +158,39 @@ SDPA_PLAIN_CASES = (
     ((1, 2, 1024, 160), 1024, "float32", "self-attention, d = 160 at T = 1024"),
 )
 TRAIN_STEPS = 10
+DECODE_BATCH = 4     # run_model's default --batch_size
+SCHEDULER_STEPS = 25  # [19]: a whole schedule per scheduler
+# [20]: inference steps per decode, cut from 25 to keep the run near 300 s:
+# at batch 4 in f32 a flagship forward takes 0.6-1.1 s on the H100, where
+# cuDNN runs one convolution as an FFT-tiled GEMM of 66,048 launches
+# (python -m fmdm_tpu_torch.sample.decode_report)
+DECODE_STEPS = 8
+# [19]: the schedulers of the decode path, as (registry name, create params)
+NEW_SCHEDULERS = (
+    ("ddim", {}), ("ddim", {"eta": 1.0}),
+    *(("unipc", {"solver_type": kind, "solver_order": order, "use_karras_sigmas": karras})
+      for kind in ("bh1", "bh2") for order in (1, 2, 3) for karras in (False, True)),
+    ("dpm_multistep", {"solver_order": 3}), ("dpm_multistep", {"use_karras_sigmas": True}),
+    ("dpm_multistep", {"algorithm_type": "sde-dpmsolver++"}), ("dpm_sde", {}),
+)
+# card vs CPU over a whole chain of scheduler steps: the same f32 operations,
+# which the card may contract into FMAs
+SCHEDULER_REL_TOL = 1e-5
+# [20]: the decode runs, as (label, scheduler_override, decode kwargs)
+DECODE_RUNS = (
+    ("ddpm (the config's)", None, {}),
+    ("ddim", "ddim", {}),
+    ("unipc", "unipc", {}),
+    ("unipc order 3, Karras", "unipc?solver_order=3,use_karras_sigmas=true", {}),
+    ("dpmsolver++ order 3", "dpmsolver++?solver_order=3", {}),
+    ("dpmsolver++ Karras", "dpmsolver++?use_karras_sigmas=true", {}),
+    ("sde-dpmsolver++", "dpmsolver++?algorithm_type=sde-dpmsolver++", {}),
+    ("dpmsolversde", "dpmsolversde", {}),
+    ("ddpm from start_step 700, init_from_reference", None,
+     {"start_step": 700, "init_from_reference": True}),
+)
+# [20]: card vs CPU, decodes of 3 model calls at batch 1 (steps, override)
+DECODE_PARITY = ((2, "dpmsolversde"), (3, "unipc?solver_order=3,use_karras_sigmas=true"))
 SERVE_CALLS = 5
 K2_X8_DRAWS = 4   # further draws of K2's bf16 case at logits x8
 K3_F32_DRAWS = 3  # further draws of each f32 K3 case
@@ -935,22 +986,6 @@ def grad_errors(model, cpu_model):
     return worst
 
 
-class InjectedNoise:
-    """A stochastic scheduler whose step ``i`` adds ``noises[i]`` (moved to the
-    sample's device) instead of drawing from the generator the engine hands
-    it, so that the card and the CPU take the same steps."""
-
-    def __init__(self, scheduler, noises):
-        self.scheduler, self.noises = scheduler, noises
-
-    def __getattr__(self, name):
-        return getattr(self.scheduler, name)
-
-    def step(self, state, model_output, index, sample, timesteps, generator=None):
-        return self.scheduler.step(state, model_output, index, sample, timesteps,
-                                   noise=self.noises[index].to(sample.device))
-
-
 def train_batch(torch, gen, batch: int, device: str) -> dict:
     """A synthetic batch of 256² slices in [-1, 1] (targets and conditioning)."""
     shape = (batch, 1, 256, 256)
@@ -1066,9 +1101,10 @@ def phase_denoise(torch, card: str, seed: int, gen, records):
     cpu_model.load_state_dict(model.state_dict())
     short = []
     for m, d in ((model, "cuda"), (cpu_model, "cpu")):
-        engine = SamplingEngine(m, InjectedNoise(ddpm, noises), timesteps[:DDPM_STEPS],
-                                conditioning_mode="concatenate", device=d)
-        short.append(engine(shape, conditioning_batch=cond, init_sample=init).cpu())
+        engine = SamplingEngine(m, ddpm, timesteps[:DDPM_STEPS], conditioning_mode="concatenate",
+                                device=d)
+        short.append(engine(shape, conditioning_batch=cond, init_sample=init,
+                            step_noise=noises).cpu())
     rel = rel_err(*short)
     log(f"  timesteps {timesteps[:DDPM_STEPS].tolist()}: max|gpu-cpu|/max|cpu| = {rel:.3e} "
         f"(tolerance {REL_TOL:g})")
@@ -1092,6 +1128,170 @@ def phase_denoise(torch, card: str, seed: int, gen, records):
     return train_counts
 
 
+def phase_schedulers(torch, gen) -> None:
+    """[19]: each scheduler of the decode path over a whole schedule, card
+    against CPU, on the same model outputs and noise (no model)."""
+    from fmdm_tpu_torch.schedulers import build_scheduler
+
+    shape = (DECODE_BATCH, 1, 256, 256)
+    log(f"[19] the decode path's schedulers, {SCHEDULER_STEPS} steps at {shape} f32: card vs CPU "
+        f"on the same model outputs and noise")
+    for name, params in NEW_SCHEDULERS:
+        scheduler, _ = build_scheduler({"name": name, "params": params}, {})
+        timesteps = scheduler.set_timesteps(SCHEDULER_STEPS)
+        start = torch.randn(shape, generator=gen) * scheduler.init_noise_scale(timesteps)
+        outputs = [torch.randn(shape, generator=gen) for _ in timesteps]
+        noises = [torch.randn(shape, generator=gen) for _ in timesteps] if scheduler.needs_noise \
+            else None
+        ends = []
+        for device in ("cuda", "cpu"):
+            x = start.to(device)
+            state = scheduler.init_state(timesteps, x)
+            for i in range(len(timesteps)):
+                noise = {"noise": noises[i].to(device)} if noises else {}
+                state, x = scheduler.step(state, outputs[i].to(device), i, x, timesteps, **noise)
+            ends.append(x.cpu())
+        rel = rel_err(*ends)
+        what = f"{name} {params or ''}".strip()
+        log(f"  {what}: {len(timesteps)} steps, max|gpu-cpu|/max|cpu| = {rel:.3e} "
+            f"(tolerance {SCHEDULER_REL_TOL:g})")
+        if not (torch.isfinite(ends[0]).all() and rel <= SCHEDULER_REL_TOL):
+            raise AssertionError(f"{what}: the card's steps disagree with the CPU's (rel {rel})")
+
+
+def image_range(x):
+    """Model range [-1, 1] -> [0, 1], clipped (the evaluation's range)."""
+    return ((x.float() + 1) / 2).clamp(0, 1)
+
+
+def phase_decode(torch, card: str, seed: int, gen, records) -> dict:
+    """[20]: decode the flagship from a trained run dir under every scheduler;
+    returns the K1 and K2 launches of the timed decodes."""
+    import tempfile
+
+    from fmdm_tpu_torch.sample.diffusion_utils import (
+        build_diffusion_model, decode_diffusion_batch, set_use_ema)
+    from fmdm_tpu_torch.sample.sampling_utils import load_run_config, resolve_checkpoint
+    from fmdm_tpu_torch.train.denoise_lib import build_denoise_trainer
+    from fmdm_tpu_torch.utils.checkpoint import save_checkpoint
+    from fmdm_tpu_torch.utils.config import save_json_config
+    from fmdm_tpu_torch.utils.evaluation import compute_ssim_sample, psnr_from_mse
+
+    log(f"[20] a trained run's decode at full width: run dir -> build_diffusion_model -> "
+        f"decode_diffusion_batch, f32, TF32 off, batch {DECODE_BATCH}, {DECODE_STEPS} steps")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = json.loads(CONFIG.read_text())
+    cfg["training"]["ema_decay"] = 0.999   # a run trained with EMA records it
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir, flow_dir = Path(tmp) / "ddpm", Path(tmp) / "flow"
+        save_json_config(run_dir / "train_config.json", cfg)
+        # the --seed weights after one AdamW step at batch 1, and their EMA
+        model, _, step = build_denoise_trainer(cfg, variant="diffusion", num_samples=1,
+                                               device="cuda")
+        random_weights(torch, model, torch.Generator().manual_seed(seed))
+        step.ema = [p.detach().clone() for p in model.parameters()]
+        step.global_step = int(cfg["training"]["lr_warmup_steps"])  # past the warmup's zero rate
+        loss, _ = step.step(train_batch(torch, gen, 1, "cuda"),
+                            generator=torch.Generator("cuda").manual_seed(seed))
+        written = {"model": {k: v.cpu() for k, v in model.state_dict().items()},
+                   "ema": {k: v.cpu() for k, v in step.ema_state_dict().items()}}
+        save_checkpoint({"model": written["model"], "ema": written["ema"],
+                         "optimizer": step.optimizer, "lr_scheduler": {"last_epoch": 1},
+                         "scaler": None, "epoch": 1, "best_metric": float(loss)},
+                        run_dir / "diff_last.pt")
+        del model, step
+        run_cfg = load_run_config(run_dir)
+        ckpt = resolve_checkpoint(run_dir, run_cfg["model"]["model_type"])
+        for tree in ("ema", "model"):
+            set_use_ema(tree == "ema")
+            model = build_diffusion_model(run_cfg, ckpt, device="cuda")
+            loaded = model.state_dict()
+            same = loaded.keys() == written[tree].keys() and all(
+                torch.equal(loaded[k].cpu(), v) for k, v in written[tree].items())
+            log(f"  {ckpt.name} '{tree}' tree: {len(loaded)} tensors, equal to the written ones "
+                f"bitwise: {same}")
+            if not same:
+                raise AssertionError(f"the '{tree}' tree read back from {ckpt} differs")
+        set_use_ema(False)
+        moved = max(max_err(loaded[k].cpu(), written["ema"][k]) for k in loaded)
+        if moved == 0:
+            raise AssertionError("the EMA tree equals the model's: the check cannot tell them apart")
+
+        training, model_cfg = run_cfg["training"], run_cfg["model"]
+        shape = (DECODE_BATCH, 1, 256, 256)
+        cond = (torch.rand(shape, generator=gen) * 2 - 1).cuda()
+        reference = (torch.rand(shape, generator=gen) * 2 - 1).cuda()
+        decode_gen = torch.Generator("cuda")
+        decode_diffusion_batch(model, training, model_cfg, shape, cond, generator=decode_gen,
+                               num_inference_steps=2, device="cuda")  # warm-up: cuDNN's first calls
+
+        def timed_decode(label, model, training, model_cfg, override, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(records)
+            timing = {}
+            out = decode_diffusion_batch(model, training, model_cfg, shape, cond,
+                                         generator=decode_gen.manual_seed(seed), timing=timing,
+                                         num_inference_steps=DECODE_STEPS,
+                                         reference_batch=reference, scheduler_override=override,
+                                         device="cuda", **kw)
+            calls, secs = timing["model_calls"], timing["model_seconds"]
+            counts = read_counts(records)
+            expect_counts(f"decode '{label}'", counts, DENOISE_LAUNCHES, calls)
+            finite = bool(torch.isfinite(out).all())
+            log(f"  {label}: {calls} model calls in {secs:.4f} s, "
+                f"{DECODE_BATCH * calls / secs:.2f} denoise steps/s, peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches K1 {counts['K1']} "
+                f"K2 {counts['K2']}, finite={finite}, output mean {float(out.mean()):.4f} std "
+                f"{float(out.std()):.4f} [{card}]")
+            if tuple(out.shape) != shape or not finite:
+                raise AssertionError(f"decode '{label}': shape {tuple(out.shape)} or non-finite")
+            return counts
+
+        totals = {"K1": 0, "K2": 0}
+        for label, override, kw in DECODE_RUNS:
+            counts = timed_decode(label, model, training, model_cfg, override, **kw)
+            totals = {k: totals[k] + counts[k] for k in totals}
+
+        flow_cfg = json.loads(FLOW_CONFIG.read_text())
+        save_json_config(flow_dir / "train_config.json", flow_cfg)
+        flow = build_diffusion_model(flow_cfg, device="cuda")
+        random_weights(torch, flow, torch.Generator().manual_seed(seed + 1))
+        save_checkpoint({"model": flow, "epoch": 1}, flow_dir / "flow_last.pt")
+        flow_run = load_run_config(flow_dir)
+        flow_ckpt = resolve_checkpoint(flow_dir, flow_run["model"]["model_type"])
+        flow = build_diffusion_model(flow_run, flow_ckpt, device="cuda")
+        counts = timed_decode(f"flow matching from {flow_ckpt.name} "
+                              f"({flow_run['model']['scheduler']['name']})", flow,
+                              flow_run["training"], flow_run["model"], None)
+        totals = {k: totals[k] + counts[k] for k in totals}
+        del flow
+
+        cpu_model = build_diffusion_model(run_cfg, ckpt, device="cpu")
+        one = (1, 1, 256, 256)
+        for steps, override in DECODE_PARITY:
+            init = torch.randn(one, generator=gen)
+            noises = [torch.randn(one, generator=gen) for _ in range(2 * steps - 1)]
+            outs = []
+            for m, device in ((model, "cuda"), (cpu_model, "cpu")):
+                timing = {}
+                out = decode_diffusion_batch(
+                    m, training, model_cfg, one, cond[:1].to(device), timing=timing,
+                    num_inference_steps=steps, scheduler_override=override, init_noise=init,
+                    step_noise=noises if "sde" in override else None, device=device)
+                outs.append(out.cpu())
+            rel = rel_err(*outs)
+            mse = float(((image_range(outs[0]) - image_range(outs[1])) ** 2).mean())
+            ssim = compute_ssim_sample(image_range(outs[0])[0].numpy(), image_range(outs[1])[0].numpy())
+            log(f"  card vs CPU, {override}, {timing['model_calls']} model calls at batch 1: "
+                f"max|gpu-cpu|/max|cpu| = {rel:.3e} (tolerance {REL_TOL:g}); PSNR "
+                f"{psnr_from_mse(mse):.2f} dB, SSIM {ssim:.6f} (images in [0, 1])")
+            if not (torch.isfinite(outs[0]).all() and rel <= REL_TOL):
+                raise AssertionError(f"decode {override}: card disagrees with the CPU (rel {rel})")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -1102,6 +1302,7 @@ def main() -> int:
     args = parser.parse_args()
     batches = [int(b) for b in args.batches.split(",")]
 
+    run_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1246,6 +1447,8 @@ def main() -> int:
     phase_sdpa_routes(torch, card, gen, all_records)
     phase_cross_attention(torch, card, args.seed, gen, all_records)
     denoise_counts = phase_denoise(torch, card, args.seed, gen, all_records)
+    phase_schedulers(torch, gen)
+    decode_counts = phase_decode(torch, card, args.seed, gen, all_records)
 
     k1["launches"], k2["launches"] = main_launches
     k3["launches"], k4["launches"], k5["launches"] = (train_counts[k] for k in ("K3", "K4", "K5"))
@@ -1257,10 +1460,13 @@ def main() -> int:
         r["launches_by_path"] = {
             f"{NUM_STEPS}-step sample, batch {batches[0]}": sample_counts.get(kernel, 0),
             f"flagship train step x {TRAIN_STEPS}": denoise_counts[kernel],
-            f"VAE train step x {TRAIN_STEPS}": train_counts[kernel]}
+            f"VAE train step x {TRAIN_STEPS}": train_counts[kernel],
+            f"decode from a run dir, {len(DECODE_RUNS) + 1} runs at batch {DECODE_BATCH}":
+                decode_counts.get(kernel, 0)}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_term", "library_ms", "shape", "dtype")
     extra = ("library_kernel", "variants", "per_forward", "launches_by_path")
+    log(f"whole run: {time.perf_counter() - run_start:.1f} s")
     log(json.dumps({"kernels": [{**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
                                 for r in (k1, k2, k3, k4, k5)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,11 @@ a Python loop over the selected timesteps. The model computes in
 scheduler math stay in f32. ``start_step``/``last_n_steps`` filtering happens
 host-side on the timestep array. A stochastic scheduler (``needs_noise``)
 draws each step's noise from a generator on the engine's device, where JAX
-splits one key per step. Not ported: the device mesh and DeepCache.
+splits one key per step, or takes it from the caller (``step_noise``), so a
+run can replay another run's draws. A sigma-space scheduler (DPM-SDE) scales
+each model input and the initial noise at the position of the sliced
+schedule (``scale_model_input``, ``init_noise_scale``). Not ported: the device
+mesh and DeepCache.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from __future__ import annotations
 import copy
 import math
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -147,10 +151,12 @@ class SamplingEngine:
         conditioning_batch: Optional[torch.Tensor] = None,
         init_sample: Optional[torch.Tensor] = None,
         timing: Optional[Dict[str, Any]] = None,
+        step_noise: Optional[Sequence[torch.Tensor]] = None,
     ) -> torch.Tensor:
         """Sample ``sample_shape`` from pure noise (drawn with ``generator``,
         which must live on the engine's device) or from ``init_sample``. A
-        stochastic scheduler's steps draw from :func:`step_generator`.
+        stochastic scheduler's steps draw from :func:`step_generator`, or take
+        ``step_noise[i]`` at step i (one tensor per selected timestep).
 
         ``timing`` receives ``model_seconds`` (device-synchronized seconds of
         the step loop; set-up, the kernel build and host-to-device copies are
@@ -169,7 +175,14 @@ class SamplingEngine:
                 cond = prepare_attention_context(normalize_latent_conditioning(cond, self.latent_norm))
             if self.compute_dtype is not None:
                 cond = cond.to(self.compute_dtype)
-        step_gen = step_generator(generator, device) if scheduler.needs_noise else None
+        step_gen = None
+        if step_noise is not None:
+            if not scheduler.needs_noise or len(step_noise) != len(self.timesteps):
+                raise ValueError(f"step_noise: {len(step_noise)} tensors for a "
+                                 f"{'stochastic' if scheduler.needs_noise else 'deterministic'} "
+                                 f"scheduler of {len(self.timesteps)} steps")
+        elif scheduler.needs_noise:
+            step_gen = step_generator(generator, device)
         int_t = np.issubdtype(self.timesteps.dtype, np.integer)
         t_all = torch.as_tensor(self.timesteps, device=device,
                                 dtype=torch.int32 if int_t else torch.float32)
@@ -191,7 +204,11 @@ class SamplingEngine:
                 elif self.conditioning_mode == "attention" and cond is not None:
                     ctx = cond
                 pred = model(model_input, t_all[i].expand(x.shape[0]), context_ca=ctx).float()
-                state, x = scheduler.step(state, pred, i, x, self.timesteps, generator=step_gen)
+                if step_noise is None:
+                    state, x = scheduler.step(state, pred, i, x, self.timesteps, generator=step_gen)
+                else:
+                    state, x = scheduler.step(state, pred, i, x, self.timesteps,
+                                              noise=step_noise[i].to(device))
         _synchronize(device)
         if timing is not None:
             timing["model_seconds"] = timing.get("model_seconds", 0.0) + (time.perf_counter() - start)

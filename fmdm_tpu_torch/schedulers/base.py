@@ -79,6 +79,87 @@ def spaced_timesteps(spacing: str, num_train: int, num_inference: int, steps_off
                      f"linspace, leading, trailing)")
 
 
+def karras_sigmas(sigma_min: float, sigma_max: float, num_inference: int,
+                  rho: float = 7.0) -> np.ndarray:
+    """Karras et al. (2022) noise schedule (diffusers ``_convert_to_karras``):
+    a rho-space ramp from sigma_max down to sigma_min, float64 host side."""
+    ramp = np.linspace(0, 1, num_inference)
+    min_inv_rho = sigma_min ** (1 / rho)
+    max_inv_rho = sigma_max ** (1 / rho)
+    return (max_inv_rho + ramp * (min_inv_rho - max_inv_rho)) ** rho
+
+
+def sigma_to_t(sigmas: np.ndarray, log_sigmas: np.ndarray) -> np.ndarray:
+    """Continuous timestep of each sigma by log-space interpolation into the
+    training sigma table (diffusers ``_sigma_to_t``), vectorized."""
+    log_sigma = np.log(np.maximum(sigmas, 1e-10))  # (n,)
+    dists = log_sigma[None, :] - log_sigmas[:, None]  # (N, n)
+    low_idx = np.cumsum((dists >= 0), axis=0).argmax(axis=0).clip(max=log_sigmas.shape[0] - 2)
+    high_idx = low_idx + 1
+    low, high = log_sigmas[low_idx], log_sigmas[high_idx]
+    w = np.clip((low - log_sigma) / (low - high), 0, 1)
+    return (1 - w) * low_idx + w * high_idx
+
+
+def karras_timesteps(alphas_cumprod: np.ndarray, num_inference: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(timesteps, sigmas) of the multistep solvers' Karras schedule: a rho-7
+    ramp between the FULL training table's extremes (not the spaced
+    schedule's), each sigma mapped back to a rounded integer timestep for the
+    model (diffusers ``set_timesteps``)."""
+    acp = np.asarray(alphas_cumprod, np.float64)
+    all_sigmas = np.sqrt((1.0 - acp) / acp)
+    sigmas = karras_sigmas(float(all_sigmas[0]), float(all_sigmas[-1]), num_inference)
+    return sigma_to_t(sigmas, np.log(all_sigmas)).round().astype(np.int64), sigmas
+
+
+def f32(value) -> torch.Tensor:
+    """``value`` as a float32 tensor (the schedulers' scalar coefficients)."""
+    return torch.as_tensor(value, dtype=torch.float32)
+
+
+def nonzero_or_one(value: torch.Tensor) -> torch.Tensor:
+    """``value``, or 1 where it is 0: a division guard, as JAX's ``where``."""
+    return value if float(value) != 0.0 else f32(1.0)
+
+
+def step_sigmas(alphas_cumprod: np.ndarray, timesteps: np.ndarray, final_sigma_min: bool,
+                karras: bool = False, karras_stash: Optional[np.ndarray] = None) -> torch.Tensor:
+    """f32 sigma at each selected timestep of a variance-preserving solver,
+    plus the final sigma (sigma_min, or 0). Under Karras sigmas these are the
+    last ``len(timesteps)`` of the continuous ramp stashed by set_timesteps
+    (a sliced schedule keeps a suffix), not the table's at the rounded
+    timesteps."""
+    if karras:
+        if karras_stash is None:
+            raise ValueError("use_karras_sigmas requires set_timesteps() before step()")
+        stored = np.asarray(karras_stash, np.float32)
+        if len(timesteps) > stored.shape[0]:
+            raise ValueError("timesteps longer than the Karras schedule")
+        sigmas = torch.from_numpy(stored[stored.shape[0] - len(timesteps):].copy())
+    else:
+        acp = f32(alphas_cumprod)[torch.as_tensor(np.asarray(timesteps), dtype=torch.long)]
+        sigmas = torch.sqrt((1.0 - acp) / acp)
+    if final_sigma_min:
+        a0 = f32(alphas_cumprod[0])
+        final = torch.sqrt((1.0 - a0) / a0)[None]
+    else:
+        final = torch.zeros((1,), dtype=torch.float32)
+    return torch.cat([sigmas, final])
+
+
+def alpha_sigma(sigma: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(alpha_t, sigma_t) of a VP sample at noise level ``sigma``."""
+    alpha_t = 1.0 / torch.sqrt(sigma ** 2 + 1.0)
+    return alpha_t, sigma * alpha_t
+
+
+def log_snr(sigma: torch.Tensor) -> torch.Tensor:
+    """lambda = log(alpha_t) - log(sigma_t), sigma_t floored at 1e-10 (the
+    final sigma may be 0)."""
+    alpha_t, sigma_t = alpha_sigma(sigma)
+    return torch.log(alpha_t) - torch.log(torch.maximum(sigma_t, f32(1e-10)))
+
+
 def check_unimplemented_kwargs(name: str, extra: Dict[str, Any], recognized: frozenset) -> None:
     """A diffusers parameter we recognize but have not implemented would change
     the numerics: refuse it. Unknown keys are dropped with a warning."""
@@ -134,6 +215,11 @@ class Scheduler:
     def needs_noise(self) -> bool:
         """Whether step() draws random noise."""
         return False
+
+
+def broadcast_to_sample(coeff: torch.Tensor, sample: torch.Tensor) -> torch.Tensor:
+    """(B,) -> (B, 1, 1, ...) matching the sample's rank, in its dtype."""
+    return coeff.reshape(coeff.shape + (1,) * (sample.dim() - coeff.dim())).to(sample.dtype)
 
 
 def dynamic_threshold(x0: torch.Tensor, ratio: float, max_value: float) -> torch.Tensor:

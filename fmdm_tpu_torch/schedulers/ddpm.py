@@ -23,6 +23,7 @@ import torch
 
 from fmdm_tpu_torch.schedulers.base import (
     Scheduler,
+    broadcast_to_sample,
     check_unimplemented_kwargs,
     dynamic_threshold,
     make_beta_schedule,
@@ -97,10 +98,8 @@ class DDPMScheduler(Scheduler):
         """sqrt(acp[t]) x0 + sqrt(1 - acp[t]) noise, acp gathered in f32 at
         integer t and the coefficients cast to x0's dtype."""
         acp = torch.as_tensor(self.alphas_cumprod, dtype=_F32, device=x0.device)[t.long()]
-        shape = acp.shape + (1,) * (x0.dim() - acp.dim())
-        sqrt_acp = torch.sqrt(acp).reshape(shape).to(x0.dtype)
-        sqrt_1m = torch.sqrt(1.0 - acp).reshape(shape).to(x0.dtype)
-        return sqrt_acp * x0 + sqrt_1m * noise
+        return (broadcast_to_sample(torch.sqrt(acp), x0) * x0
+                + broadcast_to_sample(torch.sqrt(1.0 - acp), x0) * noise)
 
     # -- reverse process ------------------------------------------------------
     def set_timesteps(self, num_inference_steps: int) -> np.ndarray:

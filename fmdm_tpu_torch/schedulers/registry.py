@@ -2,29 +2,28 @@
 Scheduler registry, builder and CLI alias resolution (counterpart of
 ``fmdm_tpu/schedulers/registry.py:25-122``): the same registry names, the same
 alias table, the same constructor-kwarg filtering by signature.
-
-Names whose classes are not ported yet stay in the registry as the class's
-name; :func:`build_scheduler` raises ``NotImplementedError`` naming it when
-it looks one up.
 """
 
 from __future__ import annotations
 
 import inspect
 import json
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Tuple
 
 from fmdm_tpu_torch.schedulers.base import Scheduler
+from fmdm_tpu_torch.schedulers.ddim import DDIMScheduler
 from fmdm_tpu_torch.schedulers.ddpm import DDPMScheduler
 from fmdm_tpu_torch.schedulers.dpm import DPMSolverMultistepScheduler
+from fmdm_tpu_torch.schedulers.dpm_sde import DPMSolverSDEScheduler
 from fmdm_tpu_torch.schedulers.flow_match import FlowMatchEulerDiscreteScheduler
+from fmdm_tpu_torch.schedulers.unipc import UniPCMultistepScheduler
 
-SCHEDULER_REGISTRY: Dict[str, Union[type, str]] = {
+SCHEDULER_REGISTRY: Dict[str, type] = {
     "ddpm": DDPMScheduler,
-    "ddim": "DDIMScheduler",
+    "ddim": DDIMScheduler,
     "dpm_multistep": DPMSolverMultistepScheduler,
-    "dpm_sde": "DPMSolverSDEScheduler",
-    "unipc": "UniPCMultistepScheduler",
+    "dpm_sde": DPMSolverSDEScheduler,
+    "unipc": UniPCMultistepScheduler,
     "flow_match_euler": FlowMatchEulerDiscreteScheduler,
     "flowmatch": FlowMatchEulerDiscreteScheduler,
 }
@@ -62,8 +61,6 @@ def build_scheduler(spec: Optional[Dict], training_cfg: Optional[Dict]) -> Tuple
     if key not in SCHEDULER_REGISTRY:
         raise ValueError(f"Unknown scheduler '{name}'. Available: {', '.join(SCHEDULER_REGISTRY)}")
     cls = SCHEDULER_REGISTRY[key]
-    if isinstance(cls, str):
-        raise NotImplementedError(f"scheduler '{key}': {cls} is not ported yet")
     num_train_steps = int(
         scheduler_cfg.get("num_train_timesteps") or training_cfg.get("num_train_timesteps") or 1000)
     params = dict(scheduler_cfg.get("params", {}))

@@ -198,6 +198,13 @@ class DenoiseTrainStep:
         self.global_step += 1
         return loss_sum, count
 
+    def ema_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The shadow weights under the model's parameter names (the ``ema``
+        entry of a checkpoint), or {} without EMA."""
+        if self.ema is None:
+            return {}
+        return {name: e for (name, _), e in zip(self.model.named_parameters(), self.ema)}
+
 
 def make_denoise_train_step(model: nn.Module, scheduler: Scheduler,
                             optimizer: torch.optim.Optimizer, lr_schedule: Callable[[int], float],

@@ -169,7 +169,8 @@ def _fields(scheduler):
 def _assert_same_scheduler(got, want):
     assert type(got).__name__ == type(want).__name__
     gf, wf = _fields(got), _fields(want)
-    # fields of what the port has not ported (DPM's Karras sigmas) are off in JAX
+    # JAX's flow-match keeps a stash the port computes on the fly; it is
+    # empty until set_timesteps
     assert gf.keys() <= wf.keys() and not any(wf[k] for k in wf.keys() - gf.keys())
     for k in gf:
         if isinstance(wf[k], np.ndarray):
@@ -199,13 +200,7 @@ def test_build_scheduler_matches_jax(spec, training):
 def test_every_registry_name_builds_as_in_jax_or_names_its_unported_class(name):
     assert set(SCHEDULER_REGISTRY) == set(jax_registry.SCHEDULER_REGISTRY)
     want, _ = jax_registry.build_scheduler({"name": name}, {})
-    entry = SCHEDULER_REGISTRY[name]
-    if isinstance(entry, str):
-        assert entry == type(want).__name__
-        with pytest.raises(NotImplementedError, match=entry):
-            build_scheduler({"name": name}, {})
-    else:
-        _assert_same_scheduler(build_scheduler({"name": name}, {})[0], want)
+    _assert_same_scheduler(build_scheduler({"name": name}, {})[0], want)
 
 
 def test_unknown_scheduler_raises_like_jax():

@@ -52,6 +52,7 @@ def _entry_points():
     from fmdm_tpu_torch.models.unet_diffusers import UNetDiffusersND
     from fmdm_tpu_torch.models.vae import AutoencoderKL
     from fmdm_tpu_torch.nn.blocks import ResBlockND, SpatialSelfAttention
+    from fmdm_tpu_torch.sample.diffusion_utils import build_diffusion_model, decode_diffusion_batch
     from fmdm_tpu_torch.sample.engine import SamplingEngine
     from fmdm_tpu_torch.sample.vae_utils import build_vae_model
     from fmdm_tpu_torch.schedulers import DDPMScheduler, DPMSolverMultistepScheduler
@@ -65,6 +66,9 @@ def _entry_points():
     vae = {"resolution": 8, "base_ch": 8, "down_channels": [8, 8], "num_res_blocks": 1,
            "in_channels": 1, "out_channels": 1, "attn_heads": 2, "attn_dim_head": 4}
     denoise = {"training": {"batch_size": 2}, "model": {"unet": cfg, "model_type": "diffusion"}}
+    run = {"training": {"conditioning": "concatenate", "channels": 1, "num_inference_steps": 1},
+           "model": {"unet": cfg, "model_type": "diffusion", "scheduler": {"name": "ddim"}}}
+    cpu_unet = DiffusionUNetFactory().build(cfg, "concatenate", 1, device="cpu")
 
     def train_step(**kw):
         model = DiffusionUNetFactory().build(cfg, "concatenate", 1, device="cpu")
@@ -88,12 +92,16 @@ def _entry_points():
         "build_denoise_trainer": lambda **kw: build_denoise_trainer(denoise, variant="diffusion",
                                                                     num_samples=4, **kw),
         "make_denoise_train_step": train_step,
+        "build_diffusion_model": lambda **kw: build_diffusion_model(run, **kw),
+        "decode_diffusion_batch": lambda **kw: decode_diffusion_batch(
+            cpu_unet, run["training"], run["model"], (1, 1, 8, 8), torch.zeros(1, 1, 8, 8), **kw),
     }
 
 
 @pytest.mark.parametrize("name", ["factory", "unet", "resblock", "engine", "vae_factory",
                                   "autoencoder_kl", "build_vae_model", "spatial_attention",
-                                  "build_denoise_trainer", "make_denoise_train_step"])
+                                  "build_denoise_trainer", "make_denoise_train_step",
+                                  "build_diffusion_model", "decode_diffusion_batch"])
 def test_entry_points_default_to_cuda_and_never_fall_back(name, monkeypatch):
     make = _entry_points()[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -6,6 +6,8 @@ sides, so only the order of a few f32 operations differs: held at 1e-5
 relative over 20-50 chained steps.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -65,8 +67,11 @@ def test_add_noise_matches_jax():
 @pytest.mark.parametrize("kw", [{"use_karras_sigmas": True}, {"solver_order": 3},
                                 {"algorithm_type": "sde-dpmsolver++"}])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        DPMSolverMultistepScheduler.create(**dict(BENCH, **kw))
+    """The options that raised before they were ported now build as in JAX."""
+    got = DPMSolverMultistepScheduler.create(**dict(BENCH, **kw))
+    want = JaxDPM.create(**dict(BENCH, **kw))
+    for f in dataclasses.fields(want):
+        np.testing.assert_array_equal(getattr(got, f.name), getattr(want, f.name), err_msg=f.name)
 
 
 @pytest.mark.parametrize("kw", [{"solver_order": 4}, {"algorithm_type": "ddim"},
