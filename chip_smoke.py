@@ -79,14 +79,25 @@ Phases, each printing one or more lines:
     EMA, the optimizer's state), read back through ``load_run_config``,
     ``resolve_checkpoint`` and ``build_diffusion_model`` bitwise (``model``
     and, under ``set_use_ema``, ``ema``); ``decode_diffusion_batch`` in f32
-    at batch 4, 8 inference steps, under the config's DDPM and seven
+    at batch 4, 4 inference steps, under the config's DDPM and seven
     scheduler overrides, a partial decode from ``start_step`` 700 with
     ``init_from_reference``, and a flow-matching run dir: model calls, K1
     and K2 launches per call, denoise steps/s, peak memory; then two decodes
     of 3 model calls at batch 1 (DPM-SDE with injected noise, UniPC order 3
     with Karras sigmas), card against the CPU plain path, with PSNR and SSIM
     between them;
-21. the whole run's seconds, a ``{"kernels": [...]}`` line, then the result
+21. ``python -m fmdm_tpu_torch.run_model`` in subprocesses on [20]'s run
+    dirs, their ``data_root`` pointed at a synthetic LDCT root (2 cases of 4
+    slices at 256², HU; the tensor cache on): ``build_tensor_cache``,
+    ``evaluate`` of the 8 slices at batch 4 with 4 steps under the config's
+    DDPM and under UniPC (exit code, CSV rows, finite metrics, the
+    throughput line, denoise steps/s, wall time), ``decode --save
+    --start_step 700``, and on the flow run dir ``encode --save`` and
+    ``debug_compare``; the same DDPM ``evaluate`` in this process (launches
+    per model call, peak memory); then ``evaluate`` of one sample at batch 1
+    with 3 DDPM calls on the card and on the CPU with the card's draws
+    replayed: per-image MSE, the decoded batch and the saved predictions;
+22. the whole run's seconds, a ``{"kernels": [...]}`` line, then the result
     line ``{"ok": true, "device": {...}}``.
 
 The flagship is ``model.unet`` of ``configs/LDCT/LDCT_ddpm_diffusers_nd.json``
@@ -104,10 +115,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import csv
 import functools
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -160,11 +174,11 @@ SDPA_PLAIN_CASES = (
 TRAIN_STEPS = 10
 DECODE_BATCH = 4     # run_model's default --batch_size
 SCHEDULER_STEPS = 25  # [19]: a whole schedule per scheduler
-# [20]: inference steps per decode, cut from 25 to keep the run near 300 s:
-# at batch 4 in f32 a flagship forward takes 0.6-1.1 s on the H100, where
-# cuDNN runs one convolution as an FFT-tiled GEMM of 66,048 launches
-# (python -m fmdm_tpu_torch.sample.decode_report)
-DECODE_STEPS = 8
+# [20]: inference steps per decode, cut from 25 (and from 8 to make room for
+# [21]) to keep the run near 300 s: at batch 4 in f32 a flagship forward
+# takes 0.6-1.1 s on the H100, where cuDNN runs one convolution as an
+# FFT-tiled GEMM of 66,048 launches (python -m fmdm_tpu_torch.sample.decode_report)
+DECODE_STEPS = 4
 # [19]: the schedulers of the decode path, as (registry name, create params)
 NEW_SCHEDULERS = (
     ("ddim", {}), ("ddim", {"eta": 1.0}),
@@ -191,6 +205,12 @@ DECODE_RUNS = (
 )
 # [20]: card vs CPU, decodes of 3 model calls at batch 1 (steps, override)
 DECODE_PARITY = ((2, "dpmsolversde"), (3, "unipc?solver_order=3,use_karras_sigmas=true"))
+# [21]: run_model's CLI over a synthetic LDCT data root of CLI_CASES paired
+# 256² volumes of CLI_SLICES slices; evaluate takes them all at run_model's
+# default batch in CLI_STEPS inference steps
+CLI_CASES, CLI_SLICES = 2, 4
+CLI_STEPS = 4
+CLI_PARITY_STEPS = 3   # card vs CPU: evaluate of one sample at batch 1, the config's DDPM
 SERVE_CALLS = 5
 K2_X8_DRAWS = 4   # further draws of K2's bf16 case at logits x8
 K3_F32_DRAWS = 3  # further draws of each f32 K3 case
@@ -1164,11 +1184,10 @@ def image_range(x):
     return ((x.float() + 1) / 2).clamp(0, 1)
 
 
-def phase_decode(torch, card: str, seed: int, gen, records) -> dict:
+def phase_decode(torch, card: str, seed: int, gen, records, work: Path) -> dict:
     """[20]: decode the flagship from a trained run dir under every scheduler;
-    returns the K1 and K2 launches of the timed decodes."""
-    import tempfile
-
+    the run dirs stay under ``work`` (``ddpm``, ``flow``) for [21]. Returns
+    the K1 and K2 launches of the timed decodes."""
     from fmdm_tpu_torch.sample.diffusion_utils import (
         build_diffusion_model, decode_diffusion_batch, set_use_ema)
     from fmdm_tpu_torch.sample.sampling_utils import load_run_config, resolve_checkpoint
@@ -1183,112 +1202,383 @@ def phase_decode(torch, card: str, seed: int, gen, records) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = json.loads(CONFIG.read_text())
     cfg["training"]["ema_decay"] = 0.999   # a run trained with EMA records it
-    with tempfile.TemporaryDirectory() as tmp:
-        run_dir, flow_dir = Path(tmp) / "ddpm", Path(tmp) / "flow"
-        save_json_config(run_dir / "train_config.json", cfg)
-        # the --seed weights after one AdamW step at batch 1, and their EMA
-        model, _, step = build_denoise_trainer(cfg, variant="diffusion", num_samples=1,
-                                               device="cuda")
-        random_weights(torch, model, torch.Generator().manual_seed(seed))
-        step.ema = [p.detach().clone() for p in model.parameters()]
-        step.global_step = int(cfg["training"]["lr_warmup_steps"])  # past the warmup's zero rate
-        loss, _ = step.step(train_batch(torch, gen, 1, "cuda"),
-                            generator=torch.Generator("cuda").manual_seed(seed))
-        written = {"model": {k: v.cpu() for k, v in model.state_dict().items()},
-                   "ema": {k: v.cpu() for k, v in step.ema_state_dict().items()}}
-        save_checkpoint({"model": written["model"], "ema": written["ema"],
-                         "optimizer": step.optimizer, "lr_scheduler": {"last_epoch": 1},
-                         "scaler": None, "epoch": 1, "best_metric": float(loss)},
-                        run_dir / "diff_last.pt")
-        del model, step
-        run_cfg = load_run_config(run_dir)
-        ckpt = resolve_checkpoint(run_dir, run_cfg["model"]["model_type"])
-        for tree in ("ema", "model"):
-            set_use_ema(tree == "ema")
-            model = build_diffusion_model(run_cfg, ckpt, device="cuda")
-            loaded = model.state_dict()
-            same = loaded.keys() == written[tree].keys() and all(
-                torch.equal(loaded[k].cpu(), v) for k, v in written[tree].items())
-            log(f"  {ckpt.name} '{tree}' tree: {len(loaded)} tensors, equal to the written ones "
-                f"bitwise: {same}")
-            if not same:
-                raise AssertionError(f"the '{tree}' tree read back from {ckpt} differs")
-        set_use_ema(False)
-        moved = max(max_err(loaded[k].cpu(), written["ema"][k]) for k in loaded)
-        if moved == 0:
-            raise AssertionError("the EMA tree equals the model's: the check cannot tell them apart")
+    run_dir, flow_dir = work / "ddpm", work / "flow"
+    save_json_config(run_dir / "train_config.json", cfg)
+    # the --seed weights after one AdamW step at batch 1, and their EMA
+    model, _, step = build_denoise_trainer(cfg, variant="diffusion", num_samples=1,
+                                           device="cuda")
+    random_weights(torch, model, torch.Generator().manual_seed(seed))
+    step.ema = [p.detach().clone() for p in model.parameters()]
+    step.global_step = int(cfg["training"]["lr_warmup_steps"])  # past the warmup's zero rate
+    loss, _ = step.step(train_batch(torch, gen, 1, "cuda"),
+                        generator=torch.Generator("cuda").manual_seed(seed))
+    written = {"model": {k: v.cpu() for k, v in model.state_dict().items()},
+               "ema": {k: v.cpu() for k, v in step.ema_state_dict().items()}}
+    save_checkpoint({"model": written["model"], "ema": written["ema"],
+                     "optimizer": step.optimizer, "lr_scheduler": {"last_epoch": 1},
+                     "scaler": None, "epoch": 1, "best_metric": float(loss)},
+                    run_dir / "diff_last.pt")
+    del model, step
+    run_cfg = load_run_config(run_dir)
+    ckpt = resolve_checkpoint(run_dir, run_cfg["model"]["model_type"])
+    for tree in ("ema", "model"):
+        set_use_ema(tree == "ema")
+        model = build_diffusion_model(run_cfg, ckpt, device="cuda")
+        loaded = model.state_dict()
+        same = loaded.keys() == written[tree].keys() and all(
+            torch.equal(loaded[k].cpu(), v) for k, v in written[tree].items())
+        log(f"  {ckpt.name} '{tree}' tree: {len(loaded)} tensors, equal to the written ones "
+            f"bitwise: {same}")
+        if not same:
+            raise AssertionError(f"the '{tree}' tree read back from {ckpt} differs")
+    set_use_ema(False)
+    moved = max(max_err(loaded[k].cpu(), written["ema"][k]) for k in loaded)
+    if moved == 0:
+        raise AssertionError("the EMA tree equals the model's: the check cannot tell them apart")
 
-        training, model_cfg = run_cfg["training"], run_cfg["model"]
-        shape = (DECODE_BATCH, 1, 256, 256)
-        cond = (torch.rand(shape, generator=gen) * 2 - 1).cuda()
-        reference = (torch.rand(shape, generator=gen) * 2 - 1).cuda()
-        decode_gen = torch.Generator("cuda")
-        decode_diffusion_batch(model, training, model_cfg, shape, cond, generator=decode_gen,
-                               num_inference_steps=2, device="cuda")  # warm-up: cuDNN's first calls
+    training, model_cfg = run_cfg["training"], run_cfg["model"]
+    shape = (DECODE_BATCH, 1, 256, 256)
+    cond = (torch.rand(shape, generator=gen) * 2 - 1).cuda()
+    reference = (torch.rand(shape, generator=gen) * 2 - 1).cuda()
+    decode_gen = torch.Generator("cuda")
+    decode_diffusion_batch(model, training, model_cfg, shape, cond, generator=decode_gen,
+                           num_inference_steps=2, device="cuda")  # warm-up: cuDNN's first calls
 
-        def timed_decode(label, model, training, model_cfg, override, **kw):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_counts(records)
-            timing = {}
-            out = decode_diffusion_batch(model, training, model_cfg, shape, cond,
-                                         generator=decode_gen.manual_seed(seed), timing=timing,
-                                         num_inference_steps=DECODE_STEPS,
-                                         reference_batch=reference, scheduler_override=override,
-                                         device="cuda", **kw)
-            calls, secs = timing["model_calls"], timing["model_seconds"]
-            counts = read_counts(records)
-            expect_counts(f"decode '{label}'", counts, DENOISE_LAUNCHES, calls)
-            finite = bool(torch.isfinite(out).all())
-            log(f"  {label}: {calls} model calls in {secs:.4f} s, "
-                f"{DECODE_BATCH * calls / secs:.2f} denoise steps/s, peak "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches K1 {counts['K1']} "
-                f"K2 {counts['K2']}, finite={finite}, output mean {float(out.mean()):.4f} std "
-                f"{float(out.std()):.4f} [{card}]")
-            if tuple(out.shape) != shape or not finite:
-                raise AssertionError(f"decode '{label}': shape {tuple(out.shape)} or non-finite")
-            return counts
+    def timed_decode(label, model, training, model_cfg, override, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(records)
+        timing = {}
+        out = decode_diffusion_batch(model, training, model_cfg, shape, cond,
+                                     generator=decode_gen.manual_seed(seed), timing=timing,
+                                     num_inference_steps=DECODE_STEPS,
+                                     reference_batch=reference, scheduler_override=override,
+                                     device="cuda", **kw)
+        calls, secs = timing["model_calls"], timing["model_seconds"]
+        counts = read_counts(records)
+        expect_counts(f"decode '{label}'", counts, DENOISE_LAUNCHES, calls)
+        finite = bool(torch.isfinite(out).all())
+        log(f"  {label}: {calls} model calls in {secs:.4f} s, "
+            f"{DECODE_BATCH * calls / secs:.2f} denoise steps/s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches K1 {counts['K1']} "
+            f"K2 {counts['K2']}, finite={finite}, output mean {float(out.mean()):.4f} std "
+            f"{float(out.std()):.4f} [{card}]")
+        if tuple(out.shape) != shape or not finite:
+            raise AssertionError(f"decode '{label}': shape {tuple(out.shape)} or non-finite")
+        return counts
 
-        totals = {"K1": 0, "K2": 0}
-        for label, override, kw in DECODE_RUNS:
-            counts = timed_decode(label, model, training, model_cfg, override, **kw)
-            totals = {k: totals[k] + counts[k] for k in totals}
-
-        flow_cfg = json.loads(FLOW_CONFIG.read_text())
-        save_json_config(flow_dir / "train_config.json", flow_cfg)
-        flow = build_diffusion_model(flow_cfg, device="cuda")
-        random_weights(torch, flow, torch.Generator().manual_seed(seed + 1))
-        save_checkpoint({"model": flow, "epoch": 1}, flow_dir / "flow_last.pt")
-        flow_run = load_run_config(flow_dir)
-        flow_ckpt = resolve_checkpoint(flow_dir, flow_run["model"]["model_type"])
-        flow = build_diffusion_model(flow_run, flow_ckpt, device="cuda")
-        counts = timed_decode(f"flow matching from {flow_ckpt.name} "
-                              f"({flow_run['model']['scheduler']['name']})", flow,
-                              flow_run["training"], flow_run["model"], None)
+    totals = {"K1": 0, "K2": 0}
+    for label, override, kw in DECODE_RUNS:
+        counts = timed_decode(label, model, training, model_cfg, override, **kw)
         totals = {k: totals[k] + counts[k] for k in totals}
-        del flow
 
-        cpu_model = build_diffusion_model(run_cfg, ckpt, device="cpu")
-        one = (1, 1, 256, 256)
-        for steps, override in DECODE_PARITY:
-            init = torch.randn(one, generator=gen)
-            noises = [torch.randn(one, generator=gen) for _ in range(2 * steps - 1)]
-            outs = []
-            for m, device in ((model, "cuda"), (cpu_model, "cpu")):
-                timing = {}
-                out = decode_diffusion_batch(
-                    m, training, model_cfg, one, cond[:1].to(device), timing=timing,
-                    num_inference_steps=steps, scheduler_override=override, init_noise=init,
-                    step_noise=noises if "sde" in override else None, device=device)
-                outs.append(out.cpu())
-            rel = rel_err(*outs)
-            mse = float(((image_range(outs[0]) - image_range(outs[1])) ** 2).mean())
-            ssim = compute_ssim_sample(image_range(outs[0])[0].numpy(), image_range(outs[1])[0].numpy())
-            log(f"  card vs CPU, {override}, {timing['model_calls']} model calls at batch 1: "
-                f"max|gpu-cpu|/max|cpu| = {rel:.3e} (tolerance {REL_TOL:g}); PSNR "
-                f"{psnr_from_mse(mse):.2f} dB, SSIM {ssim:.6f} (images in [0, 1])")
-            if not (torch.isfinite(outs[0]).all() and rel <= REL_TOL):
-                raise AssertionError(f"decode {override}: card disagrees with the CPU (rel {rel})")
+    flow_cfg = json.loads(FLOW_CONFIG.read_text())
+    save_json_config(flow_dir / "train_config.json", flow_cfg)
+    flow = build_diffusion_model(flow_cfg, device="cuda")
+    random_weights(torch, flow, torch.Generator().manual_seed(seed + 1))
+    save_checkpoint({"model": flow, "epoch": 1}, flow_dir / "flow_last.pt")
+    flow_run = load_run_config(flow_dir)
+    flow_ckpt = resolve_checkpoint(flow_dir, flow_run["model"]["model_type"])
+    flow = build_diffusion_model(flow_run, flow_ckpt, device="cuda")
+    counts = timed_decode(f"flow matching from {flow_ckpt.name} "
+                          f"({flow_run['model']['scheduler']['name']})", flow,
+                          flow_run["training"], flow_run["model"], None)
+    totals = {k: totals[k] + counts[k] for k in totals}
+    del flow
+
+    cpu_model = build_diffusion_model(run_cfg, ckpt, device="cpu")
+    one = (1, 1, 256, 256)
+    for steps, override in DECODE_PARITY:
+        init = torch.randn(one, generator=gen)
+        noises = [torch.randn(one, generator=gen) for _ in range(2 * steps - 1)]
+        outs = []
+        for m, device in ((model, "cuda"), (cpu_model, "cpu")):
+            timing = {}
+            out = decode_diffusion_batch(
+                m, training, model_cfg, one, cond[:1].to(device), timing=timing,
+                num_inference_steps=steps, scheduler_override=override, init_noise=init,
+                step_noise=noises if "sde" in override else None, device=device)
+            outs.append(out.cpu())
+        rel = rel_err(*outs)
+        mse = float(((image_range(outs[0]) - image_range(outs[1])) ** 2).mean())
+        ssim = compute_ssim_sample(image_range(outs[0])[0].numpy(), image_range(outs[1])[0].numpy())
+        log(f"  card vs CPU, {override}, {timing['model_calls']} model calls at batch 1: "
+            f"max|gpu-cpu|/max|cpu| = {rel:.3e} (tolerance {REL_TOL:g}); PSNR "
+            f"{psnr_from_mse(mse):.2f} dB, SSIM {ssim:.6f} (images in [0, 1])")
+        if not (torch.isfinite(outs[0]).all() and rel <= REL_TOL):
+            raise AssertionError(f"decode {override}: card disagrees with the CPU (rel {rel})")
+    return totals
+
+
+def write_ldct_root(root: Path, seed: int) -> int:
+    """A synthetic LDCT data root: CLI_CASES paired volumes of CLI_SLICES
+    256² slices in HU (a body ellipse of soft tissue with a bone ring in
+    air; the low-dose volume adds noise of 60 HU), headerless split files
+    with case ids 001, 002, ..., and a dataset.json naming the LDCT class
+    with the config's HU window and the tensor cache on. Returns the number
+    of test samples."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    (root / "vol").mkdir(parents=True)
+    yy, xx = np.mgrid[-1:1:256j, -1:1:256j]
+    lines = []
+    for c in range(CLI_CASES):
+        case = f"{c + 1:03d}"
+        sdct = np.full((CLI_SLICES, 256, 256), -1000.0)
+        for z in range(CLI_SLICES):
+            a, b = 0.8 + 0.05 * rng.standard_normal(), 0.6 + 0.05 * rng.standard_normal()
+            r = (xx / a) ** 2 + (yy / b) ** 2
+            sdct[z][r < 1] = 40 + 20 * rng.standard_normal()
+            sdct[z][(r > 0.55) & (r < 0.65)] = 700 + 100 * rng.standard_normal()
+        sdct += rng.normal(0, 10, sdct.shape)
+        ldct = sdct + rng.normal(0, 60, sdct.shape)
+        np.save(root / "vol" / f"sdct_{case}.npy", sdct.astype(np.float32))
+        np.save(root / "vol" / f"ldct_{case}.npy", ldct.astype(np.float32))
+        lines.append(f"{case}\tvol/sdct_{case}.npy\tvol/ldct_{case}.npy")
+    for split in ("train.txt", "test.txt"):
+        (root / split).write_text("\n".join(lines) + "\n")
+    (root / "dataset.json").write_text(json.dumps({
+        "dataset_class": "datasets.ldct:LDCTDataset",
+        "preprocess_kwargs": {"MIN_B": -1024, "MAX_B": 3072, "slope": 1.0, "intersept": -1024},
+        "save_tensor_cache": True}))
+    return CLI_CASES * CLI_SLICES
+
+
+def run_cli(card: str, run: Path, mode: str, *flags):
+    """``python -m fmdm_tpu_torch.run_model`` in a subprocess on the card:
+    its standard output and wall seconds; a non-zero exit fails the run."""
+    cmd = [sys.executable, "-m", "fmdm_tpu_torch.run_model", "--ckpt_dir", str(run),
+           "--mode", mode, *map(str, flags)]
+    start = time.perf_counter()
+    out = subprocess.run(cmd, cwd=REPO_ROOT, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - start
+    if out.returncode != 0:
+        log(out.stdout[-2000:])
+        log(out.stderr[-6000:])
+        raise AssertionError(f"run_model --mode {mode} on {run.name} exited {out.returncode}")
+    log(f"  CLI {mode} on {run.name} {' '.join(map(str, flags))}: exit 0, wall {secs:.2f} s "
+        f"[{card}]")
+    return out.stdout, secs
+
+
+def read_csv_rows(path: Path) -> list:
+    with path.open(newline="") as fh:
+        return list(csv.DictReader(fh))
+
+
+def check_evaluate(out_dir: Path, samples: int) -> dict:
+    """The one experiment dir evaluate wrote under ``out_dir``: its summary
+    row, after checking the per-image rows (one per sample, finite metrics)."""
+    (exp,) = list(out_dir.iterdir())
+    (row,) = read_csv_rows(exp / "eval_metrics.csv")
+    per_image = read_csv_rows(exp / "eval_metrics_per_image.csv")
+    metrics = [float(r[k]) for r in per_image for k in ("mse", "psnr", "ssim")]
+    metrics += [float(row[k]) for k in ("mse", "psnr", "ssim", "model_seconds")]
+    if len(per_image) != samples or int(row["samples"]) != samples or \
+            not all(math.isfinite(v) for v in metrics):
+        raise AssertionError(f"evaluate in {exp}: {len(per_image)} rows for {samples} samples, "
+                             f"or metrics not finite: {row}")
+    row["per_image"] = per_image
+    row["dir"] = exp
+    return row
+
+
+def compare_saved(card_root: Path, cpu_root: Path) -> float:
+    """The same files under both roots; tensors (.npy) within REL_TOL of the
+    CPU's relative to its largest value, quantized images (PNG, DICOM)
+    within one level. Returns the tensors' largest relative difference."""
+    import numpy as np
+
+    from fmdm_tpu_torch.data.io import load_image
+
+    card = sorted(p.relative_to(card_root) for p in card_root.rglob("*") if p.is_file())
+    cpu = sorted(p.relative_to(cpu_root) for p in cpu_root.rglob("*") if p.is_file())
+    if card != cpu or not card:
+        raise AssertionError(f"saved predictions differ in their files: {card} vs {cpu}")
+    worst = 0.0
+    for rel in card:
+        a = np.asarray(load_image(card_root / rel)["Image"], np.float64)
+        b = np.asarray(load_image(cpu_root / rel)["Image"], np.float64)
+        if rel.suffix == ".npy":
+            err = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+            worst = max(worst, err)
+            ok = err <= REL_TOL
+        else:
+            ok = float(np.abs(a - b).max()) <= 1
+        if a.shape != b.shape or not ok:
+            raise AssertionError(f"saved prediction {rel} differs between the card and the CPU")
+    return worst
+
+
+def phase_run_model(torch, card: str, seed: int, records, work: Path) -> dict:
+    """[21]: run_model's CLI on [20]'s run dirs over a synthetic LDCT data
+    root; returns the K1 and K2 launches of the in-process runs."""
+    from fmdm_tpu_torch import run_model
+    from fmdm_tpu_torch.sample import diffusion_like, diffusion_utils
+    from fmdm_tpu_torch.schedulers import build_scheduler
+
+    runs = {"ddpm": work / "ddpm", "flow": work / "flow"}
+    root = work / "ldct"
+    samples = write_ldct_root(root, seed)
+    log(f"[21] python -m fmdm_tpu_torch.run_model on [20]'s run dirs over a synthetic LDCT root "
+        f"({CLI_CASES} cases x {CLI_SLICES} slices of 256², HU), batch {DECODE_BATCH}, "
+        f"{CLI_STEPS} inference steps")
+    for run in runs.values():
+        cfg_path = run / "train_config.json"
+        cfg = json.loads(cfg_path.read_text())
+        cfg["training"]["data_root"] = str(root)
+        cfg_path.write_text(json.dumps(cfg, indent=2))
+    diffusion_utils._ENGINE_CACHE.clear()   # [20]'s engines hold their models on the card
+    torch.cuda.empty_cache()
+
+    run_cli(card, runs["ddpm"], "build_tensor_cache")
+    cached = sorted((root / "cache_eval").rglob("*.pt"))
+    log(f"  tensor cache: {len(cached)} files under {root.name}/cache_eval")
+    if len(cached) != 2 * samples:
+        raise AssertionError(f"build_tensor_cache wrote {len(cached)} files for {samples} samples")
+
+    subset = ("--num_samples", samples, "--batch_size", DECODE_BATCH,
+              "--num_inference_steps", CLI_STEPS)
+    batches = -(-samples // DECODE_BATCH)
+    cli = {}
+    for label, extra in (("ddpm", ()), ("unipc", ("--scheduler", "unipc"))):
+        out_dir = work / "cli" / f"evaluate_{label}"
+        stdout, secs = run_cli(card, runs["ddpm"], "evaluate", *subset, "--output_dir", out_dir,
+                               *extra)
+        row = check_evaluate(out_dir, samples)
+        calls, model_s = int(row["model_calls"]), float(row["model_seconds"])
+        throughput = next(line for line in stdout.splitlines() if line.startswith("Model throughput"))
+        log(f"  evaluate {label}: {throughput}; {samples * calls / batches / model_s:.2f} denoise "
+            f"steps/s over {calls} model calls; MSE {row['mse']} PSNR {row['psnr']} SSIM "
+            f"{row['ssim']}; CLI wall {secs:.2f} s [{card}]")
+        cli[label] = secs
+        if calls != batches * CLI_STEPS:
+            raise AssertionError(f"evaluate {label}: {calls} model calls")
+
+    out_dir = work / "cli" / "decode"
+    run_cli(card, runs["ddpm"], "decode", "--save", "--start_step", 700, *subset,
+            "--output_dir", out_dir)
+    stems = {p.stem for p in (out_dir / "predicted").rglob("*") if p.is_file()}
+    out_dir = work / "cli" / "encode"
+    run_cli(card, runs["flow"], "encode", "--save", "--timestep", 500, *subset[:4],
+            "--output_dir", out_dir)
+    encoded = {p.stem for p in out_dir.rglob("*") if p.is_file()}
+    log(f"  decode --save --start_step 700: {len(stems)} predictions; encode --save: "
+        f"{len(encoded)} noised slices")
+    if len(stems) != samples or len(encoded) != samples:
+        raise AssertionError(f"decode saved {len(stems)} and encode {len(encoded)} of {samples}")
+    out_dir = work / "cli" / "debug_compare"
+    run_cli(card, runs["flow"], "debug_compare", "--num_inference_steps", CLI_STEPS,
+            "--output_dir", out_dir)
+    stats = json.loads((out_dir / "stats.json").read_text())
+    probes = [stats[k] for k in ("generated_raw", "generated_raw_no_cond")]
+    log(f"  debug_compare: {stats['timing']['model_calls']} model calls; generated "
+        f"[{probes[0]['min']:.4f}, {probes[0]['max']:.4f}], no-cond probe "
+        f"[{probes[1]['min']:.4f}, {probes[1]['max']:.4f}]")
+    if stats["timing"]["model_calls"] != CLI_STEPS or not all(
+            p["present"] and math.isfinite(p["min"]) and math.isfinite(p["max"]) for p in probes):
+        raise AssertionError(f"debug_compare: {stats}")
+
+    # the same evaluate in this process, under PyTorch's default TF32 flags
+    # as in the CLI's process: launches per model call, peak memory, and the
+    # wall split into the dataset's build (split file, volume windows), the
+    # model's build and load, the decode calls (model time, the engine's
+    # set-up) and the rest (sample reads, batch stacking and copies,
+    # metrics, CSVs)
+    torch.backends.cudnn.allow_tf32 = True
+    spent = {"dataset": 0.0, "build": 0.0, "decode": 0.0}
+
+    def timed(fn, key):
+        def call(*args, **kw):
+            start = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - start
+            return out
+        return call
+
+    real = {k: getattr(diffusion_like, k) for k in
+            ("build_sampling_dataset", "build_diffusion_model", "decode_diffusion_batch")}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(records)
+    try:
+        for (name, fn), key in zip(real.items(), spent):
+            setattr(diffusion_like, name, timed(fn, key))
+        start = time.perf_counter()
+        run_model.main(["--ckpt_dir", str(runs["ddpm"]), "--mode", "evaluate", *map(str, subset),
+                        "--output_dir", str(work / "inproc")])
+        wall = time.perf_counter() - start
+    finally:
+        for name, fn in real.items():
+            setattr(diffusion_like, name, fn)
+    counts = read_counts(records)
+    row = check_evaluate(work / "inproc", samples)
+    calls, model_s = int(row["model_calls"]), float(row["model_seconds"])
+    expect_counts("run_model evaluate", counts, DENOISE_LAUNCHES, calls)
+    peak = torch.cuda.max_memory_allocated()
+    host = wall - sum(spent.values())
+    real_decode = real["decode_diffusion_batch"]
+    log(f"  in process: evaluate {calls} model calls in {model_s:.4f} s, "
+        f"{samples * calls / batches / model_s:.2f} denoise steps/s, wall {wall:.2f} s: dataset "
+        f"{spent['dataset']:.2f} s, model build and load {spent['build']:.2f} s, decode calls {spent['decode']:.2f} s "
+        f"({(spent['decode'] - model_s) / batches * 1e3:.1f} ms per batch outside the step "
+        f"loop), the rest {host:.2f} s ({host / batches * 1e3:.1f} ms per batch of "
+        f"{DECODE_BATCH}); launches K1 {counts['K1']} K2 {counts['K2']}; peak "
+        f"{peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} "
+        f"held before) [{card}]")
+    totals = {k: counts[k] for k in ("K1", "K2")}
+
+    # card vs CPU: one sample at batch 1 with the card's draws replayed
+    torch.backends.cudnn.allow_tf32 = False
+    training = json.loads((runs["ddpm"] / "train_config.json").read_text())
+    scheduler, _ = build_scheduler(training["model"]["scheduler"], training["training"])
+    draws, outs = [], {}
+
+    def record(*args, generator=None, **kw):
+        shape, device = args[3], kw["device"]
+        init = torch.randn(shape, generator=generator, device=device)
+        steps = ([torch.randn(shape, generator=generator, device=device)
+                  for _ in range(CLI_PARITY_STEPS)] if scheduler.needs_noise else None)
+        draws.append((init.cpu(), None if steps is None else [s.cpu() for s in steps]))
+        out = real_decode(*args, init_noise=init, step_noise=steps, **kw)
+        outs["cuda"] = out.cpu()
+        return out
+
+    def replay(*args, generator=None, **kw):
+        init, steps = draws.pop(0)
+        out = real_decode(*args, init_noise=init, step_noise=steps, **kw)
+        outs["cpu"] = out.cpu()
+        return out
+
+    parity = dict(ckpt_dir=runs["ddpm"], model_type="diffusion", num_samples=1, batch_size=1,
+                  num_inference_steps=CLI_PARITY_STEPS, save=True, seed=seed)
+    try:
+        diffusion_like.decode_diffusion_batch = record
+        reset_counts(records)
+        diffusion_like._run_evaluate(device="cuda", output_dir=str(work / "parity_cuda"), **parity)
+        counts = read_counts(records)
+        expect_counts("run_model evaluate, batch 1", counts, DENOISE_LAUNCHES, CLI_PARITY_STEPS)
+        totals = {k: totals[k] + counts[k] for k in totals}
+        diffusion_like.decode_diffusion_batch = replay
+        diffusion_like._run_evaluate(device="cpu", output_dir=str(work / "parity_cpu"), **parity)
+    finally:
+        diffusion_like.decode_diffusion_batch = real_decode
+    card_row = check_evaluate(work / "parity_cuda", 1)
+    cpu_row = check_evaluate(work / "parity_cpu", 1)
+    mse = [float(r["per_image"][0]["mse"]) for r in (card_row, cpu_row)]
+    mse_rel = abs(mse[0] - mse[1]) / max(abs(mse[1]), 1e-12)
+    out_rel = rel_err(outs["cuda"], outs["cpu"])
+    saved_rel = compare_saved(card_row["dir"] / "samples", cpu_row["dir"] / "samples")
+    log(f"  card vs CPU, evaluate of sample {card_row['per_image'][0]['img_id']} at batch 1, "
+        f"{CLI_PARITY_STEPS} DDPM calls, the card's draws replayed: per-image MSE {mse[0]:.8f} vs "
+        f"{mse[1]:.8f} (rel {mse_rel:.3e}), decoded max|gpu-cpu|/max|cpu| {out_rel:.3e}, saved "
+        f"tensors {saved_rel:.3e} (tolerance {REL_TOL:g})")
+    if not (mse_rel <= REL_TOL and out_rel <= REL_TOL):
+        raise AssertionError(f"run_model evaluate: card disagrees with the CPU (MSE rel {mse_rel}, "
+                             f"output rel {out_rel})")
     return totals
 
 
@@ -1448,7 +1738,9 @@ def main() -> int:
     phase_cross_attention(torch, card, args.seed, gen, all_records)
     denoise_counts = phase_denoise(torch, card, args.seed, gen, all_records)
     phase_schedulers(torch, gen)
-    decode_counts = phase_decode(torch, card, args.seed, gen, all_records)
+    with tempfile.TemporaryDirectory() as tmp:
+        decode_counts = phase_decode(torch, card, args.seed, gen, all_records, Path(tmp))
+        cli_counts = phase_run_model(torch, card, args.seed, all_records, Path(tmp))
 
     k1["launches"], k2["launches"] = main_launches
     k3["launches"], k4["launches"], k5["launches"] = (train_counts[k] for k in ("K3", "K4", "K5"))
@@ -1462,7 +1754,8 @@ def main() -> int:
             f"flagship train step x {TRAIN_STEPS}": denoise_counts[kernel],
             f"VAE train step x {TRAIN_STEPS}": train_counts[kernel],
             f"decode from a run dir, {len(DECODE_RUNS) + 1} runs at batch {DECODE_BATCH}":
-                decode_counts.get(kernel, 0)}
+                decode_counts.get(kernel, 0),
+            f"run_model evaluate in process, batch {DECODE_BATCH} and 1": cli_counts.get(kernel, 0)}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_term", "library_ms", "shape", "dtype")
     extra = ("library_kernel", "variants", "per_forward", "launches_by_path")

@@ -1,14 +1,12 @@
 """
-The run-dir half of the sampling helpers (counterpart of
-``fmdm_tpu/sample/sampling_utils.py:26-179,214-329``): run-config loading,
-with a ``{training, model}`` config synthesized from a legacy diffusers
-pipeline folder; checkpoint resolution (best > last > legacy safetensors);
-output roots, seeded subsets, the eval CSV schemas and timestamped
-experiment directories.
-
-Not ported yet: the dataset side (``build_sampling_dataset``,
-``progress_batches``, ``build_tensor_cache_from_config``), which waits for
-the data layer (ROADMAP Queue 1 item 4).
+Helpers of the sampling modes (counterpart of
+``fmdm_tpu/sample/sampling_utils.py``): run-config loading, with a
+``{training, model}`` config synthesized from a legacy diffusers pipeline
+folder; checkpoint resolution (best > last > legacy safetensors); the
+dataset of a run for sampling or evaluation (evaluation caches in their own
+``<subdir>_eval`` namespace), batches with a progress bar where tqdm is
+installed, the tensor-cache build; output roots, seeded subsets, the eval
+CSV schemas and timestamped experiment directories.
 """
 
 from __future__ import annotations
@@ -20,6 +18,7 @@ from datetime import datetime
 from pathlib import Path
 from typing import Optional
 
+from fmdm_tpu_torch.data.dataset_utils import build_dataset_from_config, iter_batches
 from fmdm_tpu_torch.utils.config import load_json_config
 
 # scheduler_config.json keys that are routing or bookkeeping, not step() params
@@ -165,6 +164,57 @@ def resolve_checkpoint(ckpt_dir: Path, model_type: str) -> Path:
         if candidates:
             return candidates[-1]
     raise FileNotFoundError(f"No checkpoint found in {ckpt_dir}")
+
+
+def _eval_cache_subdir(cache_subdir: Optional[str]) -> str:
+    name = str(cache_subdir or "cache")
+    return name if name.endswith("_eval") else f"{name}_eval"
+
+
+def build_sampling_dataset(cfg: dict, data_txt: Optional[str], evaluate: bool = False,
+                           save_tensor_cache_override: Optional[bool] = None):
+    """The test split of a run's dataset: ``data_txt`` as its split file
+    (else the config's, dropped under ``evaluate``), and under ``evaluate``
+    its tensor cache in ``<subdir>_eval``, apart from caches built under the
+    training's preprocessing."""
+    training_cfg = dict(cfg.get("training", {}))
+    if save_tensor_cache_override is not None:
+        training_cfg["save_tensor_cache"] = bool(save_tensor_cache_override)
+    if data_txt:
+        training_cfg["split_file"] = data_txt
+    elif evaluate:
+        training_cfg.pop("split_file", None)
+    if evaluate:
+        training_cfg["tensor_cache_subdir"] = _eval_cache_subdir(training_cfg.get("tensor_cache_subdir"))
+    cfg_path = Path(cfg["__config_path__"]) if cfg.get("__config_path__") else None
+    return build_dataset_from_config(training_cfg, cfg.get("model", {}), train=False, cfg_path=cfg_path)
+
+
+def progress_batches(dataset, batch_size: int, desc: str, indices=None):
+    """:func:`iter_batches`, behind a tqdm bar where tqdm is installed (shown
+    on a terminal only)."""
+    selected = list(range(len(dataset))) if indices is None else list(indices)
+    iterator = iter_batches(dataset, batch_size, indices=selected)
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return iterator
+    return tqdm(iterator, total=-(-len(selected) // max(int(batch_size), 1)), desc=desc,
+                leave=False, dynamic_ncols=True, disable=None)
+
+
+def build_tensor_cache_from_config(cfg: dict, data_txt: Optional[str], batch_size: int,
+                                   seed: int, num_samples: Optional[int],
+                                   desc: str = "build_tensor_cache", evaluate: bool = True) -> int:
+    """Read every selected sample of the evaluation dataset, which writes
+    its entries' tensor cache where the run's config (or its dataset.json)
+    turns ``save_tensor_cache`` on; returns the number of samples."""
+    dataset = build_sampling_dataset(cfg, data_txt, evaluate=evaluate)
+    indices = resolve_sample_indices(dataset, num_samples, seed=seed)
+    total = 0
+    for _, samples in progress_batches(dataset, batch_size, desc, indices=indices):
+        total += len(samples)
+    return total
 
 
 def resolve_output_root(ckpt_dir: Path, output_dir: Optional[str], save: bool) -> Optional[Path]:
