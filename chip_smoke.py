@@ -97,7 +97,19 @@ Phases, each printing one or more lines:
     per model call, peak memory); then ``evaluate`` of one sample at batch 1
     with 3 DDPM calls on the card and on the CPU with the card's draws
     replayed: per-image MSE, the decoded batch and the saved predictions;
-22. the whole run's seconds, a ``{"kernels": [...]}`` line, then the result
+22. training from a config: ``python -m fmdm_tpu_torch.train`` in
+    subprocesses over a synthetic LDCT root (a train split of 3 cases and a
+    test split of 4, 6 slices of 256² each): the flagship DDPM config for 2
+    epochs at its batch 8 (18 slices: a ragged, padded last batch), then
+    ``--resume`` for a third (the optimizer's step and the rate continue),
+    the flow-matching config for 1 epoch, the KL-VAE config for 2 epochs at
+    batch 4 with the validation split, and ``--debug_visual_only`` on the
+    DDPM run: exit codes, ``metrics.csv``, checkpoints, visuals, and the
+    loop's logged build seconds, samples/s, checkpoint seconds per write;
+    then the DDPM and VAE loops for one epoch in this process: launches per
+    train step, start-up trial, visual model call and validation call, peak
+    memory, and each checkpoint read back against the weights it saved;
+23. the whole run's seconds, a ``{"kernels": [...]}`` line, then the result
     line ``{"ok": true, "device": {...}}``.
 
 The flagship is ``model.unet`` of ``configs/LDCT/LDCT_ddpm_diffusers_nd.json``
@@ -212,6 +224,20 @@ CLI_CASES, CLI_SLICES = 2, 4
 CLI_STEPS = 4
 CLI_PARITY_STEPS = 3   # card vs CPU: evaluate of one sample at batch 1, the config's DDPM
 SERVE_CALLS = 5
+# [22]: training from a config over a synthetic LDCT root. Cuts: 2 + 1
+# epochs of the DDPM config and 1 of the flow config (the configs say 500),
+# 2 of the VAE config (100); a train split of TRAIN_CASES[0] cases and a test
+# split of TRAIN_CASES[1] cases of TRAIN_SLICES slices (tens of slices, not
+# thousands); the visuals' inference steps (the configs say 1000); the VAE's
+# visual_samples (20 in the config, a 4x5 grid needing 20 test cases)
+TRAIN_CASES, TRAIN_SLICES = (3, 4), 6
+TRAIN_EPOCHS = {"ddpm": 2, "flow": 1, "vae": 2}
+TRAIN_VISUAL_STEPS = 4
+VAE_VISUAL_SAMPLES = 4
+# [22]: launches per call of the in-process loops; a VAE epoch's visuals
+# reconstruct and decode once (the decoder's K1 and K3 again)
+VAE_VISUAL_LAUNCHES = {"K1": VAE_LAUNCHES["reconstruct"]["K1"] + VAE_LAUNCHES["decode"]["K1"],
+                       "K3": VAE_LAUNCHES["reconstruct"]["K3"] + VAE_LAUNCHES["decode"]["K3"]}
 K2_X8_DRAWS = 4   # further draws of K2's bf16 case at logits x8
 K3_F32_DRAWS = 3  # further draws of each f32 K3 case
 
@@ -1310,23 +1336,26 @@ def phase_decode(torch, card: str, seed: int, gen, records, work: Path) -> dict:
     return totals
 
 
-def write_ldct_root(root: Path, seed: int) -> int:
-    """A synthetic LDCT data root: CLI_CASES paired volumes of CLI_SLICES
-    256² slices in HU (a body ellipse of soft tissue with a bone ring in
-    air; the low-dose volume adds noise of 60 HU), headerless split files
-    with case ids 001, 002, ..., and a dataset.json naming the LDCT class
-    with the config's HU window and the tensor cache on. Returns the number
-    of test samples."""
+def write_ldct_root(root: Path, seed: int, cases=(CLI_CASES, CLI_CASES),
+                    slices: int = CLI_SLICES) -> int:
+    """A synthetic LDCT data root: paired volumes of ``slices`` 256² slices
+    in HU (a body ellipse of soft tissue with a bone ring in air; the
+    low-dose volume adds noise of 60 HU), headerless split files with case
+    ids 001, 002, ... (``cases`` = (train, test) counts: both splits hold the
+    same cases when they are equal, else the test cases follow the train
+    cases), and a dataset.json naming the LDCT class with the config's HU
+    window and the tensor cache on. Returns the number of test samples."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     (root / "vol").mkdir(parents=True)
     yy, xx = np.mgrid[-1:1:256j, -1:1:256j]
     lines = []
-    for c in range(CLI_CASES):
+    shared = cases[0] == cases[1]
+    for c in range(cases[0] if shared else sum(cases)):
         case = f"{c + 1:03d}"
-        sdct = np.full((CLI_SLICES, 256, 256), -1000.0)
-        for z in range(CLI_SLICES):
+        sdct = np.full((slices, 256, 256), -1000.0)
+        for z in range(slices):
             a, b = 0.8 + 0.05 * rng.standard_normal(), 0.6 + 0.05 * rng.standard_normal()
             r = (xx / a) ** 2 + (yy / b) ** 2
             sdct[z][r < 1] = 40 + 20 * rng.standard_normal()
@@ -1336,13 +1365,14 @@ def write_ldct_root(root: Path, seed: int) -> int:
         np.save(root / "vol" / f"sdct_{case}.npy", sdct.astype(np.float32))
         np.save(root / "vol" / f"ldct_{case}.npy", ldct.astype(np.float32))
         lines.append(f"{case}\tvol/sdct_{case}.npy\tvol/ldct_{case}.npy")
-    for split in ("train.txt", "test.txt"):
-        (root / split).write_text("\n".join(lines) + "\n")
+    splits = {"train.txt": lines[:cases[0]], "test.txt": lines if shared else lines[cases[0]:]}
+    for split, rows in splits.items():
+        (root / split).write_text("\n".join(rows) + "\n")
     (root / "dataset.json").write_text(json.dumps({
         "dataset_class": "datasets.ldct:LDCTDataset",
         "preprocess_kwargs": {"MIN_B": -1024, "MAX_B": 3072, "slope": 1.0, "intersept": -1024},
         "save_tensor_cache": True}))
-    return CLI_CASES * CLI_SLICES
+    return cases[1] * slices
 
 
 def run_cli(card: str, run: Path, mode: str, *flags):
@@ -1582,6 +1612,278 @@ def phase_run_model(torch, card: str, seed: int, records, work: Path) -> dict:
     return totals
 
 
+def run_train_cli(card: str, what: str, *flags):
+    """``python -m fmdm_tpu_torch.train`` in a subprocess on the card: its
+    log (standard error and output) and wall seconds; a non-zero exit fails
+    the run."""
+    cmd = [sys.executable, "-m", "fmdm_tpu_torch.train", *map(str, flags)]
+    start = time.perf_counter()
+    out = subprocess.run(cmd, cwd=REPO_ROOT, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - start
+    if out.returncode != 0:
+        log(out.stdout[-2000:])
+        log(out.stderr[-6000:])
+        raise AssertionError(f"python -m fmdm_tpu_torch.train ({what}) exited {out.returncode}")
+    return out.stderr + out.stdout, secs
+
+
+def loop_log(text: str) -> dict:
+    """What a training run logged: the model's build seconds, and per epoch
+    the samples/s, steps and their seconds, the data wait, the validation,
+    checkpoint and visual seconds and the optimizer's step."""
+    import re
+
+    build = re.search(r"Built the \S+ (?:model )?on \S+ in ([0-9.]+) s", text)
+    rates = [float(m) for m in re.findall(r"Epoch \d+ \| loss [^|]*\| ([0-9.]+) samples/s", text)]
+    timing = re.findall(
+        r"Epoch (\d+) timing \| (\d+) steps in ([0-9.]+) s \(([0-9.]+) s waiting for data\) \| "
+        r"(?:validation ([0-9.]+) s \| )?checkpoint ([0-9.]+) s \| visuals ([0-9.]+) s \| "
+        r"optimizer step (\d+)", text)
+    epochs = [{"epoch": int(e), "steps": int(n), "steps_s": float(t), "data_wait_s": float(w),
+               "validation_s": float(v or 0.0), "checkpoint_s": float(c), "visuals_s": float(vi),
+               "optimizer_step": int(k), "samples_per_s": rate}
+              for (e, n, t, w, v, c, vi, k), rate in zip(timing, rates)]
+    if build is None or not epochs or len(rates) != len(timing):
+        raise AssertionError(f"the training log lacks its build or epoch lines:\n{text[-3000:]}")
+    return {"build_s": float(build.group(1)), "epochs": epochs}
+
+
+def describe_run(card: str, what: str, logged: dict, wall: float) -> None:
+    log(f"  CLI {what}: exit 0, wall {wall:.2f} s, model build {logged['build_s']:.3f} s [{card}]")
+    for e in logged["epochs"]:
+        log(f"    epoch {e['epoch']}: {e['steps']} steps in {e['steps_s']:.3f} s "
+            f"({e['samples_per_s']:.3f} samples/s, {e['data_wait_s']:.3f} s waiting for data), "
+            f"validation {e['validation_s']:.3f} s, checkpoint write {e['checkpoint_s']:.3f} s, "
+            f"visuals {e['visuals_s']:.3f} s, optimizer step {e['optimizer_step']}")
+
+
+def check_run_dir(run: Path, epochs: list, files: list) -> list:
+    """The run dir's metrics.csv rows (epochs ``epochs``, finite values) and
+    its files (an image may be a PNG or, without Pillow, a .npy)."""
+    rows = read_csv_rows(run / "metrics.csv")
+    values = [float(v) for r in rows for k, v in r.items() if k != "epoch"]
+    if [int(r["epoch"]) for r in rows] != epochs or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"{run.name}/metrics.csv: {rows}")
+    for name in files:
+        path = run / name
+        if not (path.exists() or (path.suffix == ".png" and path.with_suffix(".npy").exists())):
+            raise AssertionError(f"{run.name} has no {name}")
+    return rows
+
+
+def train_config(path: Path, root: Path, out: Path, **training) -> dict:
+    """A config of the repo with its data root, output dir, epochs and the
+    visuals' inference steps cut for [22]."""
+    cfg = json.loads(path.read_text())
+    cfg["training"].update(data_root=str(root), output_dir=str(out), **training)
+    if "scheduler" in cfg["model"]:
+        cfg["training"]["num_inference_steps"] = TRAIN_VISUAL_STEPS
+        cfg["model"]["scheduler"]["num_inference_steps"] = TRAIN_VISUAL_STEPS
+    return cfg
+
+
+def write_config(path: Path, cfg: dict) -> Path:
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(cfg, indent=2))
+    return path
+
+
+def phase_train(torch, card: str, seed: int, records, work: Path) -> dict:
+    """[22]: training from a config through the CLI and in process; returns
+    the launches of the in-process loops."""
+    from fmdm_tpu_torch.data.dataset_utils import build_train_val_datasets
+    from fmdm_tpu_torch.sample import diffusion_utils
+    from fmdm_tpu_torch.train import common, denoise_lib, vae_impl
+    from fmdm_tpu_torch.utils import checkpoint as ckpt_utils
+    from fmdm_tpu_torch.utils.config import load_json_config
+
+    root = work / "train_ldct"
+    val_samples = write_ldct_root(root, seed, TRAIN_CASES, TRAIN_SLICES)
+    train_samples = TRAIN_CASES[0] * TRAIN_SLICES
+    batch = int(json.loads(CONFIG.read_text())["training"]["train_batch_size"])
+    per_epoch = -(-train_samples // batch)
+    log(f"[22] python -m fmdm_tpu_torch.train over a synthetic LDCT root: {train_samples} train "
+        f"slices ({TRAIN_CASES[0]} cases), {val_samples} test slices ({TRAIN_CASES[1]} cases), "
+        f"256²; cuts: epochs {TRAIN_EPOCHS}, {TRAIN_VISUAL_STEPS} inference steps in the visuals, "
+        f"VAE visual_samples {VAE_VISUAL_SAMPLES}; PyTorch's default flags in the CLI "
+        f"(cudnn.allow_tf32 True) [{card}]")
+    base = work / "train"
+    runs = {"ddpm": base / "ddpm_run1", "flow": base / "flow_run1", "vae": base / "vae_run1"}
+
+    # the flagship DDPM config, 2 epochs, then a resumed third
+    epochs = TRAIN_EPOCHS["ddpm"]
+    cfg = train_config(CONFIG, root, base / "ddpm", num_epochs=epochs)
+    text, wall = run_train_cli(card, "ddpm", "--config", write_config(work / "cfg" / "ddpm.json", cfg))
+    first = loop_log(text)
+    describe_run(card, f"DDPM, {epochs} epochs at batch {batch}", first, wall)
+    check_run_dir(runs["ddpm"], list(range(1, epochs + 1)),
+                  ["diff_last.pt", "diff_best.pt", f"epochs/epoch{epochs:04d}/epoch.pt",
+                   *(f"visuals/epoch{epochs:04d}_{k}.png" for k in ("input", "output", "target"))])
+    rate = {}
+    for total in (epochs, epochs + 1):
+        rate[total] = common.cosine_warmup_schedule(
+            float(cfg["training"]["learning_rate"]), int(cfg["training"]["lr_warmup_steps"]),
+            total * per_epoch)
+    payload = ckpt_utils.load_checkpoint(runs["ddpm"] / "diff_last.pt")
+    steps = int(payload["optimizer"]["state"][0]["step"])
+    lr = payload["optimizer"]["param_groups"][0]["lr"]
+    if steps != epochs * per_epoch or lr != rate[epochs](steps - 1):
+        raise AssertionError(f"DDPM run: optimizer step {steps}, rate {lr}")
+    resumed = train_config(CONFIG, root, runs["ddpm"], num_epochs=epochs + 1)
+    text, wall = run_train_cli(card, "ddpm --resume", "--config",
+                               write_config(work / "cfg" / "ddpm_resume.json", resumed),
+                               "--resume", runs["ddpm"] / "diff_last.pt")
+    second = loop_log(text)
+    describe_run(card, f"DDPM --resume diff_last.pt, epoch {epochs + 1}", second, wall)
+    check_run_dir(runs["ddpm"], list(range(1, epochs + 2)),
+                  [f"epochs/epoch{epochs + 1:04d}/epoch.pt", f"visuals/epoch{epochs + 1:04d}_output.png"])
+    payload = ckpt_utils.load_checkpoint(runs["ddpm"] / "diff_last.pt")
+    steps_after = int(payload["optimizer"]["state"][0]["step"])
+    lr_after = payload["optimizer"]["param_groups"][0]["lr"]
+    log(f"  resume: optimizer step {steps} -> {steps_after}, last rate {lr:.6e} -> {lr_after:.6e} "
+        f"(the resumed schedule's rate at step {steps_after - 1}: "
+        f"{rate[epochs + 1](steps_after - 1):.6e}); epoch {payload['epoch']}")
+    if steps_after != (epochs + 1) * per_epoch or lr_after != rate[epochs + 1](steps_after - 1) \
+            or second["epochs"][0]["optimizer_step"] != steps_after:
+        raise AssertionError(f"the resumed run did not continue the optimizer's step {steps}: "
+                             f"{steps_after}, rate {lr_after}")
+
+    # flow matching, 1 epoch
+    flow = train_config(FLOW_CONFIG, root, base / "flow", num_epochs=TRAIN_EPOCHS["flow"])
+    text, wall = run_train_cli(card, "flow", "--config", write_config(work / "cfg" / "flow.json", flow))
+    describe_run(card, "flow matching, 1 epoch", loop_log(text), wall)
+    check_run_dir(runs["flow"], [1], ["flow_last.pt", "flow_best.pt", "epochs/epoch0001/epoch.pt",
+                                      "visuals/epoch0001_output.png"])
+
+    # the KL-VAE, 2 epochs with the validation split
+    vae_epochs = TRAIN_EPOCHS["vae"]
+    vae = train_config(VAE_CONFIG, root, base / "vae", epochs=vae_epochs,
+                       visual_samples=VAE_VISUAL_SAMPLES)
+    text, wall = run_train_cli(card, "vae", "--config", write_config(work / "cfg" / "vae.json", vae))
+    vae_logged = loop_log(text)
+    describe_run(card, f"KL-VAE, {vae_epochs} epochs at batch {vae['training']['batch_size']}",
+                 vae_logged, wall)
+    rows = check_run_dir(runs["vae"], list(range(1, vae_epochs + 1)),
+                         ["vae_last.pt", "vae_best.pt", f"epochs/epoch{vae_epochs:04d}/epoch.pt",
+                          *(f"epochs/epoch{vae_epochs:04d}/{k}.png" for k in ("input", "recon", "gen"))])
+    if list(rows[0]) != ["epoch", "loss", "recon", "kl", "vq"] or \
+            any(e["validation_s"] <= 0 for e in vae_logged["epochs"]):
+        raise AssertionError(f"vae metrics.csv columns {list(rows[0])}, or no validation")
+    log(f"  VAE metrics.csv: {list(rows[0])}; {rows}")
+
+    # the train loop's visuals from a checkpoint
+    out_dir = work / "debug_visual"
+    text, wall = run_train_cli(card, "debug_visual_only", "--config", work / "cfg" / "ddpm.json",
+                               "--debug_visual_only", "--ckpt", runs["ddpm"] / "diff_best.pt",
+                               "--visual_samples", 2, "--output_dir", out_dir)
+    written = sorted(str(p.relative_to(out_dir)) for p in out_dir.rglob("*") if p.is_file())
+    log(f"  CLI --debug_visual_only: exit 0, wall {wall:.2f} s, {len(written)} files [{card}]")
+    if not any(f.startswith("grid_output") for f in written) or \
+            not any(f.startswith("generated") for f in written):
+        raise AssertionError(f"--debug_visual_only wrote {written}")
+
+    # the DDPM and VAE loops in this process, under the CLI's flags
+    torch.backends.cudnn.allow_tf32 = True
+    totals = {}
+
+    def counted(what, fn, want, calls=lambda kw: 1):
+        def call(*args, **kw):
+            before = read_counts(records)
+            out = fn(*args, **kw)
+            after = read_counts(records)
+            delta = {k: after[k] - before[k] for k in after}
+            expect_counts(f"[22] {what}", delta, want, calls(kw))
+            for k, v in delta.items():
+                totals[k] = totals.get(k, 0) + v
+            return out
+        return call
+
+    saves = []
+
+    def checked_save(state, primary, mirrors=(), backend=None):
+        live = {k: v.detach().cpu().clone() for k, v in state["model"].state_dict().items()}
+        real_save(state, primary, mirrors, backend)
+        stored = ckpt_utils.load_checkpoint(primary)["model"]
+        same = stored.keys() == live.keys() and all(torch.equal(stored[k], live[k]) for k in live)
+        saves.append(same)
+        if not same:
+            raise AssertionError(f"{primary} read back differs from the weights it saved")
+
+    timing = {}
+
+    def visual_decode(*args, **kw):
+        timing.clear()
+        return real_decode(*args, timing=timing, **kw)
+
+    real_save = ckpt_utils.save_checkpoint_with_mirrors
+    real_decode = denoise_lib.decode_diffusion_batch
+    patched = [
+        (common.DenoiseTrainStep, "step", counted("flagship train step", common.DenoiseTrainStep.step,
+                                                 DENOISE_LAUNCHES)),
+        (common.DenoiseTrainStep, "trial", counted("flagship start-up trial",
+                                                  common.DenoiseTrainStep.trial, DENOISE_LAUNCHES)),
+        (vae_impl.KLTrainStep, "step", counted("VAE train step", vae_impl.KLTrainStep.step,
+                                               VAE_LAUNCHES["train step"])),
+        (vae_impl.KLTrainStep, "trial", counted("VAE start-up trial", vae_impl.KLTrainStep.trial,
+                                                VAE_LAUNCHES["train step"])),
+        (vae_impl.KLTrainStep, "eval", counted("VAE validation call", vae_impl.KLTrainStep.eval,
+                                               VAE_LAUNCHES["reconstruct"])),
+        (denoise_lib, "decode_diffusion_batch",
+         counted("flagship visual model call", visual_decode, DENOISE_LAUNCHES,
+                 calls=lambda kw: timing["model_calls"])),
+        (ckpt_utils, "save_checkpoint_with_mirrors", checked_save),
+    ]
+    originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
+    measured = {}
+    # what launches outside the counted calls: nothing in the DDPM loop; the
+    # VAE's visuals (one reconstruct and one decode) in its
+    uncounted = {"ddpm": {}, "vae": VAE_VISUAL_LAUNCHES}
+    try:
+        for obj, name, fn in patched:
+            setattr(obj, name, fn)
+        for label, path, lib, kw in (
+                ("ddpm", CONFIG, denoise_lib, {"variant": "diffusion"}),
+                ("vae", VAE_CONFIG, vae_impl, {})):
+            key = "num_epochs" if label == "ddpm" else "epochs"
+            cfg = train_config(path, root, work / "inproc" / label, **{key: 1},
+                               **({"visual_samples": VAE_VISUAL_SAMPLES} if label == "vae" else {}))
+            cfg_path = write_config(work / "cfg" / f"inproc_{label}.json", cfg)
+            train_ds, val_ds = build_train_val_datasets(load_json_config(cfg_path))
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            counted_before, all_before = dict(totals), read_counts(records)
+            start = time.perf_counter()
+            lib.train(train_ds, cfg_path, val_dataset=val_ds, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            launches = {k: v - all_before[k] for k, v in read_counts(records).items()}
+            rest = {k: v - (totals.get(k, 0) - counted_before.get(k, 0)) for k, v in launches.items()}
+            expect_counts(f"[22] {label} launches outside the counted calls", rest, uncounted[label])
+            for k, v in rest.items():
+                totals[k] = totals.get(k, 0) + v
+            measured[label] = {"wall": wall, "peak": torch.cuda.max_memory_allocated(),
+                               "held": held, "launches": launches}
+    finally:
+        for obj, name, fn in originals:
+            setattr(obj, name, fn)
+    diffusion_utils._ENGINE_CACHE.clear()  # the visuals' engines hold the loop's model
+    torch.cuda.empty_cache()
+    for label, m in measured.items():
+        log(f"  in process, {label} 1 epoch: wall {m['wall']:.2f} s, launches {m['launches']}, "
+            f"peak {m['peak'] / 2**30:.2f} GiB ({(m['peak'] - m['held']) / 2**30:.2f} above the "
+            f"{m['held'] / 2**30:.2f} held before), cudnn.allow_tf32 "
+            f"{torch.backends.cudnn.allow_tf32}, matmul.allow_tf32 "
+            f"{torch.backends.cuda.matmul.allow_tf32} [{card}]")
+    log(f"  launches per call held: flagship train step and trial {DENOISE_LAUNCHES}, per visual "
+        f"model call {DENOISE_LAUNCHES}; VAE train step and trial {VAE_LAUNCHES['train step']}, "
+        f"validation call {VAE_LAUNCHES['reconstruct']}, visuals {VAE_VISUAL_LAUNCHES}; "
+        f"{len(saves)} checkpoints read back bitwise equal to the weights they saved")
+    if not saves or not all(saves):
+        raise AssertionError("no checkpoint was written in process")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -1741,6 +2043,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         decode_counts = phase_decode(torch, card, args.seed, gen, all_records, Path(tmp))
         cli_counts = phase_run_model(torch, card, args.seed, all_records, Path(tmp))
+        train_loop_counts = phase_train(torch, card, args.seed, all_records, Path(tmp))
 
     k1["launches"], k2["launches"] = main_launches
     k3["launches"], k4["launches"], k5["launches"] = (train_counts[k] for k in ("K3", "K4", "K5"))
@@ -1755,7 +2058,9 @@ def main() -> int:
             f"VAE train step x {TRAIN_STEPS}": train_counts[kernel],
             f"decode from a run dir, {len(DECODE_RUNS) + 1} runs at batch {DECODE_BATCH}":
                 decode_counts.get(kernel, 0),
-            f"run_model evaluate in process, batch {DECODE_BATCH} and 1": cli_counts.get(kernel, 0)}
+            f"run_model evaluate in process, batch {DECODE_BATCH} and 1": cli_counts.get(kernel, 0),
+            "training from a config in process, 1 epoch of the DDPM and VAE loops":
+                train_loop_counts.get(kernel, 0)}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_term", "library_ms", "shape", "dtype")
     extra = ("library_kernel", "variants", "per_forward", "launches_by_path")

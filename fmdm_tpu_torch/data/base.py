@@ -96,6 +96,12 @@ def complete_rows(rows: List[dict]) -> List[dict]:
 
 
 class BaseDataset:
+    # __getitem__ is thread-safe: per-call numpy state only, atomic
+    # (tmp+os.replace) cache writes, no global-RNG transforms. This opts the
+    # whole family into epoch_batches' auto-threaded sample fetch; external
+    # dataset classes stay serial unless they declare the same.
+    thread_safe_getitem = True
+
     def __init__(
         self,
         file_path: str,

@@ -2,8 +2,9 @@
 VAE construction and batch encode/decode/reconstruct (counterpart of
 ``fmdm_tpu/sample/vae_utils.py:21-65``).
 
-Weights come from a flat JAX parameter dict (``load_jax_params``) or are
-drawn from a ``torch.Generator``; checkpoint files are not ported yet.
+Weights come from a checkpoint file of either package (its ``model`` entry
+or a bare state dict), from a flat JAX parameter dict (``load_jax_params``),
+or are drawn from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -16,15 +17,23 @@ import torch
 from fmdm_tpu_torch.device import DeviceArg
 from fmdm_tpu_torch.models.factories import VAEFactory
 from fmdm_tpu_torch.nn.layers import init_weights
+from fmdm_tpu_torch.utils.checkpoint import load_model_params
 from fmdm_tpu_torch.utils.weights import load_jax_params
 
 
 def build_vae_model(cfg: Dict[str, Any], flat_params: Optional[Mapping[str, np.ndarray]] = None,
-                    generator: Optional[torch.Generator] = None, device: DeviceArg = None):
-    """The VAE of a ``{training, model}`` config dict, with ``flat_params``
-    loaded (strict) or, without them, weights drawn from ``generator`` (a CPU
-    generator; by default one seeded with ``training.seed``)."""
+                    generator: Optional[torch.Generator] = None, device: DeviceArg = None,
+                    ckpt_path=None):
+    """The VAE of a ``{training, model}`` config dict, with the weights of
+    ``ckpt_path`` or ``flat_params`` loaded (every parameter present at its
+    shape; a checkpoint's extra entries are ignored, as in the JAX package)
+    or, without them, drawn from ``generator`` (a CPU generator; by default
+    one seeded with ``training.seed``)."""
     model = VAEFactory().build(cfg["model"], device=device)
+    if ckpt_path is not None:
+        params = load_model_params(ckpt_path, expected=model)
+        model.load_state_dict({k: params[k] for k in model.state_dict()}, strict=True)
+        return model
     if flat_params is not None:
         return load_jax_params(model, flat_params)
     if generator is None:

@@ -1,6 +1,10 @@
 """
 The denoising train step of the diffusion and flow-matching UNets and its
-optimizer (counterpart of ``fmdm_tpu/train/common.py:30-46,189-332``).
+optimizer (counterpart of ``fmdm_tpu/train/common.py:30-46,189-332``), the
+host-side batching of the training loops (``:53-186``), the start-up
+micro-batch tuning (``:346-397``) and the helpers the denoise and VAE run
+loops share (run dir, host batches, resume path, the generator's state in
+a checkpoint, the first epoch's profile).
 
 One step on a batch ``{"target", "image", "valid"}`` (x0, the conditioning
 images or None, the (B,) validity mask):
@@ -31,9 +35,14 @@ autograd of their plain versions, as in JAX. The mesh is not ported.
 
 from __future__ import annotations
 
+import contextlib
+import logging
 import math
-from typing import Callable, Dict, Iterable, Optional, Tuple
+import os
+from pathlib import Path
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
@@ -41,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
 from fmdm_tpu_torch.sample.engine import normalize_latent_conditioning, prepare_attention_context
 from fmdm_tpu_torch.schedulers.base import Scheduler
+from fmdm_tpu_torch.utils import config as config_utils
 
 VARIANTS = ("diffusion", "flow_matching")
 
@@ -66,6 +76,155 @@ def make_adamw(params: Iterable[nn.Parameter], base_lr: float, weight_decay: flo
     optimizer = torch.optim.AdamW(params, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
                                   weight_decay=weight_decay)
     return optimizer, cosine_warmup_schedule(base_lr, num_warmup_steps, num_training_steps)
+
+
+# ---------------------------------------------------------------------------
+# Host-side batching
+# ---------------------------------------------------------------------------
+
+def _stack_key(samples: List[dict], key: str) -> Optional[np.ndarray]:
+    values = [s.get(key) for s in samples]
+    if any(v is None for v in values):
+        return None
+    return np.stack([np.asarray(v, dtype=np.float32) for v in values], axis=0)
+
+
+def _finalize(samples: List[dict], batch_size: int, pad_to_full: bool) -> Dict[str, Optional[np.ndarray]]:
+    """Stack samples into ``{"target", "image", "valid"}``; a short batch is
+    edge-padded (its last sample repeated) to ``batch_size`` with ``valid``
+    0 on the padding rows."""
+    target = _stack_key(samples, "target")
+    image = _stack_key(samples, "image")
+    valid = np.ones((len(samples),), dtype=np.float32)
+    if pad_to_full and len(samples) < batch_size:
+        pad = batch_size - len(samples)
+        target = np.concatenate([target, np.repeat(target[-1:], pad, axis=0)], axis=0)
+        if image is not None:
+            image = np.concatenate([image, np.repeat(image[-1:], pad, axis=0)], axis=0)
+        valid = np.concatenate([valid, np.zeros((pad,), np.float32)])
+    return {"target": target, "image": image, "valid": valid}
+
+
+def prefetch(iterator, depth: int = 2):
+    """Run ``iterator`` on a background thread, ``depth`` items ahead, so
+    sample loading and stacking overlap the card's work. An exception of the
+    producer is raised in the consumer."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    sentinel = object()
+    err: list = []
+
+    def producer():
+        try:
+            for item in iterator:
+                q.put(item)
+        except BaseException as exc:  # propagate into the consumer
+            err.append(exc)
+        finally:
+            q.put(sentinel)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    while True:
+        item = q.get()
+        if item is sentinel:
+            if err:
+                raise err[0]
+            return
+        yield item
+
+
+def _default_fetch_workers() -> int:
+    return min(8, os.cpu_count() or 1)
+
+
+def cfg_num_workers(training_cfg: Dict[str, Any]) -> Optional[int]:
+    """training.num_workers -> fetch-thread count; absent/None means auto."""
+    value = training_cfg.get("num_workers")
+    if value in (None, "None", ""):
+        return None
+    return int(value)
+
+
+def epoch_order(n: int, *, shuffle: bool, seed: int, epoch: int, process_index: int = 0,
+                process_count: int = 1) -> np.ndarray:
+    """The sample order of one epoch on one process: a permutation drawn
+    from ``RandomState(seed * 100003 + epoch)``, padded to a multiple of
+    ``process_count`` with its leading indices, then strided by process."""
+    order = np.arange(n)
+    if shuffle:
+        rng = np.random.RandomState((seed or 0) * 100003 + epoch)
+        rng.shuffle(order)
+    if process_count > 1 and n % process_count != 0:
+        # every process yields the same number of batches
+        pad = process_count - n % process_count
+        order = np.concatenate([order, order[:pad]])
+    return order[process_index::process_count]
+
+
+def epoch_batches(
+    dataset,
+    batch_size: int,
+    *,
+    shuffle: bool,
+    seed: int,
+    epoch: int,
+    pad_to_full: bool = True,
+    process_index: int = 0,
+    process_count: int = 1,
+    num_workers: Optional[int] = None,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Yield {'target', 'image', 'valid'} numpy batches of a static batch
+    size in :func:`epoch_order`.
+
+    ``num_workers`` threads fetch a batch's samples concurrently, which needs
+    a thread-safe ``dataset.__getitem__``. With ``num_workers=None`` (auto)
+    a dataset that declares ``thread_safe_getitem = True`` (the BaseDataset
+    family) gets ``min(8, cpu_count)`` threads and any other the serial
+    path; an explicit count always wins. 0 = serial. Batch contents and
+    order are the same at any worker count."""
+    order = epoch_order(len(dataset), shuffle=shuffle, seed=seed, epoch=epoch,
+                        process_index=process_index, process_count=process_count)
+    if num_workers is None:
+        workers = (_default_fetch_workers()
+                   if getattr(dataset, "thread_safe_getitem", False) else 0)
+    else:
+        workers = int(num_workers)
+    pool = None
+    if workers > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        pool = ThreadPoolExecutor(max_workers=workers, thread_name_prefix="fetch")
+    try:
+        yield from _batches_over(dataset, order, batch_size, pad_to_full, pool)
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=False, cancel_futures=True)
+
+
+def _batches_over(dataset, order, batch_size, pad_to_full, pool) -> Iterator[Dict[str, np.ndarray]]:
+    for start in range(0, len(order), batch_size):
+        idx = order[start : start + batch_size]
+        if pool is not None:
+            samples = list(pool.map(lambda i: dataset[int(i)], idx))
+        else:
+            samples = [dataset[int(i)] for i in idx]
+        yield _finalize(samples, batch_size, pad_to_full)
+
+
+def batch_to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, Optional[torch.Tensor]]:
+    """A host batch (numpy arrays, or pinned CPU tensors) on ``device``, in
+    one copy per array; pinned tensors copy asynchronously."""
+    out = {}
+    for key, value in batch.items():
+        if value is None:
+            out[key] = None
+            continue
+        tensor = torch.as_tensor(value)
+        out[key] = tensor.to(device, non_blocking=tensor.is_pinned())
+    return out
 
 
 def _pad_rows(a: Optional[torch.Tensor], rows: int) -> Optional[torch.Tensor]:
@@ -153,6 +312,31 @@ class DenoiseTrainStep:
         and ``t`` ((rows,), int for diffusion, f32 in [0, 1) for flow
         matching) cover the padded batch of ``rows = n_chunks * chunk``; what
         is not given is drawn per chunk, noise first, from ``generator``."""
+        loss_sum, count = self._accumulate(batch, noise, t, generator)
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr_schedule(self.global_step)
+        self.optimizer.step()
+        if self.ema is not None:
+            with torch.no_grad():
+                torch._foreach_lerp_(self.ema, [p.detach() for p in self.model.parameters()],
+                                     1.0 - self.ema_decay)
+        self.global_step += 1
+        return loss_sum, count
+
+    def trial(self, batch: Dict[str, Optional[torch.Tensor]], generator: torch.Generator) -> None:
+        """The forward and backward of one step on ``batch`` at the current
+        ``grad_accum``, drawing from ``generator``, then the gradients freed:
+        the optimizer, the rate's step and the EMA are left as they were."""
+        try:
+            self._accumulate(batch, None, None, generator)
+        finally:
+            self.optimizer.zero_grad(set_to_none=True)
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+
+    def _accumulate(self, batch, noise, t, generator) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The chunks' forwards and backwards: ``p.grad`` holds the averaged
+        gradient; returns (loss_sum, count)."""
         dev = self.device
         x0 = batch["target"].to(dev, torch.float32)
         cond = batch.get("image")
@@ -188,14 +372,6 @@ class DenoiseTrainStep:
             for p in self.model.parameters():
                 if p.grad is not None:
                     p.grad.div_(divisor)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr_schedule(self.global_step)
-        self.optimizer.step()
-        if self.ema is not None:
-            with torch.no_grad():
-                torch._foreach_lerp_(self.ema, [p.detach() for p in self.model.parameters()],
-                                     1.0 - self.ema_decay)
-        self.global_step += 1
         return loss_sum, count
 
     def ema_state_dict(self) -> Dict[str, torch.Tensor]:
@@ -222,3 +398,168 @@ def make_denoise_train_step(model: nn.Module, scheduler: Scheduler,
                             conditioning_mode=conditioning_mode, latent_norm=latent_norm,
                             grad_accum=grad_accum, compute_dtype=compute_dtype, remat=remat,
                             ema_decay=ema_decay, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Run-loop helpers of the denoise and VAE loops
+# ---------------------------------------------------------------------------
+
+LOG_FORMAT = "%(asctime)s | %(levelname)s | %(message)s"
+
+
+def run_dir_for(training_cfg: Dict[str, Any], cfg: Dict[str, Any], default: str,
+                resume) -> Path:
+    """The run's output dir: a fresh ``_runN`` beside ``training.output_dir``
+    unless resuming (then the dir itself); ``train_config.json`` is written
+    there once."""
+    base_output_dir = Path(training_cfg.get("output_dir", default))
+    output_dir = config_utils.allocate_run_dir(base_output_dir) if resume is None else base_output_dir
+    training_cfg["output_dir"] = str(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    cfg_path = output_dir / "train_config.json"
+    if not cfg_path.exists():
+        config_utils.save_json_config(cfg_path, cfg)
+    return output_dir
+
+
+def host_batches(dataset, batch_size: int, training_cfg: Dict[str, Any], *, seed: int,
+                 epoch: int, device: torch.device, shuffle: bool = True):
+    """One epoch's host batches: ``training.data_loader: "grain"`` takes the
+    ``DataLoader`` with worker processes (pinned batches on CUDA), anything
+    else the threaded ``epoch_batches`` behind a prefetch thread."""
+    if str(training_cfg.get("data_loader", "threads")).lower() == "grain":
+        from fmdm_tpu_torch.data.grain_pipeline import grain_epoch_batches
+
+        return grain_epoch_batches(dataset, batch_size, shuffle=shuffle, seed=seed, epoch=epoch,
+                                   num_workers=cfg_num_workers(training_cfg) or 0,
+                                   pin_memory=device.type == "cuda")
+    return prefetch(epoch_batches(dataset, batch_size, shuffle=shuffle, seed=seed, epoch=epoch,
+                                  num_workers=cfg_num_workers(training_cfg)))
+
+
+def with_progress(batches, total: int, desc: str):
+    """tqdm over ``batches`` where tqdm is installed (off on a non-TTY)."""
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return batches
+    return tqdm(batches, total=total, desc=desc, leave=False, dynamic_ncols=True, disable=None)
+
+
+def resume_path(resume, training_cfg: Dict[str, Any]) -> Optional[Path]:
+    """``resume``, else ``training.resume`` unless it is "none"."""
+    if resume:
+        return Path(resume)
+    from_cfg = training_cfg.get("resume")
+    if isinstance(from_cfg, str) and from_cfg.lower() != "none":
+        return Path(from_cfg)
+    return None
+
+
+def generator_state(generator: torch.Generator) -> Dict[str, Any]:
+    return {"device": generator.device.type, "state": generator.get_state()}
+
+
+def restore_generator(generator: torch.Generator, saved) -> None:
+    """Continue ``generator`` from a checkpoint's ``rng_state`` when it was
+    saved from a generator of the same device type."""
+    if not saved:
+        return
+    if saved.get("device") != generator.device.type:
+        logging.warning("The checkpoint's generator state is from a %s generator; the %s "
+                        "generator starts from its seed.", saved.get("device"),
+                        generator.device.type)
+        return
+    generator.set_state(saved["state"])
+
+
+@contextlib.contextmanager
+def profile_epoch(profile_dir, device: torch.device):
+    """``torch.profiler`` over the block, its Chrome trace written to
+    ``profile_dir/trace.json``; a no-op without ``profile_dir``."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=activities) as prof:
+        yield
+    out = Path(profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / "trace.json"))
+    logging.info("Wrote the first epoch's trace to %s", out / "trace.json")
+
+
+@contextlib.contextmanager
+def weights_swapped(model: torch.nn.Module, tensors: Sequence[torch.Tensor]):
+    """``model`` with its parameters set to ``tensors`` inside the block,
+    the live values restored bitwise after it."""
+    params = list(model.parameters())
+    live = [p.detach().clone() for p in params]
+    with torch.no_grad():
+        for p, t in zip(params, tensors):
+            p.copy_(t)
+    try:
+        yield model
+    finally:
+        with torch.no_grad():
+            for p, t in zip(params, live):
+                p.copy_(t)
+
+
+# ---------------------------------------------------------------------------
+# Start-up micro-batch tuning
+# ---------------------------------------------------------------------------
+
+def is_memory_error(err: BaseException) -> bool:
+    """Does this exception read as device-memory exhaustion? A
+    ``torch.OutOfMemoryError``, or an error whose text says so (the JAX
+    package's tags, and cuBLAS's and cuDNN's allocation failures)."""
+    if isinstance(err, torch.OutOfMemoryError):
+        return True
+    text = f"{type(err).__name__}: {err}".lower()
+    return any(tag in text for tag in (
+        "resource_exhausted", "out of memory", "exceeds the hbm", "hbm capacity",
+        "memory space hbm", "allocating", "oom", "alloc_failed",
+    )) and not isinstance(err, (TypeError, ValueError))
+
+
+def autotune_grad_accum(
+    build_step: Callable[[int], Any],
+    trial_step: Callable[[Any, int], None],
+    *,
+    batch_size: int,
+    grad_accum: int,
+    allow_microbatching: bool = True,
+    what: str = "train step",
+) -> Tuple[int, Any]:
+    """Pick the largest micro-batch that fits at start-up: build the step
+    for the configured accumulation and run ``trial_step`` (one forward and
+    backward of a probe batch that changes no state); on memory exhaustion
+    halve the micro-batch (raising the accumulation) until it fits or the
+    micro-batch is 1. Only under ``allow_microbatching``; any other error
+    is raised. Returns (grad_accum, step)."""
+    accum = max(1, int(grad_accum))
+    while True:
+        step = build_step(accum)
+        try:
+            trial_step(step, accum)
+            if accum != max(1, int(grad_accum)):
+                logging.warning(
+                    "Auto-tuned %s to gradient_accumulation_steps=%d "
+                    "(micro-batch %d) to fit device memory.",
+                    what, accum, -(-batch_size // accum),
+                )
+            return accum, step
+        except Exception as err:  # noqa: BLE001 - classified below
+            chunk = -(-batch_size // accum)
+            if not (allow_microbatching and is_memory_error(err)) or chunk <= 1:
+                raise
+            new_chunk = max(1, chunk // 2)
+            accum = min(batch_size, -(-batch_size // new_chunk))
+            logging.warning(
+                "%s does not fit with micro-batch %d (%s); retrying with "
+                "micro-batch %d (accum=%d).",
+                what, chunk, type(err).__name__, new_chunk, accum,
+            )

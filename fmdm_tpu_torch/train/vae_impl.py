@@ -1,7 +1,9 @@
 """
-The KL autoencoder's train and eval steps (counterpart of the closure in
-``fmdm_tpu/train/vae_impl.py:297-451`` for ``reg_type: "kl"``) and its
-learning-rate schedules (``_make_lr_schedule``, :57-82).
+The KL autoencoder's trainer (counterpart of ``fmdm_tpu/train/vae_impl.py``
+for ``reg_type: "kl"``): its train and eval steps (the closure at
+:297-451), its learning-rate schedules (``_make_lr_schedule``, :57-82), the
+run loop (:func:`train`, :127-669) and visuals from a checkpoint
+(:func:`debug_visual_only`).
 
 One step: the batch is wrap-padded to ``n_chunks`` equal chunks, the padded
 rows masked out of the reconstruction loss (``valid`` = 0) and of the counts;
@@ -12,19 +14,47 @@ by ``torch.optim.AdamW`` (b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay),
 which is ``optax.adamw``'s update. The posterior is sampled from an explicit
 noise tensor or a ``torch.Generator``.
 
+The run dir is the JAX package's: ``train_config.json``, ``metrics.csv``
+(``epoch`` and the train averages of ``loss``, ``recon`` and the
+conditional ``kl``, ``vq``, ``perceptual``, ``g_gan``/``d_gan`` columns),
+``vae_last.pt`` every ``checkpoint_every_epochs`` and at the last epoch,
+``vae_best.pt`` (by the validation loss when there is a validation set) and
+``epochs/epochXXXX/epoch.pt`` every ``save_every`` as hardlink mirrors, and
+on those epochs ``epochs/epochXXXX/{input,recon,gen}.png``. Two counters
+are kept apart as in the JAX package: the learning rate follows the
+optimizer's step (restored on resume), the KL anneal the loop's own step
+(0 at the start of every run, resumed or not). Each step's posterior noise
+comes from a generator on the device seeded with ``seed + 23`` (the JAX
+package's ``PRNGKey(seed + 23)``), whose state each checkpoint keeps; the
+generated visuals of epoch ``e`` draw from one seeded with
+``(seed + 23) * 100003 + e``.
+
 On CUDA the mid attention's forward runs K3 and its backward K4 and K5; K1's
 backward recomputes its plain version. Perceptual and GAN losses, the VQ
-recipe, the mesh, FSDP, tensor and sequence parallelism raise
-``NotImplementedError``. The run loop (run directories, CSVs, checkpoints,
-data) is not ported yet.
+recipe, the bce and focal losses, the mesh, FSDP, tensor and sequence
+parallelism raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import logging
 import math
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
+
+from fmdm_tpu_torch.device import DeviceArg, resolve_device
+from fmdm_tpu_torch.sample.vae_utils import build_vae_model
+from fmdm_tpu_torch.train import common as loop
+from fmdm_tpu_torch.train.common import autotune_grad_accum, batch_to_device, epoch_batches
+from fmdm_tpu_torch.utils import checkpoint as ckpt_utils
+from fmdm_tpu_torch.utils import config as config_utils
+from fmdm_tpu_torch.utils.evaluation import (latent_shape, make_grid, prepare_eval_batch,
+                                             save_image, select_visual_indices)
+from fmdm_tpu_torch.utils.summary import summarize_model
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -133,12 +163,34 @@ class KLTrainStep:
 
     def step(self, raw: torch.Tensor, valid: torch.Tensor, *,
              noise: Optional[torch.Tensor] = None,
-             generator: Optional[torch.Generator] = None) -> Tuple[Metrics, torch.Tensor]:
+             generator: Optional[torch.Generator] = None,
+             kl_scale: Optional[float] = None) -> Tuple[Metrics, torch.Tensor]:
         """One optimizer step on a batch (B, C, *spatial) with its (B,) valid
-        mask. ``noise``, when given, covers the padded batch: (n_chunks ·
+        mask, at ``kl_scale`` (default: annealed by this step's own count).
+        ``noise``, when given, covers the padded batch: (n_chunks ·
         ceil(B / n_chunks), embed_dim, *latent). Returns the metrics summed
         with the valid counts as weights, and the count; ``p.grad`` holds the
         averaged gradient that was applied."""
+        sums, count = self._accumulate(raw, valid, noise, generator,
+                                       self.kl_scale() if kl_scale is None else kl_scale)
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr_schedule(self.global_step)
+        self.optimizer.step()
+        self.global_step += 1
+        return sums, count
+
+    def trial(self, raw: torch.Tensor, valid: torch.Tensor, generator: torch.Generator) -> None:
+        """The forward and backward of one step at the current ``n_chunks``,
+        drawing from ``generator``, then the gradients freed: the optimizer
+        and the rate's step are left as they were."""
+        try:
+            self._accumulate(raw, valid, None, generator, self.kl_scale())
+        finally:
+            self.optimizer.zero_grad(set_to_none=True)
+            if raw.device.type == "cuda":
+                torch.cuda.empty_cache()
+
+    def _accumulate(self, raw, valid, noise, generator, kl_scale) -> Tuple[Metrics, torch.Tensor]:
         n = self.n_chunks
         chunk = max(1, -(-raw.shape[0] // n))
         pad = n * chunk - raw.shape[0]
@@ -148,7 +200,6 @@ class KLTrainStep:
             valid = torch.cat([valid, valid.new_zeros(pad)])
         if noise is not None and noise.shape[0] != n * chunk:
             raise ValueError(f"noise covers {noise.shape[0]} rows; the padded batch has {n * chunk}")
-        kl_scale = self.kl_scale()
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         sums: Metrics = {}
@@ -168,17 +219,309 @@ class KLTrainStep:
         for p in self.model.parameters():
             if p.grad is not None:
                 p.grad.div_(divisor)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr_schedule(self.global_step)
-        self.optimizer.step()
-        self.global_step += 1
         return sums, count
 
     @torch.no_grad()
-    def eval(self, raw: torch.Tensor, valid: torch.Tensor) -> Tuple[Metrics, torch.Tensor]:
+    def eval(self, raw: torch.Tensor, valid: torch.Tensor,
+             kl_scale: Optional[float] = None) -> Tuple[Metrics, torch.Tensor]:
         """The losses at the posterior's mode, summed with the valid count as
         weight, and the count."""
         self.model.eval()
-        _, metrics = self.losses(raw, valid, self.kl_scale(), train=False)
+        _, metrics = self.losses(raw, valid, self.kl_scale() if kl_scale is None else kl_scale,
+                                 train=False)
         count = valid.sum()
         return {k: v * count for k, v in metrics.items()}, count
+
+
+# ---------------------------------------------------------------------------
+# The run loop
+# ---------------------------------------------------------------------------
+
+# every loss a VAE recipe reports; those the KL recipe has no term for are 0
+LOSS_KEYS = ("loss", "recon", "kl", "perceptual", "g_gan", "d_gan", "vq")
+
+
+def _metric_columns(training_cfg: Mapping[str, Any]) -> List[str]:
+    """metrics.csv's columns after ``epoch``, by the config (JAX :182-191)."""
+    reg_type = str(training_cfg.get("reg_type", "kl")).lower()
+    keys = ["loss", "recon"]
+    if reg_type == "kl" or float(training_cfg.get("kl_weight", 0.0)) > 0:
+        keys.append("kl")
+    if reg_type == "vq" or float(training_cfg.get("codebook_weight", 1.0)) > 0:
+        keys.append("vq")
+    if float(training_cfg.get("perceptual_weight", 0.0)) > 0:
+        keys.append("perceptual")
+    if float(training_cfg.get("gan_weight", 0.0)) > 0:
+        keys.extend(["g_gan", "d_gan"])
+    return keys
+
+
+def _add_metrics(totals: Dict[str, float], metrics: Metrics) -> None:
+    for k, v in metrics.items():
+        totals[k] += float(v)
+
+
+def _grid_shape(count: int) -> Tuple[int, int]:
+    if count >= 20:
+        return 4, 5
+    rows = max(1, int(math.sqrt(count)))
+    return rows, max(1, count // rows)
+
+
+def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
+          max_steps_per_epoch: Optional[int] = None, device: DeviceArg = None) -> Path:
+    """Train the VAE of the config at ``json_path`` on ``dataset``,
+    validating on ``val_dataset`` when given, on ``device`` (CUDA by
+    default); returns the run dir."""
+    logging.basicConfig(level=logging.INFO, format=loop.LOG_FORMAT, force=True)
+    cfg = config_utils.load_json_config(json_path)
+    training_cfg = cfg["training"]
+    _refuse_unported(training_cfg)
+    device = resolve_device(device)
+    config_utils.set_seed(training_cfg.get("seed"))
+    seed = int(training_cfg.get("seed") or 0)
+    ckpt_utils.set_checkpoint_backend(str(training_cfg.get("checkpoint_backend", "torch")))
+
+    batch_size = int(training_cfg.get("batch_size", 4))
+    epochs = int(training_cfg.get("epochs", 1))
+    recon_type = training_cfg.get("recon_type", "l1")
+    kl_weight = float(training_cfg.get("kl_weight", 0.0))
+    kl_anneal_steps = int(training_cfg.get("kl_anneal_steps", 0))
+    save_every = int(training_cfg.get("save_every", 1))
+    checkpoint_every = int(training_cfg.get("checkpoint_every_epochs", 1))
+    if checkpoint_every > 1 and save_every % checkpoint_every != 0:
+        logging.warning(
+            "save_every=%d is finer than checkpoint_every_epochs=%d: epoch "
+            "snapshots are only written on gather epochs (every %d), so "
+            "off-cadence snapshots will be skipped.",
+            save_every, checkpoint_every, checkpoint_every,
+        )
+    output_dir = loop.run_dir_for(training_cfg, cfg, "checkpoints/vae", resume)
+
+    best_metric = float("inf")
+    metrics_path = output_dir / "metrics.csv"
+    metrics_keys = _metric_columns(training_cfg)
+    if not metrics_path.exists():
+        metrics_path.write_text("epoch," + ",".join(metrics_keys) + "\n")
+
+    start = time.perf_counter()
+    model = build_vae_model(cfg, device=device)
+    logging.info("Built the VAE on %s in %.3f s", device, time.perf_counter() - start)
+    model_cfg = cfg.get("model", {})
+    summarize_model(model, model_cfg, training_cfg, name="vae")
+    steps_per_epoch = math.ceil(len(dataset) / batch_size)
+    trainer = KLTrainStep(model, training_cfg, steps_per_epoch=steps_per_epoch)
+
+    logging.info(
+        "Data: train_samples=%d%s | batch_size=%d | grad_accum=%d | epochs=%d",
+        len(dataset), f", val_samples={len(val_dataset)}" if val_dataset is not None else "",
+        batch_size, trainer.n_chunks, epochs,
+    )
+
+    sample_count = int(training_cfg.get("visual_samples", 20))
+    visual_enabled = bool(training_cfg.get("save_images", True))
+    visual_every = int(training_cfg.get("save_images_every", 1))
+    sample_dataset = val_dataset if val_dataset is not None else dataset
+    sample_batch = prepare_eval_batch(sample_dataset, sample_count, seed=training_cfg.get("seed"))
+    latent = latent_shape(model_cfg)
+
+    probe = np.stack([np.asarray(dataset[0]["target"], np.float32)] * batch_size)
+
+    def _build_step(accum: int) -> KLTrainStep:
+        trainer.n_chunks = accum
+        return trainer
+
+    def _trial(step: KLTrainStep, _accum: int) -> None:
+        # a generator of its own: the loop's draws are untouched
+        step.trial(torch.from_numpy(probe).to(device), torch.ones(batch_size, device=device),
+                   torch.Generator(device).manual_seed(0))
+
+    _, trainer = autotune_grad_accum(
+        _build_step, _trial, batch_size=batch_size, grad_accum=trainer.n_chunks,
+        allow_microbatching=bool(training_cfg.get("allow_microbatching", True)),
+        what="vae train step")
+
+    generator = torch.Generator(device).manual_seed(seed + 23)
+    start_epoch = 1
+    resume_flag = loop.resume_path(resume, training_cfg)
+    if resume_flag and resume_flag.exists():
+        payload = ckpt_utils.load_checkpoint(resume_flag)
+        model.load_state_dict(payload["model"], strict=True)
+        if payload.get("optimizer") is not None:
+            trainer.global_step = ckpt_utils.load_optimizer_state(
+                trainer.optimizer, payload["optimizer"], model)
+        loop.restore_generator(generator, payload.get("rng_state"))
+        best_metric = float(payload.get("best_metric", best_metric))
+        start_epoch = int(payload.get("epoch", 0)) + 1
+        logging.info("Resumed from %s (epoch %d, optimizer step %d)", resume_flag,
+                     start_epoch - 1, trainer.global_step)
+
+    # the KL anneal's counter: the loop's steps in this run
+    global_step = 0
+    for epoch in range(start_epoch, epochs + 1):
+        totals = dict.fromkeys(LOSS_KEYS, 0.0)
+        num_samples, n_steps, data_wait = 0, 0, 0.0
+        pending: List[Tuple[Metrics, torch.Tensor]] = []
+        t_epoch = time.perf_counter()
+        batch_iter = loop.with_progress(
+            loop.host_batches(dataset, batch_size, training_cfg, seed=seed, epoch=epoch,
+                              device=device), steps_per_epoch, f"VAE {epoch}/{epochs}")
+        batches = iter(batch_iter)
+        while True:
+            t_wait = time.perf_counter()
+            batch = next(batches, None)
+            data_wait += time.perf_counter() - t_wait
+            if batch is None:
+                break
+            placed = batch_to_device({"target": batch["target"], "valid": batch["valid"]}, device)
+            m, count = trainer.step(placed["target"], placed["valid"], generator=generator,
+                                    kl_scale=kl_scale_at(kl_weight, kl_anneal_steps, global_step))
+            # one step in flight: read step i - 1's metrics while step i runs
+            pending.append((m, count))
+            if len(pending) > 1:
+                pm, pc = pending.pop(0)
+                _add_metrics(totals, pm)
+                num_samples += int(pc)
+            global_step += 1
+            n_steps += 1
+            if hasattr(batch_iter, "set_postfix"):
+                batch_iter.set_postfix(loss=f"{totals['loss'] / max(num_samples, 1):.4f}")
+            if max_steps_per_epoch is not None and n_steps >= max_steps_per_epoch:
+                break
+        for pm, pc in pending:
+            _add_metrics(totals, pm)
+            num_samples += int(pc)
+        steps_s = time.perf_counter() - t_epoch
+
+        averaged = {k: v / max(1, num_samples) for k, v in totals.items()}
+        logging.info(
+            "Epoch %03d | loss %.6f (recon %.6f, perc %.6f, kl %.6f, vq %.6f, g_gan %.6f, "
+            "d_gan %.6f) | %.3f samples/s", epoch, averaged["loss"], averaged["recon"],
+            averaged["perceptual"], averaged["kl"], averaged["vq"], averaged["g_gan"],
+            averaged["d_gan"], num_samples / max(steps_s, 1e-9))
+
+        val_s = 0.0
+        val_avg = None
+        if val_dataset is not None:
+            t_val = time.perf_counter()
+            val_totals = dict.fromkeys(LOSS_KEYS, 0.0)
+            val_samples = 0
+            kl_scale = kl_scale_at(kl_weight, kl_anneal_steps, global_step)
+            for batch in epoch_batches(val_dataset, batch_size, shuffle=False, seed=seed,
+                                       epoch=epoch):
+                placed = batch_to_device({"target": batch["target"], "valid": batch["valid"]},
+                                         device)
+                m, count = trainer.eval(placed["target"], placed["valid"], kl_scale)
+                _add_metrics(val_totals, m)
+                val_samples += int(count)
+            val_avg = {k: v / max(1, val_samples) for k, v in val_totals.items()}
+            val_s = time.perf_counter() - t_val
+            logging.info(
+                "Epoch %03d | val_loss %.6f (recon %.6f, perc %.6f, kl %.6f, vq %.6f, "
+                "g_gan %.6f, d_gan %.6f)", epoch, val_avg["loss"], val_avg["recon"],
+                val_avg["perceptual"], val_avg["kl"], val_avg["vq"], val_avg["g_gan"],
+                val_avg["d_gan"])
+
+        current_metric = val_avg["loss"] if val_avg is not None else averaged["loss"]
+        ckpt_s = vis_s = 0.0
+        saved = epoch % checkpoint_every == 0 or epoch == epochs
+        should_save = saved and (epoch % save_every == 0 or epoch == epochs)
+        epoch_dir = output_dir / "epochs" / f"epoch{epoch:04d}"
+        if saved:
+            # "best" at checkpoint granularity: an unsaved epoch never lowers it
+            improved = current_metric < best_metric
+            best_metric = min(best_metric, current_metric)
+            state = {"model": model, "optimizer": trainer.optimizer, "disc_optimizer": None,
+                     "scheduler": {"last_epoch": epoch}, "scaler": None, "epoch": epoch,
+                     "best_metric": best_metric, "rng_state": loop.generator_state(generator)}
+            mirrors = ([output_dir / "vae_best.pt"] if improved else []) + (
+                [epoch_dir / "epoch.pt"] if should_save else [])
+            t_ckpt = time.perf_counter()
+            ckpt_utils.save_checkpoint_with_mirrors(state, output_dir / "vae_last.pt", mirrors)
+            ckpt_s = time.perf_counter() - t_ckpt
+            if improved:
+                logging.info("New best (%.6f) -> %s", best_metric, output_dir / "vae_best.pt")
+            if should_save:
+                logging.info("Saved epoch checkpoint: %s", epoch_dir / "epoch.pt")
+
+        with metrics_path.open("a") as handle:
+            handle.write(",".join([f"{epoch}"] + [f"{averaged[k]:.6f}" for k in metrics_keys])
+                         + "\n")
+
+        if should_save and visual_enabled and (epoch % visual_every == 0 or epoch == epochs):
+            t_vis = time.perf_counter()
+            vis_gen = torch.Generator(device).manual_seed((seed + 23) * 100003 + epoch)
+            model.eval()
+            with torch.no_grad():
+                rec, _ = model(model.image_to_model_range(torch.from_numpy(sample_batch).to(device)),
+                               sample_posterior=False)
+                rec_vis = model.raw_output_to_image(rec, recon_type=recon_type).cpu().numpy()
+                noise = torch.randn((sample_count, *latent), generator=vis_gen, device=device)
+                gen = model.raw_output_to_image(model.decode(noise), recon_type=recon_type)
+                gen_vis = np.clip(gen.cpu().numpy(), 0, 1)
+            rows, cols = _grid_shape(sample_count)
+            save_image(make_grid(np.clip(sample_batch, 0.0, 1.0), rows, cols),
+                       epoch_dir / "input.png")
+            save_image(make_grid(np.clip(rec_vis, 0, 1), rows, cols), epoch_dir / "recon.png")
+            save_image(make_grid(gen_vis, rows, cols), epoch_dir / "gen.png")
+            vis_s = time.perf_counter() - t_vis
+        logging.info("Epoch %03d timing | %d steps in %.3f s (%.3f s waiting for data) | "
+                     "validation %.3f s | checkpoint %.3f s | visuals %.3f s | optimizer step %d",
+                     epoch, n_steps, steps_s, data_wait, val_s, ckpt_s, vis_s, trainer.global_step)
+    return output_dir
+
+
+def debug_visual_only(dataset, json_path, ckpt_path, *, output_dir=None,
+                      visual_samples: int = 10, seed: Optional[int] = None,
+                      device: DeviceArg = None) -> Path:
+    """Load a checkpoint and write the reconstructions of a seeded pick of
+    samples: grids and each sample's target and output through the
+    dataset's writer."""
+    from fmdm_tpu_torch.data.dataset_utils import save_output_tensor
+
+    logging.basicConfig(level=logging.INFO, format=loop.LOG_FORMAT, force=True)
+    cfg = config_utils.load_json_config(json_path)
+    model_cfg = cfg.get("model", {})
+    if str(model_cfg.get("model_type", "")).lower() != "vae":
+        raise ValueError(f"Expected model_type 'vae', got '{model_cfg.get('model_type')}'.")
+    training_cfg = cfg["training"]
+    use_seed = seed if seed is not None else training_cfg.get("seed")
+    config_utils.set_seed(use_seed)
+    device = resolve_device(device)
+    model = build_vae_model(cfg, device=device, ckpt_path=Path(ckpt_path)).eval()
+    recon_type = training_cfg.get("recon_type", "l1")
+
+    out_root = Path(output_dir) if output_dir is not None else (
+        Path(training_cfg.get("output_dir", "checkpoints/vae")) / "debug_train_like")
+    out_root.mkdir(parents=True, exist_ok=True)
+
+    indices = select_visual_indices(dataset, int(visual_samples), seed=use_seed)
+    batch = np.stack([np.asarray(dataset[idx]["target"], np.float32) for idx in indices])
+    with torch.no_grad():
+        rec, _ = model(model.image_to_model_range(torch.from_numpy(batch).to(device)),
+                       sample_posterior=False)
+        rec_vis = np.clip(model.raw_output_to_image(rec, recon_type=recon_type).cpu().numpy(),
+                          0.0, 1.0)
+    input_vis = np.clip(batch, 0.0, 1.0)
+
+    rows = max(1, int(math.sqrt(rec_vis.shape[0])))
+    cols = max(1, rec_vis.shape[0] // rows)
+    save_image(make_grid(input_vis, rows, cols), out_root / "grid_input.png")
+    save_image(make_grid(rec_vis, rows, cols), out_root / "grid_output.png")
+    save_image(make_grid(input_vis, rows, cols), out_root / "grid_target.png")
+
+    for b, idx in enumerate(indices):
+        if not hasattr(dataset, "data"):
+            break
+        row = dataset.data[idx]
+        save_output_tensor(dataset, row, dataset.target_key, input_vis[b], out_root / "target")
+        save_output_tensor(dataset, row, dataset.target_key, rec_vis[b], out_root / "generated")
+        if getattr(dataset, "conditioning_key", None) is not None and dataset[idx].get("image") is not None:
+            save_output_tensor(dataset, row, dataset.conditioning_key,
+                               np.asarray(dataset[idx]["image"]), out_root / "conditioning")
+
+    logging.info("VAE debug visual-only generation completed for %d samples. Output: %s",
+                 len(indices), out_root)
+    print(f"VAE debug visual-only generation completed for {len(indices)} samples.")
+    print(f"Output directory: {out_root}")
+    return out_root

@@ -14,7 +14,11 @@ and ``epochs/epochXXXX/epoch.pt``. Payload keys: ``model``, ``ema``,
   JAX package writes an optax state flattened to ``{"leaf_i": array,
   "__treedef__": uint8 array}``, where ``__treedef__`` holds a pickled JAX
   treedef. The port never unpickles it (that needs JAX): it keeps such an
-  entry as the raw numpy mapping, and :func:`load_optimizer_state` refuses it.
+  entry as the raw numpy mapping, and :func:`load_optimizer_state` reads an
+  ``optax.adamw`` state from it by the leaves' positions, so the port
+  resumes a run the JAX package wrote. The JAX package cannot resume from
+  the port's optimizer state (it would have to read a ``torch.optim`` state
+  dict); its model and EMA weights load in both packages.
 
 Not ported: the orbax backend and the ``*_async`` writers (ROADMAP Queue 1
 item 12), which raise ``NotImplementedError``.
@@ -75,6 +79,17 @@ def _to_tensor(value) -> torch.Tensor:
     return torch.from_numpy(np.array(value, copy=True))
 
 
+def _cpu_tensors(tree):
+    """A nested dict/list of an optimizer's state with its tensors on the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, Mapping):
+        return {k: _cpu_tensors(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu_tensors(v) for v in tree)
+    return tree
+
+
 def is_jax_tree_map(value) -> bool:
     """Whether a payload entry is the JAX package's flattened pytree."""
     return isinstance(value, Mapping) and TREEDEF in value
@@ -124,7 +139,7 @@ def save_checkpoint(state: Dict[str, Any], path, backend: Optional[str] = None) 
             payload[key] = unflatten_params(
                 {k: _to_numpy(v) for k, v in flatten_params(_state_dict(value)).items()})
         elif isinstance(value, torch.optim.Optimizer):
-            payload[key] = value.state_dict()
+            payload[key] = _cpu_tensors(value.state_dict())
         else:
             payload[key] = value
     fd, tmp_name = tempfile.mkstemp(prefix=path.name + ".", suffix=".tmp", dir=str(path.parent))
@@ -215,15 +230,80 @@ def load_model_params(path, expected: Optional[Mapping[str, Any]] = None) -> Dic
     return params
 
 
-def load_optimizer_state(optimizer: torch.optim.Optimizer, entry) -> None:
-    """Load a payload's ``optimizer`` entry into ``optimizer``. An optax state
-    written by the JAX package is refused: resuming across packages belongs
-    to the run loop (ROADMAP Queue 1 item 5)."""
+_JAX_STATE = "the optimizer state written by the JAX package (a flattened optax state)"
+
+
+def _optimizer_step(optimizer: torch.optim.Optimizer) -> int:
+    """The step count of a loaded ``torch.optim`` state (0 without state)."""
+    for state in optimizer.state.values():
+        if "step" in state:
+            return int(state["step"])
+    return 0
+
+
+def _adamw_from_optax(optimizer: torch.optim.Optimizer, entry: Mapping[str, Any],
+                      model: torch.nn.Module) -> int:
+    """Set AdamW's moments and step from the flattened state of
+    ``optax.adamw(schedule, ...)``: ``chain(scale_by_adam,
+    add_decayed_weights, scale_by_learning_rate)``, whose leaves are Adam's
+    count, ``mu`` and ``nu`` in ``tree_flatten`` order (dict keys sorted
+    level by level: the order of the names' component tuples), then the
+    schedule's count. Returns the schedule's count."""
+    n_leaves = len(entry) - 1
+    if set(entry) != {TREEDEF, *(f"leaf_{i}" for i in range(n_leaves))}:
+        raise ValueError(f"{_JAX_STATE} is not a flattened pytree of leaf_0.. leaves")
+    leaves = [np.asarray(entry[f"leaf_{i}"]) for i in range(n_leaves)]
+    named = list(model.named_parameters())
+    n = len(named)
+    if n_leaves != 2 * n + 2:
+        raise ValueError(
+            f"{_JAX_STATE} has {n_leaves} leaves; optax.adamw over this model's {n} "
+            f"parameters has {2 * n + 2} (a VQ EMA split, a discriminator's state or another "
+            f"optimizer is not resumable here)")
+    counts = (leaves[0], leaves[-1])
+    if any(c.shape != () or not np.issubdtype(c.dtype, np.integer) for c in counts):
+        raise ValueError(f"{_JAX_STATE}: its counts are not integer scalars: "
+                         f"{[(c.dtype, c.shape) for c in counts]}")
+    if int(counts[0]) != int(counts[1]):
+        raise ValueError(f"{_JAX_STATE}: Adam's count {int(counts[0])} disagrees with the "
+                         f"schedule's {int(counts[1])}")
+    order = sorted(range(n), key=lambda i: tuple(named[i][0].split(".")))
+    group_params = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    if group_params != {id(p) for _, p in named}:
+        raise ValueError(f"{_JAX_STATE}: the optimizer's parameters are not the model's")
+    mus, nus = leaves[1:n + 1], leaves[n + 1:2 * n + 1]
+    step = int(counts[0])
+    for pos, i in enumerate(order):
+        name, param = named[i]
+        for what, leaf in (("mu", mus[pos]), ("nu", nus[pos])):
+            if tuple(leaf.shape) != tuple(param.shape):
+                raise ValueError(f"{_JAX_STATE}: leaf {what}[{pos}] has shape {leaf.shape}; "
+                                 f"the parameter at that position, {name}, has "
+                                 f"{tuple(param.shape)}")
+        optimizer.state[param] = {
+            "step": torch.tensor(float(step)),
+            "exp_avg": torch.from_numpy(np.array(mus[pos], copy=True)).to(param.device, param.dtype),
+            "exp_avg_sq": torch.from_numpy(np.array(nus[pos], copy=True)).to(param.device,
+                                                                               param.dtype),
+        }
+    return int(counts[1])
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, entry,
+                         model: Optional[torch.nn.Module] = None) -> int:
+    """Load a payload's ``optimizer`` entry into ``optimizer`` and return
+    the step the learning-rate schedule resumes from: a ``torch.optim``
+    state dict as it is, or the ``optax.adamw`` state the JAX package
+    writes into ``torch.optim.AdamW`` (which needs ``model``, whose
+    parameters the optimizer holds). Any other optax structure raises a
+    ``ValueError``."""
     if is_jax_tree_map(entry):
-        raise ValueError("this optimizer state was written by the JAX package (a flattened optax "
-                         "state); it cannot be loaded into a torch.optim optimizer. Resuming a "
-                         "JAX run in the port is not ported yet (ROADMAP Queue 1 item 5)")
+        if model is None or not isinstance(optimizer, torch.optim.AdamW):
+            raise ValueError(f"{_JAX_STATE} loads only into torch.optim.AdamW, with the model "
+                             f"whose parameters it holds")
+        return _adamw_from_optax(optimizer, entry, model)
     optimizer.load_state_dict(entry)
+    return _optimizer_step(optimizer)
 
 
 def maybe_load_checkpoint(path) -> Tuple[int, float, Dict[str, Any]]:

@@ -1,7 +1,7 @@
 """
 Evaluation utilities on numpy arrays (counterpart of the JAX-free functions
 of ``fmdm_tpu/utils/evaluation.py``): PSNR, SSIM, image grids, the seeded
-pick of visual samples.
+pick of visual samples and their batch, a VAE's latent shape.
 
 SSIM is a numpy implementation of scikit-image's default algorithm (a
 uniform 7x7 window, the data range known, sample covariance), which the JAX
@@ -13,7 +13,7 @@ from __future__ import annotations
 import logging
 import random
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -46,6 +46,29 @@ def select_visual_indices(ds, count: int, seed: Optional[int] = None):
         rng.shuffle(indices)
         indices = indices[:count]
     return indices
+
+
+def latent_shape(vae_cfg: dict) -> Tuple[int, ...]:
+    """A VAE config's latent shape: ``embed_dim`` channels at the resolution
+    divided by 2^(stages - 1)."""
+    spatial_dims = vae_cfg.get("spatial_dims", 2)
+    embed_dim = vae_cfg["embed_dim"]
+    resolution = vae_cfg["resolution"]
+    down_channels = vae_cfg.get("down_channels")
+    stages = len(tuple(down_channels if down_channels is not None else vae_cfg["ch_mult"]))
+    base_size = resolution // 2 ** (stages - 1)
+    return (embed_dim,) + (base_size,) * (3 if spatial_dims == 3 else 1 if spatial_dims == 1 else 2)
+
+
+def prepare_eval_batch(ds, count: int, seed: Optional[int] = None) -> np.ndarray:
+    """The targets of :func:`select_visual_indices`' pick, stacked (f32)."""
+    if ds is None or len(ds) == 0:
+        raise RuntimeError("Dataset is empty; cannot prepare evaluation batch.")
+    tensors = [np.asarray(ds[i]["target"], dtype=np.float32)
+               for i in select_visual_indices(ds, count, seed=seed)]
+    if not tensors:
+        raise RuntimeError("Failed to collect evaluation samples.")
+    return np.stack(tensors, axis=0)
 
 
 def make_grid(batch: np.ndarray, rows: int, cols: int) -> np.ndarray:

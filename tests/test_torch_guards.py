@@ -69,6 +69,7 @@ def _entry_points():
     run = {"training": {"conditioning": "concatenate", "channels": 1, "num_inference_steps": 1},
            "model": {"unet": cfg, "model_type": "diffusion", "scheduler": {"name": "ddim"}}}
     cpu_unet = DiffusionUNetFactory().build(cfg, "concatenate", 1, device="cpu")
+    loops = _training_loops(cfg, vae)
 
     def train_step(**kw):
         model = DiffusionUNetFactory().build(cfg, "concatenate", 1, device="cpu")
@@ -95,13 +96,60 @@ def _entry_points():
         "build_diffusion_model": lambda **kw: build_diffusion_model(run, **kw),
         "decode_diffusion_batch": lambda **kw: decode_diffusion_batch(
             cpu_unet, run["training"], run["model"], (1, 1, 8, 8), torch.zeros(1, 1, 8, 8), **kw),
+        **loops,
+    }
+
+
+def _training_loops(unet, vae):
+    """The run loops and the training CLI over 4 synthetic digits at 8², one
+    step each, in a fresh temporary directory."""
+    import json
+    import tempfile
+
+    from fmdm_tpu_torch.data.mnist import MNISTDataset
+    from fmdm_tpu_torch.train import __main__ as train_cli
+    from fmdm_tpu_torch.train import denoise_lib, vae_impl
+
+    tmp = Path(tempfile.mkdtemp())
+
+    def digits():
+        ds = MNISTDataset(tmp / "data", img_size=8)
+        ds.images, ds.labels, ds.data = ds.images[:4], ds.labels[:4], ds.data[:4]
+        return ds
+
+    training = {"data_root": str(tmp / "data"), "dataset": "mnist", "batch_size": 4, "seed": 0,
+                "img_size": 8, "save_images": False, "conditioning": "concatenate",
+                "output_dir": str(tmp / "run")}
+    paths = {}
+    for name, model in (("diffusion", {"unet": unet, "model_type": "diffusion"}),
+                        ("vae", dict(vae, model_type="vae", z_channels=4, embed_dim=4))):
+        paths[name] = tmp / f"{name}.json"
+        paths[name].write_text(json.dumps({"training": training, "model": model}))
+
+    def cli(**kw):
+        device = ["--device", str(kw["device"])] if kw.get("device") else []
+        real = train_cli.build_train_val_datasets
+        train_cli.build_train_val_datasets = lambda cfg: (digits(), None)
+        try:
+            train_cli.main(["--config", str(paths["diffusion"]), *device])
+        finally:
+            train_cli.build_train_val_datasets = real
+
+    return {
+        "denoise_train": lambda **kw: denoise_lib.train(digits(), paths["diffusion"],
+                                                        variant="diffusion",
+                                                        max_steps_per_epoch=1, **kw),
+        "vae_train": lambda **kw: vae_impl.train(digits(), paths["vae"], max_steps_per_epoch=1,
+                                                 **kw),
+        "train_cli": cli,
     }
 
 
 @pytest.mark.parametrize("name", ["factory", "unet", "resblock", "engine", "vae_factory",
                                   "autoencoder_kl", "build_vae_model", "spatial_attention",
                                   "build_denoise_trainer", "make_denoise_train_step",
-                                  "build_diffusion_model", "decode_diffusion_batch"])
+                                  "build_diffusion_model", "decode_diffusion_batch",
+                                  "denoise_train", "vae_train", "train_cli"])
 def test_entry_points_default_to_cuda_and_never_fall_back(name, monkeypatch):
     make = _entry_points()[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
