@@ -99,9 +99,9 @@ Phases, each printing one or more lines:
     replayed: per-image MSE, the decoded batch and the saved predictions;
 22. training from a config: ``python -m fmdm_tpu_torch.train`` in
     subprocesses over a synthetic LDCT root (a train split of 3 cases and a
-    test split of 4, 6 slices of 256² each): the flagship DDPM config for 2
-    epochs at its batch 8 (18 slices: a ragged, padded last batch), then
-    ``--resume`` for a third (the optimizer's step and the rate continue),
+    test split of 4, 6 slices of 256² each): the flagship DDPM config for 1
+    epoch at its batch 8 (18 slices: a ragged, padded last batch), then
+    ``--resume`` for a second (the optimizer's step and the rate continue),
     the flow-matching config for 1 epoch, the KL-VAE config for 2 epochs at
     batch 4 with the validation split, and ``--debug_visual_only`` on the
     DDPM run: exit codes, ``metrics.csv``, checkpoints, visuals, and the
@@ -109,12 +109,39 @@ Phases, each printing one or more lines:
     then the DDPM and VAE loops for one epoch in this process: launches per
     train step, start-up trial, visual model call and validation call, peak
     memory, and each checkpoint read back against the weights it saved;
-23. the whole run's seconds, a ``{"kernels": [...]}`` line, then the result
+23. EfficientUNet (``unet_impl`` ``efficient_nd``) at full width, batch 1,
+    f32, TF32 off: the forwards of ``configs/LDCT/LDCT_ddpm_compvis.json``
+    (concatenate) and ``configs/LDCT/PixelAttention/LDCT_ddpm_attention.json``
+    (cross-attention to a 4x32x32 latent) on the card against the CPU plain
+    path; launches per forward (K1 64, 32 of them with FiLM; K2 1);
+24. the compvis config's denoise train step through
+    ``build_denoise_trainer`` at batch 1, card vs CPU (loss, every gradient,
+    the FiLM projections' named, the update); 10 timed steps at its batch 8;
+    its 50-step DPM++ sample in bf16 at each ``--batches`` (steps/s, peak,
+    launches);
+25. DeepCache on the flagship: the splice at depths 1 and 3 against the full
+    forward (f32, batch 1), bitwise, and the shallow forward's launches;
+    interval 1 against the uncached engine over 5 bf16 steps, bitwise; 3
+    steps under '2:1' in f32 at batch 1, card vs CPU; the 50-step DPM++ bf16
+    sample at each ``--batches`` exactly and under '3:1:adaptive' and
+    '3:1:uniform', and at the first also under '5:1:adaptive': steps/s,
+    launches per sample against the refresh mask (K1 64 per full and 10 per
+    shallow step, K2 6 per full step), PSNR against the exact sample from
+    the same noise;
+26. the CLIs: ``python -m fmdm_tpu_torch.train`` on the compvis config over
+    [22]'s root for 1 epoch, ``run_model --mode evaluate`` on its run dir
+    (8 slices at batch 4, 4 steps), then with ``--deep_cache 3`` (a warning,
+    and per-image metrics equal to the exact run); on [20]'s flagship run dir
+    ``evaluate --deep_cache 3:1:adaptive`` and ``--deep_cache auto:0.5``
+    (the resolved setting from the log);
+27. the whole run's seconds, a ``{"kernels": [...]}`` line, then the result
     line ``{"ok": true, "device": {...}}``.
 
 The flagship is ``model.unet`` of ``configs/LDCT/LDCT_ddpm_diffusers_nd.json``
 with concatenate conditioning and random weights drawn from ``--seed`` (in
-the train step every weight, the zero-initialized ones too); the
+the train step every weight, the zero-initialized ones too); EfficientUNet
+has every weight drawn from ``--seed``, its zero-initialized output conv
+too; the
 VAE is ``configs/LDCT/LDCT_autoencoder_kl.json`` at its published widths with
 every weight drawn from ``--seed`` (the zero-initialized projections too, so
 every gradient path carries signal). Any failed check raises, and the script
@@ -224,20 +251,41 @@ CLI_CASES, CLI_SLICES = 2, 4
 CLI_STEPS = 4
 CLI_PARITY_STEPS = 3   # card vs CPU: evaluate of one sample at batch 1, the config's DDPM
 SERVE_CALLS = 5
-# [22]: training from a config over a synthetic LDCT root. Cuts: 2 + 1
+# [22]: training from a config over a synthetic LDCT root. Cuts: 1 + 1
 # epochs of the DDPM config and 1 of the flow config (the configs say 500),
 # 2 of the VAE config (100); a train split of TRAIN_CASES[0] cases and a test
 # split of TRAIN_CASES[1] cases of TRAIN_SLICES slices (tens of slices, not
 # thousands); the visuals' inference steps (the configs say 1000); the VAE's
 # visual_samples (20 in the config, a 4x5 grid needing 20 test cases)
 TRAIN_CASES, TRAIN_SLICES = (3, 4), 6
-TRAIN_EPOCHS = {"ddpm": 2, "flow": 1, "vae": 2}
+TRAIN_EPOCHS = {"ddpm": 1, "flow": 1, "vae": 2}
 TRAIN_VISUAL_STEPS = 4
 VAE_VISUAL_SAMPLES = 4
 # [22]: launches per call of the in-process loops; a VAE epoch's visuals
 # reconstruct and decode once (the decoder's K1 and K3 again)
 VAE_VISUAL_LAUNCHES = {"K1": VAE_LAUNCHES["reconstruct"]["K1"] + VAE_LAUNCHES["decode"]["K1"],
                        "K3": VAE_LAUNCHES["reconstruct"]["K3"] + VAE_LAUNCHES["decode"]["K3"]}
+# [23]-[26]: EfficientUNet (the efficient_nd configs) at full width; its
+# parameters per config, and its launches per forward: K1 at every
+# ResBlock's two GroupNorm+SiLU (32 ResBlocks, norm2 with FiLM), K2 at the
+# middle block's softmax self-attention at 8²; its linear attentions and
+# cross-attentions, and the head's GroupNorm, launch no kernel
+EFFICIENT_CONFIGS = {
+    REPO_ROOT / "configs" / "LDCT" / "LDCT_ddpm_compvis.json": 115_641_217,
+    REPO_ROOT / "configs" / "LDCT" / "PixelAttention" / "LDCT_ddpm_attention.json": 117_239_089,
+}
+EFFICIENT_CONFIG = next(iter(EFFICIENT_CONFIGS))
+EFFICIENT_LAUNCHES = {"K1": 64, "K2": 1}
+EFFICIENT_FILM = 32   # of the 64 K1 calls
+# [25]: DeepCache on the flagship. A shallow forward at depth D runs
+# conv_in, down blocks 0..D-1 (2 ResBlocks each) and up blocks 6-D..5 (3
+# ResBlocks each, no attention): K1 10 at depth 1, 30 at depth 3, no K2
+SHALLOW_K1 = {1: 10, 3: 30}
+DEEP_CACHE_STEPS = 5          # interval 1 vs the uncached engine, bf16
+DEEP_CACHE_PARITY_STEPS = 3   # '2:1', card vs CPU, f32
+# the cached samples' settings at the first --batches; the later batches
+# leave out the last one (a cut of depth: its launches are checked at the first)
+DEEP_CACHE_SETTINGS = ((3, 1, "adaptive"), (3, 1, "uniform"), (5, 1, "adaptive"))
 K2_X8_DRAWS = 4   # further draws of K2's bf16 case at logits x8
 K3_F32_DRAWS = 3  # further draws of each f32 K3 case
 
@@ -781,21 +829,26 @@ def phase_k4_k5(torch, card: str, gen):
 
 
 def random_weights(torch, model, gen) -> None:
-    """Draw every parameter from ``gen``: U(±1/√fan_in) for conv weights,
-    1±0.1 / ±0.1 for GroupNorm affines, U(±0.1) for other biases."""
+    """Draw every parameter from ``gen``, in ``named_parameters`` order:
+    U(±1/√fan_in) for conv and linear weights, 1±0.1 / ±0.1 for the affines
+    of every GroupNorm module (EfficientUNet's head ``out.0`` too), U(±0.1)
+    for other biases."""
     import math
 
+    from fmdm_tpu_torch.nn.layers import GroupNorm
+
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            if p.dim() >= 2:
-                bound = 1.0 / math.sqrt(math.prod(p.shape[1:]))
-                draw = torch.empty(p.shape).uniform_(-bound, bound, generator=gen)
-            elif "norm" in name.split(".")[-2]:
-                draw = (1.0 if name.endswith("weight") else 0.0) + 0.1 * torch.randn(
-                    p.shape, generator=gen)
-            else:
-                draw = torch.empty(p.shape).uniform_(-0.1, 0.1, generator=gen)
-            p.copy_(draw)
+        for module in model.modules():
+            for name, p in module.named_parameters(recurse=False):
+                if p.dim() >= 2:
+                    bound = 1.0 / math.sqrt(math.prod(p.shape[1:]))
+                    draw = torch.empty(p.shape).uniform_(-bound, bound, generator=gen)
+                elif isinstance(module, GroupNorm):
+                    draw = (1.0 if name == "weight" else 0.0) + 0.1 * torch.randn(
+                        p.shape, generator=gen)
+                else:
+                    draw = torch.empty(p.shape).uniform_(-0.1, 0.1, generator=gen)
+                p.copy_(draw)
 
 
 def read_counts(records) -> dict:
@@ -1040,18 +1093,17 @@ def train_batch(torch, gen, batch: int, device: str) -> dict:
             "valid": torch.ones(batch, device=device)}
 
 
-def phase_denoise(torch, card: str, seed: int, gen, records):
-    """Phases [16]-[18]: the flagship's denoise train step and DDPM sampling;
-    returns the launch counts of the timed train steps."""
-    from fmdm_tpu_torch.sample.engine import SamplingEngine
-    from fmdm_tpu_torch.schedulers import build_scheduler
+def train_step_parity(torch, card: str, cfg: dict, seed: int, gen, records, launches: dict):
+    """One denoise train step (DDPM, AdamW at the cosine-warmup rate, past the
+    warmup) through ``build_denoise_trainer``, f32, TF32 off, every weight
+    from ``seed``, at batch 1 on the card against the CPU plain path with the
+    same noise and t: the loss, every gradient, the card's update against
+    AdamW replayed on the CPU, the launches. Returns the card's model,
+    scheduler and step, and the CPU model (gradients kept)."""
     from fmdm_tpu_torch.train.denoise_lib import build_denoise_trainer
 
-    log("[16] flagship denoise train step (DDPM, AdamW at the cosine-warmup rate), f32, TF32 off: "
-        "batch 1 card vs CPU plain path, same noise and t")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = json.loads(CONFIG.read_text())
     training = cfg["training"]
     batch = int(training["train_batch_size"])
     warmup = int(training["lr_warmup_steps"])
@@ -1073,7 +1125,7 @@ def phase_denoise(torch, card: str, seed: int, gen, records):
     reset_counts(records)
     loss_gpu, _ = step.step({k: v.cuda() for k, v in data.items()}, noise=noise.cuda(), t=t.cuda())
     torch.cuda.synchronize()
-    expect_counts("the flagship train step", read_counts(records), DENOISE_LAUNCHES)
+    expect_counts("the train step", read_counts(records), launches)
     start = time.perf_counter()
     loss_cpu, _ = cpu_step.step(data, noise=noise, t=t)
     cpu_s = time.perf_counter() - start
@@ -1093,17 +1145,19 @@ def phase_denoise(torch, card: str, seed: int, gen, records):
         f"{float(loss_cpu):.6f} (rel {loss_rel:.3e}); worst gradient max|gpu-cpu|/max|cpu| "
         f"{worst_grad:.3e} ({worst_name}; each to_k.bias over its weight's largest); card "
         f"update vs AdamW replayed on the CPU {update_err:.3e} "
-        f"(largest move {moved:.3e}); launches per step {DENOISE_LAUNCHES}; CPU step "
+        f"(largest move {moved:.3e}); launches per step {launches}; CPU step "
         f"{cpu_s:.2f} s [{card}]")
     if not (loss_rel <= REL_TOL and worst_grad <= REL_TOL and update_err <= 1e-6 and moved > 0):
         raise AssertionError(f"card train step disagrees with the CPU plain path (loss {loss_rel}, "
                              f"gradient {worst_grad} at {worst_name}, update {update_err})")
-    del cpu_step, replay, before
+    return model, scheduler, step, cpu_model
 
-    log(f"[17] flagship denoise train step, {TRAIN_STEPS} timed steps at the config's batch "
-        f"{batch}, f32, TF32 off; one flow-matching step")
-    data = train_batch(torch, gen, batch, "cuda")
-    noise_gen = torch.Generator("cuda").manual_seed(seed)
+
+def timed_train_steps(torch, card: str, step, data: dict, noise_gen, records, launches: dict,
+                      what: str) -> dict:
+    """TRAIN_STEPS timed train steps after a warm-up: ms per step, images/s,
+    peak memory; returns the launches of the timed steps."""
+    batch = int(data["valid"].shape[0])
     step.step(data, generator=noise_gen)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1113,14 +1167,39 @@ def phase_denoise(torch, card: str, seed: int, gen, records):
         loss_sum, count = step.step(data, generator=noise_gen)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - start) / TRAIN_STEPS
-    train_counts = read_counts(records)
-    expect_counts("a timed flagship train step", train_counts, DENOISE_LAUNCHES, TRAIN_STEPS)
+    counts = read_counts(records)
+    expect_counts(f"a timed {what} train step", counts, launches, TRAIN_STEPS)
     if not (bool(torch.isfinite(loss_sum)) and float(count) == batch):
         raise AssertionError(f"the timed train steps gave loss {float(loss_sum)}, count {float(count)}")
     log(f"  batch {batch}, {TRAIN_STEPS} steps: {step_s * 1e3:.2f} ms per step, "
         f"{batch / step_s:.2f} images/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-        f"launches per step {({k: v // TRAIN_STEPS for k, v in train_counts.items() if v})}, "
+        f"launches per step {({k: v // TRAIN_STEPS for k, v in counts.items() if v})}, "
         f"last mean loss {float(loss_sum) / batch:.6f} [{card}]")
+    return counts
+
+
+def phase_denoise(torch, card: str, seed: int, gen, records):
+    """Phases [16]-[18]: the flagship's denoise train step and DDPM sampling;
+    returns the launch counts of the timed train steps."""
+    from fmdm_tpu_torch.sample.engine import SamplingEngine
+    from fmdm_tpu_torch.schedulers import build_scheduler
+    from fmdm_tpu_torch.train.denoise_lib import build_denoise_trainer
+
+    log("[16] flagship denoise train step (DDPM, AdamW at the cosine-warmup rate), f32, TF32 off: "
+        "batch 1 card vs CPU plain path, same noise and t")
+    cfg = json.loads(CONFIG.read_text())
+    training = cfg["training"]
+    batch = int(training["train_batch_size"])
+    warmup = int(training["lr_warmup_steps"])
+    model, scheduler, step, cpu_model = train_step_parity(torch, card, cfg, seed, gen, records,
+                                                          DENOISE_LAUNCHES)
+
+    log(f"[17] flagship denoise train step, {TRAIN_STEPS} timed steps at the config's batch "
+        f"{batch}, f32, TF32 off; one flow-matching step")
+    data = train_batch(torch, gen, batch, "cuda")
+    noise_gen = torch.Generator("cuda").manual_seed(seed)
+    train_counts = timed_train_steps(torch, card, step, data, noise_gen, records,
+                                     DENOISE_LAUNCHES, "flagship")
     flow_cfg = json.loads(FLOW_CONFIG.read_text())
     _, flow_sched, flow_step = build_denoise_trainer(flow_cfg, variant="flow_matching",
                                                      num_samples=batch, device="cuda")
@@ -1377,7 +1456,8 @@ def write_ldct_root(root: Path, seed: int, cases=(CLI_CASES, CLI_CASES),
 
 def run_cli(card: str, run: Path, mode: str, *flags):
     """``python -m fmdm_tpu_torch.run_model`` in a subprocess on the card:
-    its standard output and wall seconds; a non-zero exit fails the run."""
+    its standard output followed by its log (standard error) and its wall
+    seconds; a non-zero exit fails the run."""
     cmd = [sys.executable, "-m", "fmdm_tpu_torch.run_model", "--ckpt_dir", str(run),
            "--mode", mode, *map(str, flags)]
     start = time.perf_counter()
@@ -1389,7 +1469,7 @@ def run_cli(card: str, run: Path, mode: str, *flags):
         raise AssertionError(f"run_model --mode {mode} on {run.name} exited {out.returncode}")
     log(f"  CLI {mode} on {run.name} {' '.join(map(str, flags))}: exit 0, wall {secs:.2f} s "
         f"[{card}]")
-    return out.stdout, secs
+    return out.stdout + out.stderr, secs
 
 
 def read_csv_rows(path: Path) -> list:
@@ -1710,7 +1790,7 @@ def phase_train(torch, card: str, seed: int, records, work: Path) -> dict:
     base = work / "train"
     runs = {"ddpm": base / "ddpm_run1", "flow": base / "flow_run1", "vae": base / "vae_run1"}
 
-    # the flagship DDPM config, 2 epochs, then a resumed third
+    # the flagship DDPM config, 1 epoch, then a resumed second
     epochs = TRAIN_EPOCHS["ddpm"]
     cfg = train_config(CONFIG, root, base / "ddpm", num_epochs=epochs)
     text, wall = run_train_cli(card, "ddpm", "--config", write_config(work / "cfg" / "ddpm.json", cfg))
@@ -1884,6 +1964,260 @@ def phase_train(torch, card: str, seed: int, records, work: Path) -> dict:
     return totals
 
 
+def sample_once(torch, engine, batch: int, seed: int, records):
+    """One sample of ``engine``'s steps at (batch, 1, 256, 256) from a CUDA
+    generator seeded ``seed``, the concatenated conditioning 0.5 everywhere:
+    the output, the seconds of the step loop, the launches and the peak
+    memory."""
+    shape = (batch, 1, 256, 256)
+    cond = torch.full(shape, 0.5, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(records)
+    timing = {}
+    out = engine(shape, torch.Generator("cuda").manual_seed(seed), conditioning_batch=cond,
+                 timing=timing)
+    counts = read_counts(records)
+    if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"sample batch {batch}: shape {tuple(out.shape)} or non-finite values")
+    return out, timing["model_seconds"], counts, torch.cuda.max_memory_allocated()
+
+
+def phase_efficient_forward(torch, card: str, seed: int, gen, records) -> None:
+    """[23]: both EfficientUNet configs' forwards at full width, card vs CPU."""
+    from fmdm_tpu_torch.models.factories import DiffusionUNetFactory
+    from fmdm_tpu_torch.models.unet_efficient import EfficientUNetND
+    from fmdm_tpu_torch.sample.engine import normalize_latent_conditioning, prepare_attention_context
+
+    log("[23] full-width EfficientUNet forwards (K1 with FiLM, K2): card vs CPU plain path, batch 1, "
+        "f32, TF32 off")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for path, want_params in EFFICIENT_CONFIGS.items():
+        cfg = json.loads(path.read_text())
+        conditioning = cfg["training"]["conditioning"]
+        model = DiffusionUNetFactory().build(cfg["model"]["unet"], conditioning=conditioning,
+                                             channels=1, device="cuda")
+        random_weights(torch, model, torch.Generator().manual_seed(seed))
+        model.eval()
+        n_params = sum(p.numel() for p in model.parameters())
+        if not isinstance(model, EfficientUNetND) or n_params != want_params:
+            raise AssertionError(f"{path.name}: {type(model).__name__} of {n_params} parameters")
+        cpu_model = copy.deepcopy(model).cpu()
+        x = torch.randn((1, model.in_channels, 256, 256), generator=gen)
+        ctx = None
+        if conditioning == "attention":
+            # a KL-VAE latent of a 256² slice, standardized per sample
+            latent = torch.randn((1, 4, 32, 32), generator=gen)
+            ctx = prepare_attention_context(
+                normalize_latent_conditioning(latent, cfg["training"]["latent_norm"]))
+        t = torch.tensor([500])
+        card_ctx = None if ctx is None else ctx.cuda()
+        with torch.no_grad():
+            model(x.cuda(), t.cuda(), context_ca=card_ctx)  # warm-up
+            torch.cuda.synchronize()
+            reset_counts(records)
+            with recording_k1() as calls:
+                start = time.perf_counter()
+                y = model(x.cuda(), t.cuda(), context_ca=card_ctx)
+                torch.cuda.synchronize()
+                fwd_s = time.perf_counter() - start
+            counts = read_counts(records)
+            start = time.perf_counter()
+            y_cpu = cpu_model(x, t, context_ca=ctx)
+            cpu_s = time.perf_counter() - start
+        expect_counts(f"the {path.name} forward", counts, EFFICIENT_LAUNCHES)
+        film = sum(call[4] for call in calls)
+        if film != EFFICIENT_FILM:
+            raise AssertionError(f"{path.name}: {film} of {len(calls)} K1 calls with FiLM")
+        rel = rel_err(y.cpu(), y_cpu)
+        log(f"  {path.name} ({conditioning}): {n_params} parameters; output {tuple(y.shape)}; "
+            f"max|gpu-cpu|/max|cpu| = {rel:.3e} (tolerance {REL_TOL:g}); launches per forward "
+            f"{({k: v for k, v in counts.items() if v})}, {film} K1 calls with FiLM; forward "
+            f"{fwd_s * 1e3:.2f} ms on the card, {cpu_s:.2f} s on the CPU [{card}]")
+        if not (torch.isfinite(y).all() and rel <= REL_TOL):
+            raise AssertionError(f"{path.name}: card forward disagrees with the CPU plain path ({rel})")
+        del model, cpu_model
+
+
+def phase_efficient_train(torch, card: str, seed: int, gen, records, batches, scheduler,
+                          timesteps) -> dict:
+    """[24]: the compvis config's train step (card vs CPU at batch 1, then
+    timed at its batch) and its 50-step bf16 sample; returns the launches of
+    the timed train steps and of the first batch's sample."""
+    from fmdm_tpu_torch.sample.engine import SamplingEngine
+
+    cfg = json.loads(EFFICIENT_CONFIG.read_text())
+    batch = int(cfg["training"]["train_batch_size"])
+    log(f"[24] {EFFICIENT_CONFIG.name}: denoise train step at batch 1, card vs CPU plain path; "
+        f"{TRAIN_STEPS} timed steps at batch {batch}, f32, TF32 off; the {NUM_STEPS}-step DPM++ "
+        f"sample in bf16")
+    model, _, step, cpu_model = train_step_parity(torch, card, cfg, seed, gen, records,
+                                                  EFFICIENT_LAUNCHES)
+    cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()}
+    film = [(max_err(p.grad.cpu(), cpu_grads[n]) / float(cpu_grads[n].abs().max()), n)
+            for n, p in model.named_parameters() if "emb_layers" in n]
+    worst = max(film)
+    log(f"  the {len(film)} FiLM projections' gradients (emb_layers, through K1's plain "
+        f"backward into scale and shift): worst max|gpu-cpu|/max|cpu| {worst[0]:.3e} ({worst[1]}), "
+        f"smallest largest gradient {min(float(cpu_grads[n].abs().max()) for _, n in film):.3e}")
+    if worst[0] > REL_TOL or any(float(cpu_grads[n].abs().max()) == 0 for _, n in film):
+        raise AssertionError(f"FiLM gradients: {worst}")
+    del cpu_model, cpu_grads
+    data = train_batch(torch, gen, batch, "cuda")
+    train_counts = timed_train_steps(torch, card, step, data, torch.Generator("cuda").manual_seed(seed),
+                                     records, EFFICIENT_LAUNCHES, "compvis")
+    del step, data
+
+    model.eval()
+    engine = SamplingEngine(model, scheduler, timesteps, conditioning_mode="concatenate",
+                            compute_dtype=torch.bfloat16, device="cuda")
+    sample_counts = None
+    for b in batches:
+        sample_once(torch, engine, b, seed + b, records)  # warm-up
+        out, secs, counts, peak = sample_once(torch, engine, b, seed + b, records)
+        expect_counts(f"compvis sample batch {b}", counts, EFFICIENT_LAUNCHES, NUM_STEPS)
+        sample_counts = sample_counts or counts
+        log(f"  sample batch {b}: {secs:.4f} s, {b * NUM_STEPS / secs:.2f} denoise steps/s, peak "
+            f"{peak / 2**30:.2f} GiB, launches K1 {counts['K1']} K2 {counts['K2']}, output mean "
+            f"{float(out.mean()):.4f} std {float(out.std()):.4f} [{card}]")
+    del engine, model
+    return {"train": train_counts, "sample": sample_counts}
+
+
+def phase_deep_cache(torch, card: str, seed: int, gen, records, model, scheduler, timesteps,
+                     batches, exact_rates: dict) -> dict:
+    """[25]: DeepCache on the flagship ``model`` (f32 on the card): the
+    splice, interval 1, card vs CPU, and cached 50-step samples; returns the
+    launches of the first batch's '3:1:adaptive' sample."""
+    from fmdm_tpu_torch.sample.engine import SamplingEngine, deep_cache_refresh_mask
+    from fmdm_tpu_torch.utils.evaluation import psnr_from_mse
+
+    log("[25] DeepCache on the flagship: the splice at depths 1 and 3, interval 1 vs the uncached "
+        "engine, '2:1' card vs CPU, cached 50-step DPM++ samples")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.randn((1, 2, 256, 256), generator=gen).cuda()
+    t = torch.tensor([500], device="cuda")
+    with torch.no_grad():
+        full = model(x, t)
+        for depth, shallow_k1 in SHALLOW_K1.items():
+            out, feature = model(x, t, cache_depth=depth, return_deep_feature=True)
+            reset_counts(records)
+            spliced = model(x, t, deep_cache=feature, cache_depth=depth)
+            torch.cuda.synchronize()
+            counts = read_counts(records)
+            expect_counts(f"a shallow forward at depth {depth}", counts, {"K1": shallow_k1})
+            rel = max(rel_err(out, full), rel_err(spliced, full))
+            same = torch.equal(out, full) and torch.equal(spliced, full)
+            log(f"  depth {depth}: feature {tuple(feature.shape)}; capturing and spliced forward "
+                f"vs the full forward: bitwise equal {same}, max|diff|/max|full| {rel:.3e}; "
+                f"shallow forward launches {counts}")
+            if not same:
+                raise AssertionError(f"the depth-{depth} splice differs from the full forward ({rel})")
+
+    def engine(steps, dtype=None, deep_cache=None, m=model, device="cuda"):
+        return SamplingEngine(m, scheduler, steps, conditioning_mode="concatenate",
+                              compute_dtype=dtype, deep_cache=deep_cache, device=device)
+
+    batch = batches[0]
+    shape = (batch, 1, 256, 256)
+    init = torch.randn(shape, generator=gen).cuda()
+    cond = torch.full(shape, 0.5, device="cuda")
+    outs = [engine(timesteps[:DEEP_CACHE_STEPS], torch.bfloat16, dc)(
+        shape, conditioning_batch=cond, init_sample=init) for dc in (None, (1, 1))]
+    log(f"  interval 1 vs the uncached engine, {DEEP_CACHE_STEPS} bf16 steps at batch {batch}: "
+        f"bitwise equal {torch.equal(*outs)}")
+    if not torch.equal(*outs):
+        raise AssertionError(f"interval 1 differs from the uncached engine by {max_err(*outs)}")
+
+    one = (1, 1, 256, 256)
+    init = torch.randn(one, generator=gen)
+    cond = torch.rand(one, generator=gen) * 2 - 1
+    cpu_model = copy.deepcopy(model).cpu()
+    steps = timesteps[:DEEP_CACHE_PARITY_STEPS]
+    mask = deep_cache_refresh_mask(len(steps), 2)
+    short = [engine(steps, deep_cache=(2, 1), m=m, device=d)(
+        one, conditioning_batch=cond, init_sample=init).cpu()
+        for m, d in ((model, "cuda"), (cpu_model, "cpu"))]
+    rel = rel_err(*short)
+    log(f"  '2:1' over {len(steps)} f32 steps at batch 1 (refresh mask {mask.astype(int).tolist()}): "
+        f"max|gpu-cpu|/max|cpu| = {rel:.3e} (tolerance {REL_TOL:g})")
+    if not (torch.isfinite(short[0]).all() and rel <= REL_TOL):
+        raise AssertionError(f"the cached steps disagree with the CPU plain path ({rel})")
+    del cpu_model
+
+    main_counts = None
+    for b in batches:
+        exact, exact_s, _, _ = sample_once(torch, engine(timesteps, torch.bfloat16), b, seed + b,
+                                           records)
+        log(f"  batch {b}: exact {b * NUM_STEPS / exact_s:.2f} denoise steps/s here, "
+            f"{exact_rates[b]:.2f} in [7] [{card}]")
+        for setting in DEEP_CACHE_SETTINGS if b == batches[0] else DEEP_CACHE_SETTINGS[:-1]:
+            mask = deep_cache_refresh_mask(len(timesteps), setting[0], setting[2])
+            full = int(mask.sum())
+            shallow = len(mask) - full
+            out, secs, counts, peak = sample_once(torch, engine(timesteps, torch.bfloat16, setting),
+                                                  b, seed + b, records)
+            want = {"K1": K1_PER_FORWARD * full + SHALLOW_K1[1] * shallow,
+                    "K2": K2_PER_FORWARD * full}
+            expect_counts(f"'{':'.join(map(str, setting))}' sample batch {b}", counts, want)
+            mse = float(((image_range(out) - image_range(exact)) ** 2).mean())
+            log(f"  batch {b} '{':'.join(map(str, setting))}': {full} full + {shallow} shallow "
+                f"steps in {secs:.4f} s, {b * NUM_STEPS / secs:.2f} denoise steps/s "
+                f"({exact_s / secs:.3f}x the exact sample), peak {peak / 2**30:.2f} GiB, launches "
+                f"K1 {counts['K1']} K2 {counts['K2']}; PSNR against the exact sample from the same "
+                f"noise {psnr_from_mse(mse):.2f} dB [{card}]")
+            if main_counts is None:
+                main_counts = counts
+    return main_counts
+
+
+def phase_clis(card: str, work: Path) -> None:
+    """[26]: the compvis config through the training and run_model CLIs, and
+    ``--deep_cache`` through run_model on [20]'s flagship run dir."""
+    import re
+
+    log(f"[26] the CLIs: {EFFICIENT_CONFIG.name} trained 1 epoch over [22]'s synthetic root and "
+        f"evaluated; --deep_cache on [20]'s flagship run dir and on the compvis run dir")
+    cfg = train_config(EFFICIENT_CONFIG, work / "train_ldct", work / "train" / "compvis",
+                       num_epochs=1)
+    text, wall = run_train_cli(card, "compvis", "--config",
+                               write_config(work / "cfg" / "compvis.json", cfg))
+    describe_run(card, "compvis DDPM, 1 epoch", loop_log(text), wall)
+    run = work / "train" / "compvis_run1"
+    check_run_dir(run, [1], ["diff_last.pt", "diff_best.pt", "epochs/epoch0001/epoch.pt",
+                             "visuals/epoch0001_output.png"])
+
+    subset = ("--num_samples", 8, "--batch_size", DECODE_BATCH, "--num_inference_steps", CLI_STEPS)
+    rows = {}
+    for label, ckpt_dir, flags in (
+            ("compvis", run, ()),
+            ("compvis --deep_cache 3", run, ("--deep_cache", 3)),
+            ("flagship --deep_cache 3:1:adaptive", work / "ddpm", ("--deep_cache", "3:1:adaptive")),
+            ("flagship --deep_cache auto:0.5", work / "ddpm", ("--deep_cache", "auto:0.5"))):
+        out_dir = work / "cli26" / label.replace(" ", "_").replace(":", "-")
+        text, secs = run_cli(card, ckpt_dir, "evaluate", *subset, "--output_dir", out_dir, *flags)
+        rows[label] = check_evaluate(out_dir, 8)
+        throughput = next(line for line in text.splitlines() if line.startswith("Model throughput"))
+        chosen = re.search(r"deep_cache auto:\S+ (resolved to [^(]+|— no candidate within budget)",
+                           text)
+        ignored = "has no deep/shallow split; ignoring" in text
+        log(f"  evaluate {label}: {throughput}; MSE {rows[label]['mse']} PSNR "
+            f"{rows[label]['psnr']}; {rows[label]['model_calls']} model calls"
+            f"{'; ' + chosen.group(1).strip() if chosen else ''}"
+            f"{'; DeepCache ignored with a warning' if ignored else ''}; CLI wall {secs:.2f} s [{card}]")
+        if label.startswith("compvis --deep_cache") != ignored or \
+                label.endswith("auto:0.5") != bool(chosen):
+            raise AssertionError(f"evaluate {label}: the warning or the auto resolution is missing")
+    exact = [{k: r[k] for k in ("mse", "psnr", "ssim")} for r in rows["compvis"]["per_image"]]
+    ignored = [{k: r[k] for k in ("mse", "psnr", "ssim")}
+               for r in rows["compvis --deep_cache 3"]["per_image"]]
+    log(f"  compvis with --deep_cache 3 equals the exact run per image: {ignored == exact}")
+    if ignored != exact:
+        raise AssertionError("--deep_cache on EfficientUNet changed the result")
+
+
 def main() -> int:
     import torch
 
@@ -1995,6 +2329,7 @@ def main() -> int:
     engine = SamplingEngine(model, scheduler, timesteps, conditioning_mode="concatenate",
                             compute_dtype=torch.bfloat16, device="cuda")
     main_launches = None
+    exact_rates = {}
     for batch in batches:
         shape = (batch, 1, 256, 256)
         cond = torch.full(shape, 0.5, device="cuda")
@@ -2016,6 +2351,7 @@ def main() -> int:
         if main_launches is None:
             main_launches, main_variants = launches, dict(K1.variants)
         secs = timing["model_seconds"]
+        exact_rates[batch] = batch * NUM_STEPS / secs
         log(f"  batch {batch}: {secs:.4f} s, {batch * NUM_STEPS / secs:.2f} denoise steps/s, "
             f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches K1 {launches[0]} "
             f"K2 {launches[1]}, output mean {float(out.mean()):.4f} std {float(out.std()):.4f} [{card}]")
@@ -2044,6 +2380,12 @@ def main() -> int:
         decode_counts = phase_decode(torch, card, args.seed, gen, all_records, Path(tmp))
         cli_counts = phase_run_model(torch, card, args.seed, all_records, Path(tmp))
         train_loop_counts = phase_train(torch, card, args.seed, all_records, Path(tmp))
+        phase_efficient_forward(torch, card, args.seed, gen, all_records)
+        efficient_counts = phase_efficient_train(torch, card, args.seed, gen, all_records, batches,
+                                                 scheduler, timesteps)
+        deep_cache_counts = phase_deep_cache(torch, card, args.seed, gen, all_records, model,
+                                             scheduler, timesteps, batches, exact_rates)
+        phase_clis(card, Path(tmp))
 
     k1["launches"], k2["launches"] = main_launches
     k3["launches"], k4["launches"], k5["launches"] = (train_counts[k] for k in ("K3", "K4", "K5"))
@@ -2060,7 +2402,13 @@ def main() -> int:
                 decode_counts.get(kernel, 0),
             f"run_model evaluate in process, batch {DECODE_BATCH} and 1": cli_counts.get(kernel, 0),
             "training from a config in process, 1 epoch of the DDPM and VAE loops":
-                train_loop_counts.get(kernel, 0)}
+                train_loop_counts.get(kernel, 0),
+            f"EfficientUNet (compvis) train step x {TRAIN_STEPS}":
+                efficient_counts["train"].get(kernel, 0),
+            f"EfficientUNet (compvis) {NUM_STEPS}-step sample, batch {batches[0]}":
+                efficient_counts["sample"].get(kernel, 0),
+            f"DeepCache '3:1:adaptive' {NUM_STEPS}-step sample, batch {batches[0]}":
+                deep_cache_counts.get(kernel, 0)}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_term", "library_ms", "shape", "dtype")
     extra = ("library_kernel", "variants", "per_forward", "launches_by_path")

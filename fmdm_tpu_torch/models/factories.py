@@ -1,9 +1,9 @@
 """
 Model factories: the JSON config vocabulary -> model constructors
-(counterpart of ``fmdm_tpu/models/factories.py:69-82,126-236``). Of
-``DiffusionUNetFactory`` only the ``diffusers_nd`` branch is ported (the
-``efficient_nd`` branch raises); of ``VAEFactory`` the ``kl`` branch (``vq``
-raises).
+(counterpart of ``fmdm_tpu/models/factories.py:69-236``).
+``DiffusionUNetFactory`` builds both UNets: ``EfficientUNetND`` (the
+``efficient_nd`` branch, the default ``unet_impl``) and ``UNetDiffusersND``;
+of ``VAEFactory`` the ``kl`` branch is ported (``vq`` raises).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import Any, Dict, Optional
 
 from fmdm_tpu_torch.device import DeviceArg
 from fmdm_tpu_torch.models.unet_diffusers import UNetDiffusersND
+from fmdm_tpu_torch.models.unet_efficient import EfficientUNetND
 from fmdm_tpu_torch.models.vae import VQVAE, AutoencoderKL
 
 __all__ = ["DiffusionUNetFactory", "VAEFactory"]
@@ -24,6 +25,9 @@ class _Cfg:
 
     def __init__(self, raw: Optional[Dict[str, Any]]):
         self.raw = dict(raw or {})
+
+    def __contains__(self, key: str) -> bool:
+        return key in self.raw
 
     def get(self, key: str, default=None):
         return self.raw.get(key, default)
@@ -48,19 +52,72 @@ class _Cfg:
         return (value,) if isinstance(value, int) else tuple(value)
 
 
-class DiffusionUNetFactory:
-    """Builds UNetDiffusersND from a model config dict (diffusers-style keys)."""
+def _mult_from_widths(widths, base: int):
+    """Recover a channel-mult ladder from absolute per-stage widths."""
+    if not widths:
+        return ()
+    base = base or widths[0]
+    return tuple(max(1, int(w // base)) for w in widths)
 
+
+class DiffusionUNetFactory:
+    """Builds EfficientUNetND / UNetDiffusersND from a model config dict,
+    accepting both native and diffusers-style keys."""
+
+    DEFAULT_BLOCK_CHANNELS = (128, 128, 256, 256, 512, 512)
     _DIFFUSERS_IMPLS = frozenset({"diffusers_nd", "diffusers_exact_nd", "exact_nd", "diffusers"})
 
     def build(self, model_cfg: Dict[str, Any], conditioning: Optional[str] = None,
               channels: Optional[int] = None, *, device: DeviceArg = None):
         cfg = _Cfg(model_cfg)
         impl = cfg.str("unet_impl", "efficient_nd").lower()
+        cond_mode = (conditioning or "").lower()
         if impl in self._DIFFUSERS_IMPLS:
-            return self._build_diffusers_nd(cfg, (conditioning or "").lower(), channels, device)
-        raise NotImplementedError(
-            f"unet_impl '{impl}': EfficientUNetND (the efficient_nd branch) is not ported yet")
+            return self._build_diffusers_nd(cfg, cond_mode, channels, device)
+        return self._build_efficient_nd(cfg, cond_mode, channels, device)
+
+    def _build_efficient_nd(self, cfg: _Cfg, cond_mode: str, channels: Optional[int],
+                            device: DeviceArg):
+        widths = cfg.dims("block_out_channels", self.DEFAULT_BLOCK_CHANNELS)
+        base_width = cfg.int("model_channels", widths[0] if widths else 128)
+
+        in_ch = cfg.get("in_channels", channels or 1)
+        cond_ch = cfg.get("conditioning_channels", channels or in_ch)
+        if cond_mode == "concatenate":
+            # channel-stacked conditioning enters through the input conv
+            in_ch = in_ch + cond_ch
+
+        # attention conditioning places cross-attention wherever
+        # self-attention lives (and in the middle, unless the key is given)
+        attn_res = cfg.dims("attention_resolutions", (1,))
+        xattn_res = cfg.get("cross_attention_resolutions")
+        xattn_mid = cfg.bool("cross_attention_in_middle", False)
+        if xattn_res is None and cond_mode == "attention":
+            xattn_res = attn_res
+            if "cross_attention_in_middle" not in cfg:
+                xattn_mid = True
+
+        return EfficientUNetND(
+            spatial_dims=cfg.int("spatial_dims", 2),
+            in_channels=in_ch,
+            model_channels=base_width,
+            out_channels=cfg.get("out_channels", channels or 1),
+            num_res_blocks=cfg.int("num_res_blocks", cfg.get("layers_per_block", 2)),
+            attention_resolutions=attn_res,
+            cross_attention_resolutions=xattn_res,
+            cross_attention_dim=cfg.int("cross_attention_dim", cond_ch),
+            cross_attention_in_middle=xattn_mid,
+            dropout=cfg.float("dropout", 0.0),
+            channel_mult=cfg.dims("channel_mult", _mult_from_widths(widths, base_width)) or (1, 2, 3, 4),
+            conv_resample=cfg.bool("conv_resample", True),
+            dim_head=cfg.int("dim_head", 64),
+            num_heads=cfg.int("num_heads", 4),
+            use_linear_attn=cfg.bool("use_linear_attn", True),
+            use_scale_shift_norm=cfg.bool("use_scale_shift_norm", True),
+            emb_activation_before_proj=cfg.bool("emb_activation_before_proj", False),
+            pool_factor=cfg.int("pool_factor", 1),
+            device=device,
+        )
 
     @staticmethod
     def _default_block_layout(cond_mode: str):

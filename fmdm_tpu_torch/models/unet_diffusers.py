@@ -3,11 +3,9 @@ UNetDiffusersND — diffusers-``UNet2DModel``-compatible ND UNet (counterpart of
 ``fmdm_tpu/models/unet_diffusers.py:25-255``): conv_in (bare conv), the
 TimestepEmbedding MLP (linear_1/linear_2), down/mid/up compat blocks chosen by
 their type strings, center_input_sample, positional time embedding with
-flip_sin_to_cos/freq_shift, the diffusers skip bookkeeping, and the
-GN -> SiLU -> conv_out head.
-
-The DeepCache split of the JAX model (``deep_cache``, ``cache_depth``,
-``return_deep_feature``) is not ported: passing it raises.
+flip_sin_to_cos/freq_shift, the diffusers skip bookkeeping, the
+GN -> SiLU -> conv_out head, and the DeepCache split (``cache_depth``,
+``return_deep_feature``, ``deep_cache``; ``forward``'s docstring).
 """
 
 from __future__ import annotations
@@ -157,9 +155,26 @@ class UNetDiffusersND(nn.Module):
         deep_cache: Optional[torch.Tensor] = None,
         cache_depth: Optional[int] = None,
         return_deep_feature: bool = False,
-    ) -> torch.Tensor:
-        if deep_cache is not None or cache_depth is not None or return_deep_feature:
-            raise NotImplementedError("UNetDiffusersND: the DeepCache split is not ported yet")
+    ):
+        """The full forward, or one side of the DeepCache split (the deep
+        levels' output changes slowly across adjacent denoising steps, so it
+        can be cached while the shallow high-resolution levels are
+        recomputed):
+
+        - ``return_deep_feature=True`` with ``cache_depth=D``: the full
+          forward and the feature entering up block ``n_up - D``, returned
+          as ``(out, feature)``;
+        - ``deep_cache=<that feature>`` with ``cache_depth=D``: only
+          ``conv_in``, down blocks ``0..D-1`` and up blocks ``n_up-D..``,
+          the cached feature spliced in place of the skipped deep levels.
+
+        With a feature captured at the same (x, t) the spliced forward
+        reproduces the full forward."""
+        n_up = len(self.up_blocks)
+        shallow_only = deep_cache is not None
+        if (shallow_only or return_deep_feature) and not (
+                cache_depth is not None and 1 <= cache_depth < n_up):
+            raise ValueError(f"cache_depth must be in [1, {n_up - 1}]")
         if context is not None:
             x = torch.cat([x, context], dim=1)
         if self.center_input_sample:
@@ -174,17 +189,33 @@ class UNetDiffusersND(nn.Module):
 
         sample = self.conv_in(x)
         down_block_res_samples = (sample,)
-        for block in self.down_blocks:
+        for block in self.down_blocks[:cache_depth] if shallow_only else self.down_blocks:
             sample, res_samples = block(sample, emb, context=context_ca)
             down_block_res_samples += res_samples
 
-        if self.has_mid:
+        deep_feature = None
+        first_up = 0
+        if shallow_only:
+            # skip the deep down blocks, the mid block and the deep up
+            # blocks; keep only the skips the shallow up blocks pop (the
+            # deepest shallow down block's downsampler feeds a skipped one)
+            sample = deep_cache
+            first_up = n_up - cache_depth
+            needed = sum(len(self.up_blocks[i].resnets) for i in range(first_up, n_up))
+            down_block_res_samples = down_block_res_samples[:needed]
+        elif self.has_mid:
             sample = self.mid_block(sample, emb, context=context_ca)
-        for up_block in self.up_blocks:
+        for i in range(first_up, n_up):
+            if return_deep_feature and not shallow_only and i == n_up - cache_depth:
+                deep_feature = sample
+            up_block = self.up_blocks[i]
             n_res = len(up_block.resnets)
             res_samples = down_block_res_samples[-n_res:]
             down_block_res_samples = down_block_res_samples[:-n_res]
             sample = up_block(sample, res_samples, emb, context=context_ca)
 
         sample = F.silu(self.conv_norm_out(sample))
-        return self.conv_out(sample)
+        sample = self.conv_out(sample)
+        if return_deep_feature:
+            return sample, deep_feature
+        return sample

@@ -1,11 +1,13 @@
 """
 Reusable blocks (counterpart of ``fmdm_tpu/nn/blocks.py``): ``ResBlockND``
-(:42-169), ``SpatialSelfAttention`` (:176-203, softmax branch),
-``DiffusersAttentionND`` with ``_ToOut`` (:262-357), and
-``UpsampleND``/``DownsampleND`` (:364-394). Parameter paths match the JAX
-trees: norm1, conv1.conv, emb_layers, norm2, conv2.conv,
-skip_connection[.conv]; norm, qkv, proj_out; group_norm, to_q, to_k, to_v,
-to_out.0; conv.conv; op.conv.
+(:42-169), ``SpatialSelfAttention`` (:176-203, softmax and linear),
+``SpatialCrossAttention`` (:206-260), ``DiffusersAttentionND`` with
+``_ToOut`` (:262-357), ``UpsampleND``/``DownsampleND`` (:364-394) and
+``PoolND``/``UnPoolND`` (:397-435). Parameter paths match the JAX trees:
+norm1, conv1.conv, emb_layers, norm2, conv2.conv, skip_connection[.conv];
+norm, qkv, proj_out; norm, context_norm, q_proj, kv_proj, proj_out;
+group_norm, to_q, to_k, to_v, to_out.0; conv.conv; op.conv; down.conv;
+up.convT.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
-from fmdm_tpu_torch.nn.layers import Conv, ConvND, GroupNorm, Linear, make_activation, make_group_norm
-from fmdm_tpu_torch.ops.attention import sdpa
+from fmdm_tpu_torch.nn.layers import (Conv, ConvND, ConvTransposeND, GroupNorm, Linear,
+                                      make_activation, make_group_norm)
+from fmdm_tpu_torch.ops.attention import linear_attention, sdpa
 from fmdm_tpu_torch.ops.kernels.group_norm import group_norm_act
 from fmdm_tpu_torch.ops.resample import avg_pool_nd, upsample_nearest
 
@@ -122,6 +125,12 @@ class ResBlockND(nn.Module):
         return self.skip_connection(x) + h
 
 
+def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(b, heads·width, T) read as (b, heads, T, width): the reference's raw
+    reshape, not a transpose."""
+    return t.reshape(t.shape[0], heads, t.shape[-1], -1)
+
+
 class SpatialSelfAttention(nn.Module):
     """Flatten-spatial multi-head self-attention with a residual and a
     zero-initialized output projection. Params: norm, qkv (Conv1d), proj_out
@@ -130,19 +139,19 @@ class SpatialSelfAttention(nn.Module):
     The head split and merge are the reference's raw reshapes, not
     transposes: (b, 3·inner, T) is read as (b, heads, T, 3·head_dim) and split
     on the last axis, and (b, heads, T, head_dim) is read back as
-    (b, inner, T). At T >= 1024 (the VAE's mid attention at 32²) ``sdpa``
-    runs the flash kernels on CUDA."""
+    (b, inner, T). Softmax attention goes through ``sdpa`` (K2 at T < 1024,
+    the flash kernels at T >= 1024 on CUDA); ``use_linear`` takes the plain
+    ``linear_attention``, as JAX computes it with stock XLA."""
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 64,
                  use_linear: bool = False, *,
                  device: DeviceArg = None):
         super().__init__()
         device = resolve_device(device)
-        if use_linear:
-            raise NotImplementedError("SpatialSelfAttention use_linear=True is not ported yet")
         self.dim = dim
         self.heads = heads
         self.inner_dim = dim_head * heads
+        self.use_linear = use_linear
         self.norm = GroupNorm(max(1, math.gcd(dim, 32)), dim, device=device)
         self.qkv = Conv(1, dim, self.inner_dim * 3, kernel_size=1, padding=0, device=device)
         self.proj_out = Conv(1, self.inner_dim, dim, kernel_size=1, padding=0, zero_init=True,
@@ -153,9 +162,61 @@ class SpatialSelfAttention(nn.Module):
         spatial = x.shape[2:]
         x_flat = x.reshape(b, c, -1)  # (b, c, T)
         qkv = self.qkv(self.norm(x_flat))  # (b, 3*inner, T)
-        q, k, v = qkv.reshape(b, self.heads, qkv.shape[-1], -1).chunk(3, dim=-1)
-        h = sdpa(q, k, v).reshape(b, self.inner_dim, -1)
-        return (x_flat + self.proj_out(h)).reshape(b, c, *spatial)
+        q, k, v = _split_heads(qkv, self.heads).chunk(3, dim=-1)
+        h = linear_attention(q, k, v) if self.use_linear else sdpa(q, k, v)
+        return (x_flat + self.proj_out(h.reshape(b, self.inner_dim, -1))).reshape(b, c, *spatial)
+
+
+class SpatialCrossAttention(nn.Module):
+    """x attends to a flattened context. Params: norm, context_norm, q_proj,
+    kv_proj, proj_out (Conv1d each, the last zero-initialized).
+
+    The context is (b, context_dim, S) or (b, S, context_dim), or (b,
+    context_dim, *spatial) flattened. The head splits are the reference's raw
+    reshapes. Softmax attention goes through ``sdpa``: a query shorter than
+    1024 tokens against another length takes its plain route, ``sdpa_xla``,
+    as in JAX."""
+
+    def __init__(self, dim: int, context_dim: int, heads: int = 4, dim_head: int = 64,
+                 use_linear: bool = False, *, device: DeviceArg = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.dim = dim
+        self.context_dim = context_dim
+        self.heads = heads
+        self.inner_dim = dim_head * heads
+        self.use_linear = use_linear
+        self.norm = GroupNorm(max(1, math.gcd(dim, 32)), dim, device=device)
+        self.context_norm = GroupNorm(max(1, math.gcd(context_dim, 32)), context_dim,
+                                      device=device)
+        self.q_proj = Conv(1, dim, self.inner_dim, kernel_size=1, padding=0, device=device)
+        self.kv_proj = Conv(1, context_dim, self.inner_dim * 2, kernel_size=1, padding=0,
+                            device=device)
+        self.proj_out = Conv(1, self.inner_dim, dim, kernel_size=1, padding=0, zero_init=True,
+                             device=device)
+
+    def _context_flat(self, context: Optional[torch.Tensor]) -> torch.Tensor:
+        if context is None:
+            raise ValueError("SpatialCrossAttention requires a non-empty context tensor.")
+        if context.dim() == 3:
+            if context.shape[1] == self.context_dim:
+                return context
+            if context.shape[-1] == self.context_dim:
+                return context.transpose(1, 2)
+        elif context.shape[1] == self.context_dim:
+            return context.reshape(context.shape[0], self.context_dim, -1)
+        raise ValueError(f"Context channels mismatch: expected {self.context_dim}, "
+                         f"got {tuple(context.shape)}.")
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ctx = self._context_flat(context)
+        b, c = x.shape[:2]
+        spatial = x.shape[2:]
+        x_flat = x.reshape(b, c, -1)
+        q = _split_heads(self.q_proj(self.norm(x_flat)), self.heads)
+        k, v = _split_heads(self.kv_proj(self.context_norm(ctx)), self.heads).chunk(2, dim=-1)
+        h = linear_attention(q, k, v) if self.use_linear else sdpa(q, k, v)
+        return (x_flat + self.proj_out(h.reshape(b, self.inner_dim, -1))).reshape(b, c, *spatial)
 
 
 class _ToOut(nn.Module):
@@ -269,3 +330,31 @@ class DownsampleND(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.op(x) if self.use_conv else avg_pool_nd(x, 2, 2)
+
+
+class PoolND(nn.Module):
+    """Patchify: a conv with kernel = stride = ``pool_factor``. Params: down.conv.*"""
+
+    def __init__(self, spatial_dims: int, in_channels: int, out_channels: int, pool_factor=2, *,
+                 device: DeviceArg = None):
+        super().__init__()
+        self.down = ConvND(spatial_dims, in_channels, out_channels, kernel_size=pool_factor,
+                           stride=pool_factor, padding=0, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down(x)
+
+
+class UnPoolND(nn.Module):
+    """Unpatchify: a transposed conv with kernel = stride = ``pool_factor``.
+    Params: up.convT.*"""
+
+    def __init__(self, spatial_dims: int, in_channels: int, out_channels: int, pool_factor=2, *,
+                 device: DeviceArg = None):
+        super().__init__()
+        self.up = ConvTransposeND(spatial_dims, in_channels, out_channels,
+                                  kernel_size=pool_factor, stride=pool_factor, padding=0,
+                                  device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.up(x)

@@ -3,7 +3,8 @@ Core parameterized layers (counterpart of ``fmdm_tpu/nn/layers.py:39-255``).
 
 Parameter names and nesting match the JAX trees, which already use torch
 layouts: ``Conv`` holds ``weight``/``bias`` at its own level, ``ConvND`` nests
-a ``Conv`` under ``conv``. Initializers follow torch's defaults, as the JAX
+a ``Conv`` under ``conv``, ``ConvTransposeND`` a ``ConvTranspose`` (weight
+(in, out, *k)) under ``convT``. Initializers follow torch's defaults, as the JAX
 ones do: U(±1/√fan_in) for conv/linear weights and biases, ones/zeros for
 GroupNorm. :func:`init_weights` re-draws every parameter of a model from an
 explicit ``torch.Generator``.
@@ -19,7 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
-from fmdm_tpu_torch.ops.conv import conv_nd
+from fmdm_tpu_torch.ops.conv import conv_nd, conv_transpose_nd
 from fmdm_tpu_torch.ops.norm import group_norm, safe_num_groups
 
 SizeArg = Union[int, Tuple[int, ...]]
@@ -131,6 +132,54 @@ class ConvND(nn.Module):
         return self.conv(x)
 
 
+class ConvTranspose(nn.Module):
+    """Bare ND transposed conv with torch's (in, out, *k) weight layout."""
+
+    def __init__(
+        self,
+        spatial_dims: int,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: SizeArg = 2,
+        stride: SizeArg = 2,
+        padding: SizeArg = 0,
+        output_padding: SizeArg = 0,
+        *,
+        device: DeviceArg = None,
+    ):
+        super().__init__()
+        device = resolve_device(device)
+        kernel = _tupled(kernel_size, spatial_dims)
+        self.stride = stride
+        self.padding = padding
+        self.output_padding = output_padding
+        # torch's fan_in for a transposed conv: weight.size(1) * prod(kernel)
+        self.fan_in = out_channels * int(math.prod(kernel))
+        self.weight = nn.Parameter(torch.empty((in_channels, out_channels) + kernel, device=device))
+        self.bias = nn.Parameter(torch.empty(out_channels, device=device))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        bound = 1.0 / math.sqrt(max(self.fan_in, 1))
+        _uniform_(self.weight, bound, generator)
+        _uniform_(self.bias, bound, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_transpose_nd(x, self.weight, self.bias, stride=self.stride,
+                                 padding=self.padding, output_padding=self.output_padding)
+
+
+class ConvTransposeND(nn.Module):
+    """Reference-style envelope: params nest under ``convT``."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+        self.convT = ConvTranspose(*args, **kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.convT(x)
+
+
 class GroupNorm(nn.Module):
     """GroupNorm with f32 statistics (``ops/norm.py::group_norm``)."""
 
@@ -161,6 +210,6 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-draw every parameter of ``module`` from ``generator`` (a CPU
     generator, e.g. ``torch.Generator().manual_seed(seed)``), in module order."""
     for m in module.modules():
-        if isinstance(m, (Linear, Conv, GroupNorm)):
+        if isinstance(m, (Linear, Conv, ConvTranspose, GroupNorm)):
             m.reset_parameters(generator)
     return module

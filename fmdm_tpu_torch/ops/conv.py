@@ -1,10 +1,12 @@
 """
-N-dimensional convolution (counterpart of ``fmdm_tpu/ops/conv.py:45-97``).
+N-dimensional convolution and transposed convolution (counterpart of
+``fmdm_tpu/ops/conv.py:45-141``).
 
-Channels-first tensors (N, C, *spatial), torch-layout weights (OI + spatial)
-and integer padding that defaults to k//2 per dim. The JAX package leaves
-convolutions to XLA, so the port leaves them to cuDNN through
-``F.conv1d/2d/3d``.
+Channels-first tensors (N, C, *spatial), torch-layout weights (OI + spatial
+for ``conv_nd``, IO + spatial for ``conv_transpose_nd``) and integer padding
+that defaults to k//2 per dim. The JAX package leaves convolutions to XLA,
+so the port leaves them to cuDNN through ``F.conv1d/2d/3d`` and
+``F.conv_transpose1d/2d/3d``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 SizeArg = Union[int, Tuple[int, ...], Sequence[int]]
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d, 3: F.conv_transpose3d}
 
 
 def _normalize(value: SizeArg, nd: int) -> Tuple[int, ...]:
@@ -57,6 +60,33 @@ def conv_nd(
         x, weight.to(x.dtype), None,
         stride=_normalize(stride, nd), padding=padding,
         dilation=_normalize(dilation, nd), groups=groups,
+    )
+    if bias is not None:
+        out = out + bias.to(out.dtype).reshape((1, -1) + (1,) * nd)
+    return out
+
+
+def conv_transpose_nd(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    stride: SizeArg = 2,
+    padding: SizeArg = 0,
+    output_padding: SizeArg = 0,
+) -> torch.Tensor:
+    """Channels-first ND transposed convolution with torch semantics.
+
+    x: (N, C_in, *spatial); weight: (C_in, C_out, *kernel).
+    out_spatial = (in-1)*stride - 2*padding + kernel + output_padding. The
+    bias is added afterwards in the output dtype, as ``conv_nd`` does."""
+    nd = x.dim() - 2
+    if nd not in _CONV_T:
+        raise ValueError(f"conv_transpose_nd supports 1-3 spatial dims, got {nd}")
+    out = _CONV_T[nd](
+        x, weight.to(x.dtype), None,
+        stride=_normalize(stride, nd), padding=_normalize(padding, nd),
+        output_padding=_normalize(output_padding, nd),
     )
     if bias is not None:
         out = out + bias.to(out.dtype).reshape((1, -1) + (1,) * nd)

@@ -9,10 +9,14 @@ package's ``run_model.py`` runs here unchanged, on the card:
 
 ``--device`` unset means CUDA, and the CLI raises without a card: only
 ``--device cpu`` runs it on the CPU. The diffusion and flow-matching model
-types are ported; the ``vae`` model type's modes raise (ROADMAP Queue 1 item
-8), as do ``--latent_vae`` (item 8), ``--deep_cache`` (item 6),
-``--quantize`` (item 11) and sampling over several cards (item 10). There is
-no compile cache to enable.
+types are ported, with ``--deep_cache``:
+
+    python -m fmdm_tpu_torch.run_model --ckpt_dir RUN --mode evaluate --deep_cache 3:1:adaptive
+    python -m fmdm_tpu_torch.run_model --ckpt_dir RUN --mode evaluate --deep_cache auto:0.5
+
+The ``vae`` model type's modes raise (ROADMAP Queue 1 item 8), as do
+``--latent_vae`` (item 8), ``--quantize`` (item 11) and sampling over
+several cards (item 10). There is no compile cache to enable.
 """
 
 from __future__ import annotations
@@ -70,8 +74,14 @@ _FLAG_SPEC = [
     ("--save_tensor_cache", dict(action="store_true",
                                  help="Force writing tensor cache files at runtime without editing train_config.json.")),
     ("--deep_cache", dict(type=str, default=None,
-                          help="DeepCache acceleration 'INTERVAL[:DEPTH[:SCHEDULE]]' or "
-                               "'auto[:dPSNR]': not ported yet, raises (ROADMAP Queue 1 item 6). "
+                          help="DeepCache acceleration 'INTERVAL[:DEPTH[:SCHEDULE]]' (e.g. 3, 3:1, "
+                               "3:1:uniform): refresh the deep UNet levels on a schedule, recompute "
+                               "only the shallow levels in between. SCHEDULE 'adaptive' (default) "
+                               "keeps the first and last denoise steps full; 'uniform' is classic "
+                               "DeepCache. Or 'auto[:dPSNR]' (evaluate mode only, default budget "
+                               "0.5): probe candidate intervals on the first reference batch and "
+                               "keep the fastest within the PSNR budget of exact sampling. Applies "
+                               "to diffusers_nd UNets; others sample exactly, with a warning. "
                                "Omit for exact sampling.")),
     ("--latent_vae", dict(type=str, default=None,
                           help="Run dir of a trained VAE that decodes the samples as latents: "
@@ -91,8 +101,8 @@ _FLAG_SPEC = [
 
 
 def _parse_deep_cache(value):
-    """'INTERVAL[:DEPTH[:SCHEDULE]]' or 'auto[:dPSNR]' as the JAX package
-    parses it (validated here; ``set_deep_cache`` refuses it)."""
+    """'INTERVAL[:DEPTH[:SCHEDULE]]' -> (interval, depth, schedule), or
+    'auto[:dPSNR]' -> ("auto", budget), as the JAX package parses it."""
     if value is None:
         return None
     parts = str(value).split(":")

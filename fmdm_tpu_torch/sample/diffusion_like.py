@@ -11,7 +11,10 @@ Each batch is stacked on the host, moved to the device once, decoded there,
 and its output copied back once. Random draws come from one
 ``torch.Generator`` on the device seeded by ``seed`` and continued from
 batch to batch, where the JAX package splits a ``PRNGKey(seed)`` per batch:
-the two packages, and a card and a CPU run, draw different noise.
+the two packages, and a card and a CPU run, draw different noise. Under
+``--deep_cache auto:<dPSNR>`` ``_run_evaluate`` resolves the setting on its
+first batch of references before the timed loop, from a generator seeded
+``seed + 1``.
 
 Not ported yet, and refused: ``latent_vae`` (ROADMAP Queue 1 item 8).
 """
@@ -30,9 +33,11 @@ from fmdm_tpu_torch.data.dataset_utils import save_output_tensor
 from fmdm_tpu_torch.data.dataset_utils import save_tensor_cache as _write_tensor
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
 from fmdm_tpu_torch.sample.diffusion_utils import (
+    auto_deep_cache_pending,
     build_diffusion_model,
     decode_diffusion_batch,
     encode_diffusion_batch,
+    resolve_auto_deep_cache,
 )
 from fmdm_tpu_torch.sample.sampling_utils import (
     append_eval_metrics,
@@ -196,6 +201,17 @@ def _run_evaluate(*, ckpt_dir, model_type: str, data_txt=None, save: bool = Fals
                    else resolve_output_root(ckpt_dir, output_dir, save))
     model = build_diffusion_model(cfg, ckpt_path=ckpt_path, device=device)
     conditioning_mode = _conditioning_mode(training_cfg, model_cfg)
+
+    # --deep_cache auto:<dPSNR>: resolved on the first batch of references,
+    # at this run's settings, before the timed loop
+    if auto_deep_cache_pending():
+        probe = [dataset[i] for i in selected_indices[:batch_size]]
+        probe_cond = (_stack(probe, "image")
+                      if conditioning_mode in {"concatenate", "attention"} else None)
+        resolve_auto_deep_cache(
+            model, training_cfg, model_cfg, _stack(probe, "target"), _to(probe_cond, device),
+            num_inference_steps=num_inference_steps, scheduler_override=scheduler,
+            generator=torch.Generator(device).manual_seed(seed + 1), device=device)
 
     total_mse = total_psnr = total_ssim = 0.0
     count = ssim_count = 0

@@ -12,12 +12,19 @@ request), forward noising, and reverse sampling with a scheduler override,
 
 Sampling engines are cached per configuration (FIFO, at most 8), keyed by
 the model, which weights it holds, the scheduler's fingerprint, the selected
-timesteps, the conditioning, the batch shape and the device.
+timesteps, the conditioning, the batch shape, the device and the DeepCache
+setting.
 
-Not ported yet, and refused rather than ignored: DeepCache
-(``set_deep_cache``, ROADMAP Queue 1 item 6), int8 inference
-(``set_quantize``, item 11) and data-parallel sampling over several cards
-(``set_dp_sampling``, item 10).
+DeepCache (``set_deep_cache``, ``run_model --deep_cache``) applies to a UNet
+with the deep/shallow split (``UNetDiffusersND``); any other model decodes
+exactly, with a warning. ``("auto", dPSNR)`` is resolved to the most
+aggressive of ``_AUTO_CANDIDATES`` within the budget by
+:func:`resolve_auto_deep_cache` on a batch with references, before any
+decode.
+
+Not ported yet, and refused rather than ignored: int8 inference
+(``set_quantize``, ROADMAP Queue 1 item 11) and data-parallel sampling over
+several cards (``set_dp_sampling``, item 10).
 """
 
 from __future__ import annotations
@@ -176,11 +183,92 @@ def encode_diffusion_batch(scheduler, targets: torch.Tensor, timesteps: torch.Te
     return scheduler.add_noise(targets, noise, timesteps)
 
 
+# DeepCache for the sampling surface (run_model --deep_cache): (interval,
+# depth[, schedule]), ("auto", dPSNR) until resolved, or None. Module-level,
+# as in the JAX package, beside the fixed signature of the sampling functions.
+_DEEP_CACHE: Optional[Tuple] = None
+
+
 def set_deep_cache(value) -> None:
-    """DeepCache is not ported yet (ROADMAP Queue 1 item 6): anything but
-    None raises."""
-    if value:
-        raise NotImplementedError("deep_cache is not ported yet (ROADMAP Queue 1 item 6)")
+    """(interval, depth[, schedule]), or ("auto", dPSNR): a quality budget
+    that :func:`resolve_auto_deep_cache` turns into a setting on a batch with
+    references before any decode; None or () turns DeepCache off."""
+    global _DEEP_CACHE
+    _DEEP_CACHE = tuple(value) if value else None
+
+
+def _deep_cache_is_auto(value) -> bool:
+    return isinstance(value, tuple) and len(value) > 0 and value[0] == "auto"
+
+
+def auto_deep_cache_pending() -> bool:
+    """Whether the DeepCache setting is an ``auto`` budget that
+    :func:`resolve_auto_deep_cache` has not yet turned into a setting."""
+    return _deep_cache_is_auto(_DEEP_CACHE)
+
+
+# most to least aggressive: depth 1 under the adaptive schedule, the
+# interval setting the speed-up
+_AUTO_CANDIDATES = ((5, 1, "adaptive"), (4, 1, "adaptive"),
+                    (3, 1, "adaptive"), (2, 1, "adaptive"))
+
+
+def resolve_auto_deep_cache(model: nn.Module, training_cfg: dict, model_cfg: dict,
+                            targets: torch.Tensor,
+                            conditioning_batch: Optional[torch.Tensor] = None, *,
+                            num_inference_steps: Optional[int] = None,
+                            scheduler_override: Optional[str] = None,
+                            generator: Optional[torch.Generator] = None,
+                            device: DeviceArg = None) -> Optional[Tuple]:
+    """Resolve a pending ("auto", dPSNR) setting: decode ``targets``' shape
+    exactly and under each of ``_AUTO_CANDIDATES`` from the same draws of
+    ``generator`` (its state at the call; default: a generator on ``device``
+    seeded 0), score each against ``targets`` as evaluate does (PSNR of
+    images clipped to [0, 1]), and install the first candidate that costs at
+    most dPSNR, or None (exact). Returns what it installed; a no-op that
+    returns the current setting when no auto setting is pending."""
+    spec = _DEEP_CACHE
+    if not _deep_cache_is_auto(spec):
+        return spec
+    budget = float(spec[1])
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device).manual_seed(0)
+    start = generator.get_state()
+    ref = np.clip(torch.as_tensor(targets).float().cpu().numpy(), 0.0, 1.0)
+
+    def psnr_for(setting) -> float:
+        set_deep_cache(setting)
+        generator.set_state(start)
+        try:
+            out = decode_diffusion_batch(
+                model, training_cfg, model_cfg, tuple(ref.shape), conditioning_batch,
+                generator=generator, num_inference_steps=num_inference_steps,
+                scheduler_override=scheduler_override, device=device)
+        finally:
+            set_deep_cache(spec)
+        out = np.clip(out.float().cpu().numpy(), 0.0, 1.0)
+        mse = float(np.mean((out - ref) ** 2))
+        return float(10.0 * np.log10(1.0 / max(mse, 1e-12)))
+
+    base = psnr_for(None)
+    chosen, probed = None, []
+    for cand in _AUTO_CANDIDATES:
+        drop = base - psnr_for(cand)
+        probed.append((cand, drop))
+        if drop <= budget:
+            chosen = cand
+            break
+    table = ", ".join(f"{c[0]}:{c[1]}:{c[2]}→ΔPSNR {d:+.3f}" for c, d in probed)
+    if chosen is None:
+        logging.warning("deep_cache auto:%.3g — no candidate within budget (probed %s); "
+                        "running EXACT.", budget, table)
+    else:
+        logging.info("deep_cache auto:%.3g resolved to interval=%d depth=%d schedule=%s "
+                     "(probe PSNR exact=%.3f; %s)", budget, chosen[0], chosen[1], chosen[2],
+                     base, table)
+    set_deep_cache(chosen)
+    return chosen
 
 
 def set_quantize(mode: Optional[str]) -> None:
@@ -289,15 +377,25 @@ def decode_diffusion_batch(
     conditioning_mode = resolve_conditioning_mode(
         training_cfg.get("conditioning") or model_cfg.get("conditioning"))
     latent_norm = training_cfg.get("latent_norm")
+    deep_cache = _DEEP_CACHE
+    if _deep_cache_is_auto(deep_cache):
+        raise RuntimeError(
+            "--deep_cache auto:<dPSNR> needs a reference batch to probe against and is resolved "
+            "by evaluate mode automatically (resolve_auto_deep_cache). For reference-less modes "
+            "pass an explicit interval, e.g. --deep_cache 3:1:adaptive.")
+    if deep_cache is not None and not hasattr(model, "up_blocks"):
+        logging.warning("deep_cache requested but %s has no deep/shallow split; ignoring.",
+                        model.__class__.__name__)
+        deep_cache = None
     cache_key = (
         id(model), _weights_key(model), scheduler.__class__.__name__,
         _scheduler_fingerprint(scheduler), tuple(np.asarray(timesteps).tolist()),
-        conditioning_mode, str(latent_norm), tuple(batch_shape), str(device),
+        conditioning_mode, str(latent_norm), tuple(batch_shape), str(device), deep_cache,
     )
     engine = _ENGINE_CACHE.get(cache_key)
     if engine is None:
         engine = SamplingEngine(model, scheduler, timesteps, conditioning_mode, latent_norm,
-                                device=device)
+                                deep_cache=deep_cache, device=device)
         while len(_ENGINE_CACHE) >= _ENGINE_CACHE_MAX:
             _ENGINE_CACHE.pop(next(iter(_ENGINE_CACHE)))
         _ENGINE_CACHE[cache_key] = engine

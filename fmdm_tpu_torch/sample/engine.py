@@ -10,8 +10,14 @@ draws each step's noise from a generator on the engine's device, where JAX
 splits one key per step, or takes it from the caller (``step_noise``), so a
 run can replay another run's draws. A sigma-space scheduler (DPM-SDE) scales
 each model input and the initial noise at the position of the sliced
-schedule (``scale_model_input``, ``init_noise_scale``). Not ported: the device
-mesh and DeepCache.
+schedule (``scale_model_input``, ``init_noise_scale``).
+
+Under DeepCache (``deep_cache=(interval, depth[, schedule])``) the steps that
+:func:`deep_cache_refresh_mask` marks run the full UNet and keep the feature
+entering its shallow up blocks; the others run only the shallow levels and
+splice that feature back in (``UNetDiffusersND.forward``). The cached
+feature stays in the compute dtype. Interval 1 runs every step in full and
+equals the uncached engine. Not ported: the device mesh.
 """
 
 from __future__ import annotations
@@ -70,6 +76,25 @@ def prepare_attention_context(condition: Optional[torch.Tensor]) -> Optional[tor
     raise ValueError(f"Unsupported conditioning shape for attention: {tuple(condition.shape)}")
 
 
+def deep_cache_refresh_mask(n: int, interval: int, schedule: str = "adaptive",
+                            warm_frac: float = 0.15, tail_frac: float = 0.10) -> np.ndarray:
+    """Which of ``n`` steps run the full UNet under DeepCache.
+
+    'uniform': every ``interval``-th step (classic DeepCache). 'adaptive': the
+    uniform backbone plus always-full head and tail windows (15% and 10% of
+    the steps), where the deep features change fastest. Step 0 is always
+    full: it fills the cache."""
+    mask = np.zeros((n,), bool)
+    mask[::max(1, int(interval))] = True
+    if schedule == "adaptive":
+        mask[:max(1, int(round(n * warm_frac)))] = True
+        mask[n - max(1, int(round(n * tail_frac))):] = True
+    elif schedule != "uniform":
+        raise ValueError(f"Unknown deep_cache schedule '{schedule}'")
+    mask[0] = True
+    return mask
+
+
 def select_timesteps(timesteps: np.ndarray, start_step: Optional[int] = None,
                      last_n_steps: Optional[int] = None) -> np.ndarray:
     """Host-side start_step/last_n filtering."""
@@ -123,6 +148,7 @@ class SamplingEngine:
         latent_norm: Optional[str] = None,
         compute_dtype: Optional[torch.dtype] = None,
         *,
+        deep_cache: Optional[Tuple] = None,
         device: DeviceArg = None,
     ):
         self.device = resolve_device(device)
@@ -132,6 +158,8 @@ class SamplingEngine:
         self.conditioning_mode = conditioning_mode
         self.latent_norm = latent_norm
         self.compute_dtype = compute_dtype
+        # (interval, depth[, schedule]) or None
+        self.deep_cache = tuple(deep_cache) if deep_cache else None
         self._compute_model: Optional[nn.Module] = None
 
     def _model_for_compute(self) -> nn.Module:
@@ -186,6 +214,11 @@ class SamplingEngine:
         int_t = np.issubdtype(self.timesteps.dtype, np.integer)
         t_all = torch.as_tensor(self.timesteps, device=device,
                                 dtype=torch.int32 if int_t else torch.float32)
+        refresh = depth = cache = None
+        if self.deep_cache is not None:
+            interval, depth = int(self.deep_cache[0]), int(self.deep_cache[1])
+            schedule = self.deep_cache[2] if len(self.deep_cache) > 2 else "adaptive"
+            refresh = deep_cache_refresh_mask(len(self.timesteps), interval, schedule)
         if device.type == "cuda":
             build.library()  # first-call kernel build stays outside the timed window
         _synchronize(device)
@@ -203,7 +236,16 @@ class SamplingEngine:
                     model_input = torch.cat([model_input, cond], dim=1)
                 elif self.conditioning_mode == "attention" and cond is not None:
                     ctx = cond
-                pred = model(model_input, t_all[i].expand(x.shape[0]), context_ca=ctx).float()
+                t_b = t_all[i].expand(x.shape[0])
+                if refresh is None:
+                    pred = model(model_input, t_b, context_ca=ctx)
+                elif refresh[i]:
+                    pred, cache = model(model_input, t_b, context_ca=ctx, cache_depth=depth,
+                                        return_deep_feature=True)
+                else:
+                    pred = model(model_input, t_b, context_ca=ctx, deep_cache=cache,
+                                 cache_depth=depth)
+                pred = pred.float()
                 if step_noise is None:
                     state, x = scheduler.step(state, pred, i, x, self.timesteps, generator=step_gen)
                 else:

@@ -51,7 +51,9 @@ def _entry_points():
     from fmdm_tpu_torch.models.factories import DiffusionUNetFactory, VAEFactory
     from fmdm_tpu_torch.models.unet_diffusers import UNetDiffusersND
     from fmdm_tpu_torch.models.vae import AutoencoderKL
-    from fmdm_tpu_torch.nn.blocks import ResBlockND, SpatialSelfAttention
+    from fmdm_tpu_torch.models.unet_efficient import EfficientUNetND
+    from fmdm_tpu_torch.nn.blocks import (PoolND, ResBlockND, SpatialCrossAttention,
+                                          SpatialSelfAttention, UnPoolND)
     from fmdm_tpu_torch.sample.diffusion_utils import build_diffusion_model, decode_diffusion_batch
     from fmdm_tpu_torch.sample.engine import SamplingEngine
     from fmdm_tpu_torch.sample.vae_utils import build_vae_model
@@ -68,6 +70,9 @@ def _entry_points():
     denoise = {"training": {"batch_size": 2}, "model": {"unet": cfg, "model_type": "diffusion"}}
     run = {"training": {"conditioning": "concatenate", "channels": 1, "num_inference_steps": 1},
            "model": {"unet": cfg, "model_type": "diffusion", "scheduler": {"name": "ddim"}}}
+    efficient = {"unet_impl": "efficient_nd", "model_channels": 8, "num_res_blocks": 1,
+                 "channel_mult": [1, 2], "attention_resolutions": [2], "num_heads": 2,
+                 "dim_head": 4}
     cpu_unet = DiffusionUNetFactory().build(cfg, "concatenate", 1, device="cpu")
     loops = _training_loops(cfg, vae)
 
@@ -90,6 +95,15 @@ def _entry_points():
         "autoencoder_kl": lambda **kw: AutoencoderKL(**vae, **kw),
         "build_vae_model": lambda **kw: build_vae_model({"model": vae}, **kw),
         "spatial_attention": lambda **kw: SpatialSelfAttention(8, heads=2, dim_head=4, **kw),
+        "linear_attention": lambda **kw: SpatialSelfAttention(8, heads=2, dim_head=4,
+                                                              use_linear=True, **kw),
+        "cross_attention": lambda **kw: SpatialCrossAttention(8, 4, heads=2, dim_head=4, **kw),
+        "pool": lambda **kw: PoolND(2, 1, 8, 2, **kw),
+        "unpool": lambda **kw: UnPoolND(2, 8, 1, 2, **kw),
+        "efficient_factory": lambda **kw: DiffusionUNetFactory().build(efficient, "attention", 1,
+                                                                       **kw),
+        "efficient_unet": lambda **kw: EfficientUNetND(2, 2, 8, 1, 1, (2,), channel_mult=(1, 2),
+                                                       num_heads=2, dim_head=4, **kw),
         "build_denoise_trainer": lambda **kw: build_denoise_trainer(denoise, variant="diffusion",
                                                                     num_samples=4, **kw),
         "make_denoise_train_step": train_step,
@@ -147,6 +161,8 @@ def _training_loops(unet, vae):
 
 @pytest.mark.parametrize("name", ["factory", "unet", "resblock", "engine", "vae_factory",
                                   "autoencoder_kl", "build_vae_model", "spatial_attention",
+                                  "linear_attention", "cross_attention", "pool", "unpool",
+                                  "efficient_factory", "efficient_unet",
                                   "build_denoise_trainer", "make_denoise_train_step",
                                   "build_diffusion_model", "decode_diffusion_batch",
                                   "denoise_train", "vae_train", "train_cli"])
@@ -172,7 +188,10 @@ def test_cpu_forward_launches_no_kernel():
     model = _entry_points()["factory"](device="cpu")
     with torch.no_grad():
         out = model(torch.randn(1, 2, 8, 8), 3)
-    assert out.shape == (1, 1, 8, 8)
+        assert out.shape == (1, 1, 8, 8)
+        efficient = _entry_points()["efficient_factory"](device="cpu")
+        out = efficient(torch.randn(1, 1, 8, 8), 3, context_ca=torch.randn(1, 1, 4, 4))
+        assert out.shape == (1, 1, 8, 8)
     vae = _entry_points()["vae_factory"](device="cpu")
     KLTrainStep(vae, {}).step(torch.rand(2, 1, 8, 8), torch.ones(2))
     batch = {"target": torch.rand(2, 1, 8, 8), "image": torch.rand(2, 1, 8, 8),

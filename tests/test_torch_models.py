@@ -187,11 +187,17 @@ def test_reduced_unet_forward_matches_jax_and_routes_through_the_kernels(monkeyp
 
 
 def test_unet_refuses_the_deep_cache_split():
+    """The DeepCache split at a depth outside [1, n_up - 1] (TINY_UNET has
+    two up blocks: depth 1 only) raises, as in JAX; depth 1 splices."""
     tm = DiffusionUNetFactory().build(TINY_UNET, conditioning="concatenate", channels=1,
                                       device="cpu")
     x = torch.zeros(1, 2, 16, 16)
-    with pytest.raises(NotImplementedError, match="DeepCache"):
-        tm(x, 5, cache_depth=1, return_deep_feature=True)
+    for depth in (None, 0, 2):
+        with pytest.raises(ValueError, match=r"cache_depth must be in \[1, 1\]"):
+            tm(x, 5, cache_depth=depth, return_deep_feature=True)
+    with torch.no_grad():
+        out, feature = tm(x, 5, cache_depth=1, return_deep_feature=True)
+        assert torch.equal(tm(x, 5, deep_cache=feature, cache_depth=1), out)
 
 
 def _engine_pair(seed):

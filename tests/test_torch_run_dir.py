@@ -382,9 +382,15 @@ def test_decode_engine_cache_is_keyed_by_scheduler_and_weights(monkeypatch):
 def test_unported_options_refuse_and_defaults_pass(monkeypatch):
     for off in (None, ()):
         tdu.set_deep_cache(off)
+        assert tdu._DEEP_CACHE is None
     tdu.set_quantize(None)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tdu.set_deep_cache((3, 1))
+    tdu.set_deep_cache(("auto", 0.5))   # DeepCache is ported: an auto setting refuses to decode
+    try:
+        with pytest.raises(RuntimeError, match="deep_cache auto"):
+            tdu.decode_diffusion_batch(None, _cfg()["training"], _cfg()["model"], SHAPE,
+                                       device="cpu")
+    finally:
+        tdu.set_deep_cache(None)
     with pytest.raises(NotImplementedError, match="item 11"):
         tdu.set_quantize("int8")
     with pytest.raises(ValueError):

@@ -324,15 +324,17 @@ def test_cli_without_device_raises_without_a_card(runs, monkeypatch):
         tdl._run_evaluate(ckpt_dir=runs["diffusion"], model_type="diffusion")
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--latent_vae", "somewhere"], "item 8"),
-    (["--deep_cache", "3"], "item 6"),
-    (["--deep_cache", "auto"], "item 6"),
-    (["--quantize", "int8"], "item 11"),
+@pytest.mark.parametrize("flags,error,match", [
+    (["--latent_vae", "somewhere"], NotImplementedError, "item 8"),
+    # --deep_cache is ported: it raises where JAX's does, on a schedule it
+    # does not know and on an auto budget in a mode without references
+    (["--deep_cache", "3:1:sideways"], ValueError, "schedule"),
+    (["--deep_cache", "auto", "--mode", "decode"], RuntimeError, "deep_cache auto"),
+    (["--quantize", "int8"], NotImplementedError, "item 11"),
 ], ids=["latent_vae", "deep_cache", "deep_cache_auto", "quantize"])
-def test_unported_flags_raise(runs, flags, item):
+def test_unported_flags_raise(runs, flags, error, match):
     try:
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(error, match=match):
             trm.main(["--ckpt_dir", str(runs["diffusion"]), "--mode", "evaluate", "--device",
                       "cpu", "--num_samples", "1", *flags])
     finally:

@@ -170,8 +170,8 @@ def test_vq_and_unported_training_options_raise():
         VAEFactory().build(dict(REDUCED_MODEL, latent_type="vq"), device="cpu")
     with pytest.raises(NotImplementedError):
         VQVAE()
-    with pytest.raises(NotImplementedError, match="use_linear"):
-        blocks.SpatialSelfAttention(8, heads=2, dim_head=4, use_linear=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="rmsnorm"):
+        blocks.ResBlockND(8, None, 0.0, norm_type="rmsnorm", device="cpu")
     model = _port_kl()
     for option in ({"perceptual_weight": 0.1}, {"gan_weight": 0.5}, {"reg_type": "vq"},
                    {"fsdp": True}, {"tensor_parallel": 2}, {"sequence_parallel": 2},
