@@ -13,7 +13,8 @@ Phases, each printing one or more lines:
 3. K1 (fused GroupNorm+SiLU) against its plain version, f32 and bf16, each
    case twice and bitwise equal: both variants (the single-pass cluster
    kernel, and the split forced) and every group-size class of the main
-   paths (2 KB at batch 32 to 1 MB in bf16, 2 MB in f32), a ragged last
+   paths (2 KB at batch 32 to 1 MB in bf16, 2 MB in f32, and the VQ-VAE's
+   one channel per group at (4, 32, 256, 256)), a ragged last
    chunk, 7x7 and an unaligned x (one element per load), SiLU and FiLM on
    and off, f32 weights under bf16; its timings at the largest call;
 4. K2 (small-T attention) against its plain version: the flagship's two
@@ -134,7 +135,37 @@ Phases, each printing one or more lines:
     and per-image metrics equal to the exact run); on [20]'s flagship run dir
     ``evaluate --deep_cache 3:1:adaptive`` and ``--deep_cache auto:0.5``
     (the resolved setting from the log);
-27. the whole run's seconds, a ``{"kernels": [...]}`` line, then the result
+27. the VQ-VAE at full width, f32, TF32 off: ``LDCT_vqvae.json`` (EMA
+    codebook) and ``LDCT_vqvae_original.json`` (classic), each a reconstruct
+    at batch 1 card against the CPU (at least 99.9% of the codes equal, a
+    differing code's two distances within 1e-5, and with every code equal
+    the output within the tolerance), its train step at batch 1 card
+    against the CPU (loss, every gradient, the EMA buffers after it), 10
+    timed steps at batch 4, and the nearest-code search's own time (a
+    4096 x 16384 x 256 distance product and the argmin) against its bound;
+    launches K1 50 per call, no K3; ``LDCT_magvit_vqvae.json`` builds and
+    reconstructs once;
+28. the KL-VAE's ``LDCT_autoencoder_kl_bce_focal.json`` and
+    ``LDCT_fmboost_autoencoder_kl.json`` recipes, the perceptual loss on a
+    surrogate VGG16 ``.npz`` drawn from ``--seed`` (``FMDM_VGG16_WEIGHTS``
+    set for this phase only): the train step at batch 1 card against the
+    CPU with the perceptual term non-zero, 10 timed steps at batch 4, the
+    VGG's share of the step, launches K1, K3, K4, K5 per step;
+29. ``run_model``'s VAE modes on [22]'s KL-VAE run dir: ``evaluate``,
+    ``sample --save``, ``encode --save`` and ``debug_compare`` in
+    subprocesses, ``decode`` on the latents ``encode`` wrote (a copy of the
+    run dir over a LatentDataset root of them), ``evaluate`` in this process
+    (K1 and K3 per model call, peak memory) and at batch 1 card against the
+    CPU; the VQ-VAE (EMA) trained 1 epoch through ``python -m
+    fmdm_tpu_torch.train`` on [22]'s root, its codebook's EMA buffers read
+    back bitwise, and its run dir evaluated;
+30. the latent chain: a run dir of the flagship config's UNet at the
+    latent's shape (4 channels at 32², concatenate conditioning, weights
+    from ``--seed``) over [29]'s latents times 1/std, ``evaluate
+    --latent_vae '<[22]'s KL-VAE>?scale=S'`` in this process (K1 and K2 per
+    UNet call, K1 and K3 per VAE decode of samples and targets), and at
+    batch 1 card against the CPU with the card's draws replayed;
+31. the whole run's seconds, a ``{"kernels": [...]}`` line, then the result
     line ``{"ok": true, "device": {...}}``.
 
 The flagship is ``model.unet`` of ``configs/LDCT/LDCT_ddpm_diffusers_nd.json``
@@ -286,6 +317,24 @@ DEEP_CACHE_PARITY_STEPS = 3   # '2:1', card vs CPU, f32
 # the cached samples' settings at the first --batches; the later batches
 # leave out the last one (a cut of depth: its launches are checked at the first)
 DEEP_CACHE_SETTINGS = ((3, 1, "adaptive"), (3, 1, "uniform"), (5, 1, "adaptive"))
+# [27]-[30]: the rest of the VAE family. The VQ-VAE configs have the
+# KL-VAE's stages and ResBlocks and no attention: K1 50 per reconstruct and
+# per train step's forward, no K3
+VQ_CONFIGS = {"ema": REPO_ROOT / "configs" / "LDCT" / "LDCT_vqvae.json",
+              "classic": REPO_ROOT / "configs" / "LDCT" / "LDCT_vqvae_original.json"}
+MAGVIT_CONFIG = REPO_ROOT / "configs" / "LDCT" / "LDCT_magvit_vqvae.json"
+VQ_LAUNCHES = {"reconstruct": {"K1": 50}, "train step": {"K1": 50}}
+# card vs CPU codes: a card GEMM may turn a near tie the other way
+CODE_AGREEMENT = 0.999
+NEAR_TIE_REL = 1e-5
+LOSS_CONFIGS = (REPO_ROOT / "configs" / "LDCT" / "LDCT_autoencoder_kl_bce_focal.json",
+                REPO_ROOT / "configs" / "LDCT" / "LDCT_fmboost_autoencoder_kl.json")
+# the perceptual step's gradients, card vs CPU: its L1 over 0.4-3.2 million
+# VGG features per image has a kink wherever r = t, and the two sides'
+# roundings flip sign(r - t) at a few elements near it; each flip moves a
+# gradient by about 1/sqrt(elements) of its size (its count is logged)
+PERCEPTUAL_GRAD_TOL = 1e-2
+VAE_CLI_SAMPLES = 8   # [29]: of [22]'s 24 test slices
 K2_X8_DRAWS = 4   # further draws of K2's bf16 case at logits x8
 K3_F32_DRAWS = 3  # further draws of each f32 K3 case
 
@@ -479,6 +528,9 @@ def phase_k1(torch, card: str, gen, own_gen, main_batch: int) -> dict:
               ((3, 96, 7, 7), True, True, None, 0, False, gen),
               ((2, 128, 128, 128), True, False, None, 1, False, own_gen),
               ((2, 64, 32, 32), True, False, torch.float32, 0, False, gen),
+              # the VQ-VAE's first stage: 32 channels in 32 groups, one
+              # channel (256 KB in f32) per group
+              ((4, 32, 256, 256), True, False, None, 0, False, own_gen),
               ((2, 128, 256, 256), True, True, None, 0, True, own_gen),
               ((3, 96, 7, 7), True, False, None, 0, True, own_gen)]
     worst = 0.0
@@ -2218,6 +2270,533 @@ def phase_clis(card: str, work: Path) -> None:
         raise AssertionError("--deep_cache on EfficientUNet changed the result")
 
 
+def vae_grad_errors(model, cpu_model):
+    """The worst gradient of the card against the CPU: per tensor,
+    max|gpu-cpu| over the CPU's largest element, except for a tensor whose
+    CPU gradient is rounding noise (below 1e-6 of the model's largest, as
+    the biases before a GroupNorm of one channel per group, 0 in exact
+    arithmetic): held to 1e-5 of the model's largest. Returns (worst, name,
+    how many tensors were noise)."""
+    pairs = [(n, pg.grad.detach().cpu().float(), pc.grad.detach().float())
+             for (n, pg), pc in zip(model.named_parameters(), cpu_model.parameters())]
+    top = max(float(c.abs().max()) for _, _, c in pairs)
+    worst, worst_name, noise = 0.0, "", 0
+    for name, g, c in pairs:
+        scale = float(c.abs().max())
+        if scale < 1e-6 * top:
+            noise += 1
+            err = float((g - c).abs().max()) / (1e-2 * top)
+        else:
+            err = float((g - c).abs().max()) / scale
+        if err > worst:
+            worst, worst_name = err, name
+    return worst, worst_name, noise
+
+
+def code_agreement(torch, what: str, card_codes, cpu_codes, z_cpu, embedding_cpu) -> dict:
+    """The card's nearest codes against the CPU's: at least CODE_AGREEMENT of
+    them equal, and at every code that differs the two codes' distances
+    from the (CPU's) latent, in float64, within NEAR_TIE_REL of each other:
+    a near tie that a GEMM's rounding may turn either way."""
+    card_codes, cpu_codes = card_codes.cpu().reshape(-1), cpu_codes.cpu().reshape(-1)
+    differ = (card_codes != cpu_codes).nonzero().reshape(-1)
+    rows = torch.movedim(z_cpu, 1, -1).reshape(-1, z_cpu.shape[1]).double()
+    emb = embedding_cpu.double()
+    worst = 0.0
+    for i in differ.tolist():
+        d = [float(((rows[i] - emb[c]) ** 2).sum()) for c in (card_codes[i], cpu_codes[i])]
+        worst = max(worst, abs(d[0] - d[1]) / max(d))
+    frac = 1.0 - len(differ) / card_codes.numel()
+    log(f"  {what}: {card_codes.numel() - len(differ)} of {card_codes.numel()} codes equal "
+        f"({frac:.6f}); {len(differ)} differ, their distances within {worst:.3e} relative "
+        f"(near ties allowed to {NEAR_TIE_REL:g})")
+    if frac < CODE_AGREEMENT or worst > NEAR_TIE_REL:
+        raise AssertionError(f"{what}: the card's codes disagree with the CPU's beyond near ties")
+    return {"equal": frac, "differ": len(differ)}
+
+
+def timed_vae_steps(torch, card: str, trainer, raw, valid, records, want: dict, what: str):
+    """TRAIN_STEPS timed steps of ``trainer`` on (raw, valid) drawing from a
+    CUDA generator: ms per step, images/s, peak memory, launches per step."""
+    gen = torch.Generator("cuda").manual_seed(0)
+    trainer.step(raw, valid, generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(records)
+    start = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        metrics, _ = trainer.step(raw, valid, generator=gen)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - start) / TRAIN_STEPS
+    counts = read_counts(records)
+    expect_counts(f"a timed {what} train step", counts, want, TRAIN_STEPS)
+    if not bool(torch.isfinite(metrics["loss"])):
+        raise AssertionError(f"the timed {what} train steps gave a non-finite loss")
+    batch = raw.shape[0]
+    log(f"  {what}: batch {batch}, {TRAIN_STEPS} steps: {step_s * 1e3:.2f} ms per step, "
+        f"{batch / step_s:.2f} images/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"launches per step {({k: v // TRAIN_STEPS for k, v in counts.items() if v})}, "
+        f"last loss {float(metrics['loss']):.6f} [{card}]")
+    return step_s * 1e3, counts
+
+
+def vae_step_parity(torch, what: str, model, cpu_model, training: dict, raw, noise, records,
+                    want: dict, grad_tol: float = REL_TOL):
+    """One VAETrainStep at batch 1 on the card and on the CPU (the same
+    input and posterior noise): the loss, every gradient (:func:`vae_grad_errors`,
+    to ``grad_tol``) and, for an EMA codebook, its buffers after the step.
+    Returns both trainers and the card's metrics."""
+    from fmdm_tpu_torch.train.vae_impl import VAETrainStep
+
+    trainers = [VAETrainStep(m, training) for m in (model, cpu_model)]
+    valid = torch.ones(raw.shape[0])
+    reset_counts(records)
+    m_gpu, _ = trainers[0].step(raw.cuda(), valid.cuda(),
+                                noise=None if noise is None else noise.cuda())
+    torch.cuda.synchronize()
+    expect_counts(f"the {what} train step", read_counts(records), want)
+    start = time.perf_counter()
+    m_cpu, _ = trainers[1].step(raw, valid, noise=noise)
+    cpu_s = time.perf_counter() - start
+    loss_rel = abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+    worst, worst_name, noise_tensors = vae_grad_errors(model, cpu_model)
+    buffers = {k: rel_err(b.cpu(), dict(cpu_model.named_buffers())[k])
+               for k, b in model.named_buffers()}
+    terms = ", ".join(f"{k} {float(m_gpu[k]):.6f}/{float(m_cpu[k]):.6f}"
+                      for k in ("recon", "kl", "vq", "perceptual"))
+    log(f"  {what}: loss card {float(m_gpu['loss']):.6f} CPU {float(m_cpu['loss']):.6f} (rel "
+        f"{loss_rel:.3e}; card/CPU {terms}); worst gradient {worst:.3e} ({worst_name}; "
+        f"{noise_tensors} tensors of rounding-noise gradient held to 1e-5 of the largest)"
+        f"{'; EMA buffers after the step ' + str({k: f'{v:.3e}' for k, v in buffers.items()}) if buffers else ''}"
+        f"; CPU step {cpu_s:.2f} s (tolerance {REL_TOL:g}, gradients {grad_tol:g})")
+    if not (loss_rel <= REL_TOL and worst <= grad_tol and
+            all(v <= REL_TOL for v in buffers.values())):
+        raise AssertionError(f"{what} train step: card disagrees with the CPU (loss {loss_rel}, "
+                             f"gradient {worst} at {worst_name}, buffers {buffers})")
+    return trainers, m_gpu
+
+
+def perceptual_sign_flips(torch, losses, recon, target) -> list:
+    """For each layer of the perceptual loss, (elements whose sign(r - t)
+    differs between the card's VGG and the CPU's on the same images,
+    elements): ``losses`` is (card's, CPU's) ``PerceptualLoss``."""
+    from fmdm_tpu_torch.ops.resample import resize_bilinear
+
+    signs = []
+    for loss in losses:
+        device = next(loss.features.parameters()).device
+        r, t = (resize_bilinear(x.to(device).repeat(1, 3, 1, 1), (224, 224))
+                for x in (recon, target))
+        layers = []
+        with torch.no_grad():
+            for idx, layer in enumerate(loss.features):
+                r, t = layer(r), layer(t)
+                if idx in loss.layer_indices:
+                    layers.append(torch.sign(r - t).cpu())
+        signs.append(layers)
+    return [(int((a != b).sum()), a.numel()) for a, b in zip(*signs)]
+
+
+def phase_vq(torch, card: str, seed: int, gen, records) -> dict:
+    """[27]: the VQ-VAE configs at full width; returns the launches of the
+    timed EMA train steps."""
+    from fmdm_tpu_torch.nn.vae_modules import _nearest_codes
+    from fmdm_tpu_torch.sample.vae_utils import build_vae_model
+    from fmdm_tpu_torch.train.vae_impl import VAETrainStep
+
+    log("[27] VQ-VAE (LDCT_vqvae EMA, LDCT_vqvae_original classic) at full width, f32, TF32 off: "
+        "reconstruct and train step at batch 1 card vs CPU plain path, timed steps, the "
+        "nearest-code search")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for quantizer, path in VQ_CONFIGS.items():
+        cfg = json.loads(path.read_text())
+        start = time.perf_counter()
+        model = build_vae_model(cfg, generator=torch.Generator().manual_seed(seed), device="cuda")
+        build_s = time.perf_counter() - start
+        random_weights(torch, model, torch.Generator().manual_seed(seed))
+        cpu_model = copy.deepcopy(model).cpu()
+        n_params = sum(p.numel() for p in model.parameters())
+        side = int(cfg["model"]["resolution"])
+        raw = torch.rand((1, 1, side, side), generator=gen)
+        inputs = model.image_to_model_range(raw)
+        with torch.no_grad():
+            model(inputs.cuda())  # warm-up
+            torch.cuda.synchronize()
+            reset_counts(records)
+            start = time.perf_counter()
+            rec, aux = model(inputs.cuda())
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - start
+            counts = read_counts(records)
+            rec_cpu, aux_cpu = cpu_model(inputs)
+            z_cpu = cpu_model.encode(inputs)
+        expect_counts(f"the {quantizer} VQ-VAE reconstruct", counts, VQ_LAUNCHES["reconstruct"])
+        log(f"  {path.name}: {n_params} parameters, codebook {tuple(model.codebook.embedding.shape)} "
+            f"({quantizer}); built in {build_s:.2f} s; reconstruct {fwd_s * 1e3:.2f} ms on the card, "
+            f"launches {({k: v for k, v in counts.items() if v})} [{card}]")
+        agree = code_agreement(torch, f"{quantizer} reconstruct, batch 1", aux["codes"],
+                               aux_cpu["codes"], z_cpu, cpu_model.codebook.embedding.detach())
+        if agree["differ"] == 0:
+            errs = (rel_err(rec.cpu(), rec_cpu),
+                    abs(float(aux["perplexity"]) - float(aux_cpu["perplexity"]))
+                    / float(aux_cpu["perplexity"]))
+            log(f"  every code equal: reconstruction max|gpu-cpu|/max|cpu| {errs[0]:.3e}, "
+                f"perplexity rel {errs[1]:.3e} (tolerance {REL_TOL:g})")
+            if not (bool(torch.isfinite(rec).all()) and max(errs) <= REL_TOL):
+                raise AssertionError(f"{quantizer} VQ reconstruct disagrees with the CPU ({errs})")
+            # the step quantizes the same latent, so its codes agree too
+            vae_step_parity(torch, f"{quantizer} VQ", model, cpu_model, cfg["training"], raw, None,
+                            records, VQ_LAUNCHES["train step"])
+        else:
+            log(f"  a near tie flipped a code: the output and train-step comparisons, which "
+                f"need every code equal, are left out for {quantizer}")
+        del cpu_model
+        trainer = VAETrainStep(model, cfg["training"])
+        batch = int(cfg["training"]["batch_size"])
+        raw4 = torch.rand((batch, 1, side, side), generator=gen).cuda()
+        step_ms, counts = timed_vae_steps(torch, card, trainer, raw4, torch.ones(batch, device="cuda"),
+                                          records, VQ_LAUNCHES["train step"], f"{quantizer} VQ-VAE")
+        with torch.no_grad():
+            z = model.encode(model.image_to_model_range(raw4))
+        flat = torch.movedim(z, 1, -1).reshape(-1, z.shape[1]).contiguous()
+        emb = model.codebook.embedding.detach()
+        search_ms = time_ms(lambda: _nearest_codes(flat, emb), iters=10)
+        ops = 2.0 * flat.shape[0] * emb.shape[0] * emb.shape[1]
+        bound, bound_by, term = bound_ms(4 * (flat.numel() + emb.numel()) + 8 * flat.shape[0],
+                                         **product_seconds(ops, "float32"))
+        log(f"  nearest-code search ({flat.shape[0]} x {emb.shape[0]} x {emb.shape[1]} distance "
+            f"product, TF32 off, and the argmin): {search_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({term}), {search_ms / step_ms * 100:.1f}% of the {step_ms:.2f} ms step [{card}]")
+        if quantizer == "ema":
+            out = counts
+        del model, trainer
+        torch.cuda.empty_cache()
+
+    cfg = json.loads(MAGVIT_CONFIG.read_text())
+    model = build_vae_model(cfg, generator=torch.Generator().manual_seed(seed), device="cuda")
+    random_weights(torch, model, torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        reset_counts(records)
+        side = int(cfg["model"]["resolution"])
+        rec, aux = model(model.image_to_model_range(torch.rand((1, 1, side, side), generator=gen)).cuda())
+        torch.cuda.synchronize()
+    expect_counts("the magvit VQ-VAE reconstruct", read_counts(records), VQ_LAUNCHES["reconstruct"])
+    log(f"  {MAGVIT_CONFIG.name}: reconstruct {tuple(rec.shape)} finite "
+        f"{bool(torch.isfinite(rec).all())}, codes {tuple(aux['codes'].shape)}, perplexity "
+        f"{float(aux['perplexity']):.3f}")
+    if not bool(torch.isfinite(rec).all()):
+        raise AssertionError("the magvit VQ-VAE reconstruct is not finite")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_losses(torch, card: str, seed: int, gen, records) -> dict:
+    """[28]: the bce_focal and perceptual KL-VAE recipes at full width, the
+    perceptual one on a surrogate VGG16 drawn from ``seed``; returns the
+    launches of the timed perceptual steps."""
+    import os
+
+    from fmdm_tpu_torch.nn.losses import write_surrogate_vgg16
+    from fmdm_tpu_torch.sample.vae_utils import build_vae_model
+    from fmdm_tpu_torch.train.vae_impl import VAETrainStep
+    from fmdm_tpu_torch.utils.evaluation import latent_shape
+
+    log("[28] the KL-VAE's bce_focal and perceptual recipes at full width, f32, TF32 off: train "
+        "step at batch 1 card vs CPU plain path, timed steps at batch 4, the VGG's share")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["FMDM_VGG16_WEIGHTS"] = write_surrogate_vgg16(Path(tmp) / "vgg16.npz", seed)
+        try:
+            for path in LOSS_CONFIGS:
+                cfg = json.loads(path.read_text())
+                training = cfg["training"]
+                model = build_vae_model(cfg, generator=torch.Generator().manual_seed(seed),
+                                        device="cuda")
+                random_weights(torch, model, torch.Generator().manual_seed(seed))
+                cpu_model = copy.deepcopy(model).cpu()
+                side = int(cfg["model"]["resolution"])
+                raw = torch.rand((1, 1, side, side), generator=gen)
+                noise = torch.randn((1, *latent_shape(cfg["model"])), generator=gen)
+                perceptual = float(training.get("perceptual_weight", 0)) > 0
+                trainers, metrics = vae_step_parity(
+                    torch, path.name, model, cpu_model, training, raw, noise, records,
+                    VAE_LAUNCHES["train step"], PERCEPTUAL_GRAD_TOL if perceptual else REL_TOL)
+                if perceptual:
+                    if not float(metrics["perceptual"]) > 0:
+                        raise AssertionError(f"{path.name}: the perceptual term is 0")
+                    flips = perceptual_sign_flips(
+                        torch, [t.perceptual for t in trainers], raw,
+                        torch.rand((1, 1, side, side), generator=gen))
+                    log(f"  sign(r - t) differing between the card's and the CPU's VGG on the "
+                        f"same images, per layer {sorted(trainers[0].perceptual.layer_indices)}: "
+                        f"{[f'{n} of {m}' for n, m in flips]}")
+                del cpu_model, trainers
+                trainer = VAETrainStep(model, training)
+                batch = int(training["batch_size"])
+                raw4 = torch.rand((batch, 1, side, side), generator=gen).cuda()
+                step_ms, counts = timed_vae_steps(torch, card, trainer, raw4,
+                                                  torch.ones(batch, device="cuda"), records,
+                                                  VAE_LAUNCHES["train step"], path.name)
+                if trainer.perceptual is not None:
+                    rec = torch.rand((batch, 1, side, side), device="cuda", requires_grad=True)
+
+                    def vgg():
+                        trainer.perceptual(rec, raw4).backward()
+
+                    vgg_ms = time_ms(vgg, iters=5, warmup=1)
+                    log(f"  the perceptual loss (224² resize, VGG16 to layer 22) forward and "
+                        f"backward at batch {batch}: {vgg_ms:.2f} ms, {vgg_ms / step_ms * 100:.1f}% "
+                        f"of the {step_ms:.2f} ms step [{card}]")
+                    out = counts
+                del model, trainer
+                torch.cuda.empty_cache()
+        finally:
+            del os.environ["FMDM_VGG16_WEIGHTS"]
+    return out
+
+
+def write_latent_root(root: Path, latents: list, scale: float, seed: int) -> Path:
+    """A LatentDataset root (header split files, one ``.npy`` per row, the
+    same rows in train and test) of ``latents`` times ``scale``, each with a
+    conditioning column of the latent plus noise of 0.1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    (root / "data").mkdir(parents=True)
+    rows = []
+    for i, z in enumerate(latents):
+        z = np.asarray(z, np.float32) * scale
+        np.save(root / "data" / f"t{i}.npy", z)
+        np.save(root / "data" / f"c{i}.npy", (z + 0.1 * rng.standard_normal(z.shape)).astype(np.float32))
+        rows.append(f"C{i:03d}\tdata/t{i}.npy\tdata/c{i}.npy")
+    for split in ("train.txt", "test.txt"):
+        (root / split).write_text("Case\ttarget\tconditioning\n" + "\n".join(rows) + "\n")
+    (root / "dataset.json").write_text(json.dumps(
+        {"dataset_class": "fmdm_tpu.data.latent:LatentDataset", "use_tensor_cache": False}))
+    return root
+
+
+def phase_vae_clis(torch, card: str, seed: int, records, work: Path) -> dict:
+    """[29]: run_model's VAE modes on [22]'s KL-VAE run dir, in subprocesses
+    and in process, and a VQ-VAE trained and evaluated through the CLIs;
+    returns the launches of the in-process evaluate and the encoded latents."""
+    import numpy as np
+
+    from fmdm_tpu_torch import run_model
+    from fmdm_tpu_torch.data.io import load_image
+    from fmdm_tpu_torch.sample import autoencoder_like
+    from fmdm_tpu_torch.sample.sampling_utils import load_run_config
+    from fmdm_tpu_torch.sample.vae_utils import build_vae_model
+    from fmdm_tpu_torch.utils import checkpoint as ckpt_utils
+    from fmdm_tpu_torch.utils.evaluation import latent_shape
+
+    run = work / "train" / "vae_run1"
+    subset = ("--num_samples", VAE_CLI_SAMPLES, "--batch_size", DECODE_BATCH)
+    log(f"[29] run_model's VAE modes on [22]'s KL-VAE run dir over its synthetic root: "
+        f"{VAE_CLI_SAMPLES} samples at batch {DECODE_BATCH}")
+    out_dir = work / "cli29" / "evaluate"
+    text, _ = run_cli(card, run, "evaluate", *subset, "--output_dir", out_dir)
+    row = check_evaluate(out_dir, VAE_CLI_SAMPLES)
+    throughput = next(line for line in text.splitlines() if line.startswith("Model throughput"))
+    log(f"  evaluate: {throughput}; {row['model_calls']} model calls; MSE {row['mse']} PSNR "
+        f"{row['psnr']} SSIM {row['ssim']}")
+    run_cli(card, run, "sample", "--save", *subset, "--output_dir", work / "cli29" / "sample")
+    out_dir = work / "cli29" / "encode"
+    run_cli(card, run, "encode", "--save", *subset, "--output_dir", out_dir)
+    # the LDCT writer saves a (C, H, W) latent as C slices in a directory of its own
+    latents = [np.stack([np.load(f) for f in sorted(d.glob("slice_*.npy"))])
+               for d in sorted({p.parent for p in out_dir.rglob("slice_*.npy")})]
+    run_cli(card, run, "debug_compare", "--output_dir", work / "cli29" / "debug_compare")
+    stats = json.loads((work / "cli29" / "debug_compare" / "stats.json").read_text())
+    predicted = list((work / "cli29" / "sample" / "predicted").rglob("*.npy"))
+    shapes = {tuple(z.shape) for z in latents}
+    run_cfg = json.loads((run / "train_config.json").read_text())
+    side = int(run_cfg["training"]["img_size"])
+    log(f"  sample --save: {len(predicted)} predictions; encode --save: {len(latents)} latents of "
+        f"{shapes}; debug_compare: recon [{stats['recon_min']:.4f}, {stats['recon_max']:.4f}]")
+    if len(predicted) != VAE_CLI_SAMPLES or len(latents) != VAE_CLI_SAMPLES or \
+            shapes != {latent_shape(run_cfg["model"])} or not math.isfinite(stats["recon_mean"]):
+        raise AssertionError(f"VAE CLIs: {len(predicted)} predictions, latents {shapes}, {stats}")
+
+    # decode: a copy of the run dir over a latent root of encode's output
+    latent_run = work / "vae_latents_run"
+    latent_run.mkdir()
+    cfg = json.loads((run / "train_config.json").read_text())
+    cfg["training"]["data_root"] = str(write_latent_root(work / "latents_x1", latents, 1.0, seed))
+    (latent_run / "train_config.json").write_text(json.dumps(cfg, indent=2))
+    (latent_run / "vae_last.pt").hardlink_to(run / "vae_last.pt")
+    run_cli(card, latent_run, "decode", "--save", *subset, "--output_dir", work / "cli29" / "decode")
+    decoded = [np.asarray(load_image(p)["Image"], np.float32)
+               for p in (work / "cli29" / "decode" / "predicted").rglob("*") if p.is_file()]
+    log(f"  decode --save on encode's latents: {len(decoded)} images of "
+        f"{ {d.shape for d in decoded} }")
+    if len(decoded) != VAE_CLI_SAMPLES or {d.size for d in decoded} != {side * side} or \
+            not all(np.isfinite(d).all() for d in decoded):
+        raise AssertionError(f"decode wrote {len(decoded)} images")
+
+    # evaluate in process: launches per model call and peak memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(records)
+    start = time.perf_counter()
+    run_model.main(["--ckpt_dir", str(run), "--mode", "evaluate", *map(str, subset),
+                    "--output_dir", str(work / "cli29" / "inproc")])
+    wall = time.perf_counter() - start
+    counts = read_counts(records)
+    row = check_evaluate(work / "cli29" / "inproc", VAE_CLI_SAMPLES)
+    calls = int(row["model_calls"])
+    expect_counts("VAE evaluate in process", counts, VAE_LAUNCHES["reconstruct"], calls)
+    log(f"  in process: {calls} model calls in {float(row['model_seconds']):.4f} s "
+        f"({float(row['model_samples_per_second']):.2f} images/s), wall {wall:.2f} s, launches "
+        f"{({k: v for k, v in counts.items() if v})}, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    totals = dict(counts)
+
+    # card vs CPU: evaluate of one sample at batch 1 (no draws: the posterior's mode)
+    torch.backends.cudnn.allow_tf32 = False
+    parity = dict(ckpt_dir=run, num_samples=1, batch_size=1, save=True, seed=seed)
+    autoencoder_like.evaluate(device="cuda", output_dir=str(work / "cli29" / "parity_cuda"), **parity)
+    autoencoder_like.evaluate(device="cpu", output_dir=str(work / "cli29" / "parity_cpu"), **parity)
+    rows = [check_evaluate(work / "cli29" / f"parity_{d}", 1) for d in ("cuda", "cpu")]
+    mse = [float(r["per_image"][0]["mse"]) for r in rows]
+    mse_rel = abs(mse[0] - mse[1]) / max(abs(mse[1]), 1e-12)
+    saved_rel = compare_saved(rows[0]["dir"] / "samples", rows[1]["dir"] / "samples")
+    log(f"  card vs CPU, evaluate at batch 1: per-image MSE {mse[0]:.8f} vs {mse[1]:.8f} (rel "
+        f"{mse_rel:.3e}), saved tensors {saved_rel:.3e} (tolerance {REL_TOL:g})")
+    if mse_rel > REL_TOL:
+        raise AssertionError(f"VAE evaluate: card disagrees with the CPU (MSE rel {mse_rel})")
+
+    # the VQ-VAE (EMA) through the training CLI for one epoch, then evaluated
+    vq = train_config(VQ_CONFIGS["ema"], work / "train_ldct", work / "train" / "vq", epochs=1,
+                      visual_samples=VAE_VISUAL_SAMPLES)
+    text, wall = run_train_cli(card, "vq", "--config", write_config(work / "cfg" / "vq.json", vq))
+    describe_run(card, "VQ-VAE (EMA), 1 epoch", loop_log(text), wall)
+    vq_run = work / "train" / "vq_run1"
+    rows = check_run_dir(vq_run, [1], ["vae_last.pt", "vae_best.pt", "epochs/epoch0001/recon.png"])
+    if list(rows[0]) != ["epoch", "loss", "recon", "vq"]:
+        raise AssertionError(f"VQ metrics.csv columns {list(rows[0])}")
+    stored = ckpt_utils.load_checkpoint(vq_run / "vae_last.pt")["model"]
+    loaded = build_vae_model(load_run_config(vq_run), device="cuda",
+                             ckpt_path=vq_run / "vae_last.pt")
+    names = ("embedding", "ema_cluster_size", "ema_w")
+    same = all(torch.equal(getattr(loaded.codebook, k).cpu(), stored[f"codebook.{k}"]) for k in names)
+    used = int((stored["codebook.ema_cluster_size"] > 1e-3).sum())
+    log(f"  VQ run: metrics {rows}; the codebook's EMA buffers read back bitwise: {same}; "
+        f"{used} of {stored['codebook.ema_cluster_size'].numel()} codes with an EMA count above 1e-3")
+    if not same or used == 0:
+        raise AssertionError("the VQ checkpoint's EMA buffers did not read back or never moved")
+    del loaded
+    out_dir = work / "cli29" / "vq_evaluate"
+    text, _ = run_cli(card, vq_run, "evaluate", *subset, "--output_dir", out_dir)
+    row = check_evaluate(out_dir, VAE_CLI_SAMPLES)
+    throughput = next(line for line in text.splitlines() if line.startswith("Model throughput"))
+    log(f"  VQ evaluate: {throughput}; MSE {row['mse']} PSNR {row['psnr']}")
+    return {"launches": totals, "latents": latents, "run": run}
+
+
+def phase_latent_chain(torch, card: str, seed: int, records, work: Path, vae_run: Path,
+                       latents: list) -> dict:
+    """[30]: a latent-diffusion run dir over [29]'s encoded latents, scored
+    in pixels through ``--latent_vae``; returns the launches of the counted
+    evaluate."""
+    import numpy as np
+
+    from fmdm_tpu_torch import run_model
+    from fmdm_tpu_torch.models.factories import DiffusionUNetFactory
+    from fmdm_tpu_torch.nn.layers import init_weights
+    from fmdm_tpu_torch.sample import diffusion_like, diffusion_utils
+    from fmdm_tpu_torch.schedulers import build_scheduler
+    from fmdm_tpu_torch.utils.checkpoint import save_checkpoint
+
+    scale = float(1.0 / np.std(np.stack(latents)))
+    root = write_latent_root(work / "latents_scaled", latents, scale, seed)
+    channels, side = latents[0].shape[0], latents[0].shape[-1]
+    cfg = json.loads(CONFIG.read_text())
+    cfg["model"]["unet"].update(sample_size=side, in_channels=channels, out_channels=channels)
+    cfg["training"].update(data_root=str(root), channels=channels, img_size=side,
+                           num_inference_steps=CLI_STEPS)
+    run = work / "latent_ddpm"
+    run.mkdir()
+    (run / "train_config.json").write_text(json.dumps(cfg, indent=2))
+    model = DiffusionUNetFactory().build(cfg["model"]["unet"], conditioning="concatenate",
+                                         channels=channels, device="cpu")
+    init_weights(model, torch.Generator().manual_seed(seed))
+    save_checkpoint({"model": model, "epoch": 1}, run / "diff_last.pt")
+    latent_vae = f"{vae_run}?scale={scale}"
+    samples = len(latents)
+    batches = -(-samples // DECODE_BATCH)
+    log(f"[30] the latent chain: {CONFIG.name}'s UNet at the latent's shape ({channels} channels, "
+        f"{side}², concatenate conditioning) over {samples} encoded latents times {scale:.6f} "
+        f"(1/std); evaluate --latent_vae '<[22]'s KL-VAE>?scale=S', {CLI_STEPS} steps, batch "
+        f"{DECODE_BATCH}")
+    torch.backends.cudnn.allow_tf32 = True
+    diffusion_utils._ENGINE_CACHE.clear()
+    reset_counts(records)
+    start = time.perf_counter()
+    run_model.main(["--ckpt_dir", str(run), "--mode", "evaluate", "--num_samples", str(samples),
+                    "--batch_size", str(DECODE_BATCH), "--num_inference_steps", str(CLI_STEPS),
+                    "--latent_vae", latent_vae, "--output_dir", str(work / "chain" / "evaluate")])
+    wall = time.perf_counter() - start
+    counts = read_counts(records)
+    row = check_evaluate(work / "chain" / "evaluate", samples)
+    # per batch: CLI_STEPS UNet calls, then the VAE decode of the samples and of the targets
+    want = {"K1": batches * (CLI_STEPS * K1_PER_FORWARD + 2 * VAE_LAUNCHES["decode"]["K1"]),
+            "K2": batches * CLI_STEPS * K2_PER_FORWARD,
+            "K3": batches * 2 * VAE_LAUNCHES["decode"]["K3"]}
+    expect_counts("the latent chain's evaluate", counts, want)
+    log(f"  evaluate --latent_vae: {row['model_calls']} UNet calls in "
+        f"{float(row['model_seconds']):.4f} s, wall {wall:.2f} s, launches "
+        f"{({k: v for k, v in counts.items() if v})} (per batch {CLI_STEPS} UNet calls and 2 VAE "
+        f"decodes); pixel MSE {row['mse']} PSNR {row['psnr']} SSIM {row['ssim']} [{card}]")
+
+    # card vs CPU: one sample at batch 1 with the card's draws replayed
+    torch.backends.cudnn.allow_tf32 = False
+    scheduler, _ = build_scheduler(cfg["model"]["scheduler"], cfg["training"])
+    real_decode = diffusion_like.decode_diffusion_batch
+    draws = []
+
+    def record(*args, generator=None, **kw):
+        shape, device = args[3], kw["device"]
+        init = torch.randn(shape, generator=generator, device=device)
+        steps = ([torch.randn(shape, generator=generator, device=device)
+                  for _ in range(CLI_PARITY_STEPS)] if scheduler.needs_noise else None)
+        draws.append((init.cpu(), None if steps is None else [s.cpu() for s in steps]))
+        return real_decode(*args, init_noise=init, step_noise=steps, **kw)
+
+    def replay(*args, generator=None, **kw):
+        init, steps = draws.pop(0)
+        return real_decode(*args, init_noise=init, step_noise=steps, **kw)
+
+    parity = dict(ckpt_dir=run, model_type="diffusion", num_samples=1, batch_size=1,
+                  num_inference_steps=CLI_PARITY_STEPS, save=True, seed=seed,
+                  latent_vae=latent_vae)
+    try:
+        diffusion_like.decode_diffusion_batch = record
+        diffusion_like._run_evaluate(device="cuda", output_dir=str(work / "chain" / "parity_cuda"),
+                                     **parity)
+        diffusion_like.decode_diffusion_batch = replay
+        diffusion_like._run_evaluate(device="cpu", output_dir=str(work / "chain" / "parity_cpu"),
+                                     **parity)
+    finally:
+        diffusion_like.decode_diffusion_batch = real_decode
+    rows = [check_evaluate(work / "chain" / f"parity_{d}", 1) for d in ("cuda", "cpu")]
+    mse = [float(r["per_image"][0]["mse"]) for r in rows]
+    mse_rel = abs(mse[0] - mse[1]) / max(abs(mse[1]), 1e-12)
+    saved_rel = compare_saved(rows[0]["dir"] / "samples", rows[1]["dir"] / "samples")
+    log(f"  card vs CPU, evaluate --latent_vae at batch 1, {CLI_PARITY_STEPS} DDPM calls, the "
+        f"card's draws replayed: per-image pixel MSE {mse[0]:.8f} vs {mse[1]:.8f} (rel "
+        f"{mse_rel:.3e}), saved images {saved_rel:.3e} (tolerance {REL_TOL:g})")
+    if mse_rel > REL_TOL:
+        raise AssertionError(f"the latent chain: card disagrees with the CPU (MSE rel {mse_rel})")
+    diffusion_utils._ENGINE_CACHE.clear()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2386,6 +2965,11 @@ def main() -> int:
         deep_cache_counts = phase_deep_cache(torch, card, args.seed, gen, all_records, model,
                                              scheduler, timesteps, batches, exact_rates)
         phase_clis(card, Path(tmp))
+        vq_counts = phase_vq(torch, card, args.seed, gen, all_records)
+        loss_counts = phase_losses(torch, card, args.seed, gen, all_records)
+        vae_cli = phase_vae_clis(torch, card, args.seed, all_records, Path(tmp))
+        chain_counts = phase_latent_chain(torch, card, args.seed, all_records, Path(tmp),
+                                          vae_cli["run"], vae_cli["latents"])
 
     k1["launches"], k2["launches"] = main_launches
     k3["launches"], k4["launches"], k5["launches"] = (train_counts[k] for k in ("K3", "K4", "K5"))
@@ -2408,7 +2992,13 @@ def main() -> int:
             f"EfficientUNet (compvis) {NUM_STEPS}-step sample, batch {batches[0]}":
                 efficient_counts["sample"].get(kernel, 0),
             f"DeepCache '3:1:adaptive' {NUM_STEPS}-step sample, batch {batches[0]}":
-                deep_cache_counts.get(kernel, 0)}
+                deep_cache_counts.get(kernel, 0),
+            f"VQ-VAE (EMA) train step x {TRAIN_STEPS}": vq_counts.get(kernel, 0),
+            f"KL-VAE perceptual train step x {TRAIN_STEPS}": loss_counts.get(kernel, 0),
+            f"VAE run_model evaluate in process, batch {DECODE_BATCH}":
+                vae_cli["launches"].get(kernel, 0),
+            f"latent chain evaluate --latent_vae, batch {DECODE_BATCH}":
+                chain_counts.get(kernel, 0)}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_term", "library_ms", "shape", "dtype")
     extra = ("library_kernel", "variants", "per_forward", "launches_by_path")

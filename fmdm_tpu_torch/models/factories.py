@@ -169,7 +169,8 @@ class DiffusionUNetFactory:
 
 
 class VAEFactory:
-    """Builds ``AutoencoderKL`` from a ``{training, model}`` JSON config.
+    """Builds ``AutoencoderKL`` or ``VQVAE`` (``latent_type`` "kl" / "vq")
+    from a ``{training, model}`` JSON config.
 
     The selector keys (``latent_type``, ``model_type``, ``norm_type``,
     ``act``) are peeled off and the rest is forwarded as constructor kwargs,

@@ -5,7 +5,8 @@ the JAX tree: encoder, decoder, quant_conv, post_quant_conv.
 
 ``encode`` returns a :class:`DiagonalGaussian`; the forward samples the
 posterior from an explicit noise tensor or a ``torch.Generator``. ``VQVAE``
-(the quantizers, the discriminators) is not ported yet.
+(counterpart of :146-258) quantizes through the ``codebook``; its
+discriminators are not ported yet (ROADMAP Queue 1 item 8d).
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import torch.nn as nn
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
 from fmdm_tpu_torch.nn.blocks import ResBlockND
 from fmdm_tpu_torch.nn.layers import ConvND
-from fmdm_tpu_torch.nn.vae_modules import Decoder, DiagonalGaussian, Encoder
+from fmdm_tpu_torch.nn.vae_modules import (Decoder, DiagonalGaussian, Encoder, VectorQuantizer,
+                                            VectorQuantizerEMA)
 
 LATENT_SCALE: float = 0.18215
 
@@ -126,8 +128,102 @@ class AutoencoderKL(BaseAutoencoder):
 
 
 class VQVAE(BaseAutoencoder):
-    """Not ported yet: its quantizers and discriminators wait (ROADMAP Queue 1
-    item 10)."""
+    """The VQ autoencoder (counterpart of ``fmdm_tpu/models/vae.py:146-258``):
+    encoder (no double z), ``quant_conv`` to ``embed_dim``, the ``codebook``
+    (``quantizer_type`` "ema" or "classic"/"vq"), ``post_quant_conv`` and the
+    decoder. ``forward(x, train=)`` returns ``(rec, aux)`` with ``vq_loss``,
+    ``perplexity``, ``codes`` and ``ema_update`` (the EMA buffers' update of
+    a train-mode call, which the trainer applies, else None)."""
 
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError("VQVAE (latent_type 'vq') is not ported yet")
+    def __init__(
+        self,
+        in_channels: int = 3,
+        out_channels: int = 3,
+        resolution: int = 256,
+        base_ch: int = 128,
+        ch_mult: Tuple[int, ...] = (1, 2, 4, 4),
+        down_channels: Optional[Tuple[int, ...]] = None,
+        num_res_blocks: int = 2,
+        attn_resolutions: Tuple[int, ...] = (),
+        z_channels: int = 4,
+        embed_dim: int = 4,
+        dropout: float = 0.0,
+        use_attention: bool = True,
+        attn_heads: int = 4,
+        attn_dim_head: int = 64,
+        spatial_dims: int = 2,
+        emb_channels: Optional[int] = None,
+        use_scale_shift_norm: bool = False,
+        ckpt_path: Optional[str] = None,
+        codebook_size: int = 1024,
+        vq_beta: float = 0.25,
+        vq_ema_decay: float = 0.99,
+        vq_ema_eps: float = 1e-5,
+        quantizer_type: str = "ema",
+        discriminator_type: str = "patchgan",
+        block_factory=None,
+        block_norm_type: str = "gn",
+        block_act: str = "silu",
+        *,
+        device: DeviceArg = None,
+        **_unused,
+    ) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        self.spatial_dims = spatial_dims
+        self.out_channels = out_channels
+        self.quantizer_type = str(quantizer_type).lower()
+        self.discriminator_type = (str(discriminator_type).lower()
+                                   if discriminator_type is not None else "patchgan")
+        if block_factory is None and (block_norm_type != "gn" or block_act != "silu"):
+            def block_factory(**kwargs):
+                return ResBlockND(norm_type=block_norm_type, act=block_act, **kwargs)
+
+        common = dict(
+            base_ch=base_ch, ch_mult=tuple(ch_mult),
+            down_channels=tuple(down_channels) if down_channels is not None else None,
+            num_res_blocks=num_res_blocks, attn_resolutions=tuple(attn_resolutions),
+            resolution=resolution, z_channels=z_channels, dropout=dropout,
+            use_attention=use_attention, attn_heads=attn_heads, attn_dim_head=attn_dim_head,
+            spatial_dims=spatial_dims, emb_channels=emb_channels,
+            use_scale_shift_norm=use_scale_shift_norm, block_factory=block_factory,
+            device=device,
+        )
+        self.encoder = Encoder(in_channels=in_channels, double_z=False, **common)
+        self.decoder = Decoder(out_ch=out_channels, tanh_out=False, **common)
+        self.quant_conv = ConvND(spatial_dims, z_channels, embed_dim, 1, padding=0, device=device)
+        self.post_quant_conv = ConvND(spatial_dims, embed_dim, z_channels, 1, padding=0,
+                                      device=device)
+        self.embed_dim = embed_dim
+        self.ckpt_path = ckpt_path
+        if self.quantizer_type in {"classic", "vq"}:
+            self.codebook = VectorQuantizer(codebook_size, embed_dim, commitment_cost=vq_beta,
+                                            device=device)
+        elif self.quantizer_type == "ema":
+            self.codebook = VectorQuantizerEMA(codebook_size, embed_dim, commitment_cost=vq_beta,
+                                               decay=vq_ema_decay, eps=vq_ema_eps, device=device)
+        else:
+            raise ValueError(
+                f"Unknown quantizer_type '{self.quantizer_type}'. Expected 'classic' or 'ema'.")
+
+    def make_discriminator(self):
+        raise NotImplementedError(
+            f"the {self.discriminator_type} discriminator (gan_weight > 0) is not ported yet "
+            f"(ROADMAP Queue 1 item 8d)")
+
+    def encode(self, x: torch.Tensor, normalize: bool = False) -> torch.Tensor:
+        """``quant_conv``'s output (before quantization), times
+        ``LATENT_SCALE`` when ``normalize``."""
+        quant_in = self.quant_conv(self.encoder(x))
+        return quant_in * LATENT_SCALE if normalize else quant_in
+
+    def decode(self, z: torch.Tensor, denorm: bool = False) -> torch.Tensor:
+        if denorm:
+            z = z / LATENT_SCALE
+        return self.decoder(self.post_quant_conv(z))
+
+    def forward(self, x: torch.Tensor, *, train: bool = False):
+        out = self.codebook(self.encode(x), train=train)
+        rec = self.decode(out.quantized)
+        return rec, {"vq_loss": out.vq_loss, "perplexity": out.perplexity, "codes": out.codes,
+                     "ema_update": out.new_state}

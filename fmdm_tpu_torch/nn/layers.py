@@ -208,8 +208,12 @@ def make_group_norm(channels: int, groups: int = 32, eps: float = 1e-5, *,
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-draw every parameter of ``module`` from ``generator`` (a CPU
-    generator, e.g. ``torch.Generator().manual_seed(seed)``), in module order."""
+    generator, e.g. ``torch.Generator().manual_seed(seed)``), in module
+    order, and a VQ codebook's buffers with it."""
+    from fmdm_tpu_torch.nn.vae_modules import VectorQuantizer, VectorQuantizerEMA
+
     for m in module.modules():
-        if isinstance(m, (Linear, Conv, ConvTranspose, GroupNorm)):
+        if isinstance(m, (Linear, Conv, ConvTranspose, GroupNorm, VectorQuantizer,
+                          VectorQuantizerEMA)):
             m.reset_parameters(generator)
     return module

@@ -8,17 +8,20 @@ stage, run last).
 
 ``norm_out`` + SiLU goes through kernel K1 with ``act=True``: the JAX
 ``silu(GroupNorm(h))``, the same function in f32. The mid attention runs the
-flash kernels (K3, K4/K5 in training) at T >= 1024. The vector quantizers and
-the discriminators are not ported yet.
+flash kernels (K3, K4/K5 in training) at T >= 1024. The vector quantizers
+(``VectorQuantizer``, ``VectorQuantizerEMA``, :288-424) are plain PyTorch,
+as they are plain XLA in the JAX package. The discriminators are not ported
+yet (ROADMAP Queue 1 item 8d).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
 from fmdm_tpu_torch.nn.blocks import DownsampleND, ResBlockND, SpatialSelfAttention, UpsampleND
@@ -300,3 +303,125 @@ class DiagonalGaussian:
         logtwopi = math.log(2.0 * math.pi)
         return 0.5 * torch.sum(logtwopi + self.logvar + (x - self.mu) ** 2 / self.var,
                                dim=tuple(reduce_dims))
+
+
+# ---------------------------------------------------------------------------
+# Vector quantizers
+# ---------------------------------------------------------------------------
+
+class QuantizerOutput(NamedTuple):
+    quantized: torch.Tensor        # straight-through: z's values replaced, z's gradient
+    vq_loss: torch.Tensor
+    perplexity: torch.Tensor
+    codes: torch.Tensor            # (N, *spatial) indices into the codebook
+    new_state: Optional[Dict[str, torch.Tensor]]  # the EMA buffers' update, or None
+
+
+def _nearest_codes(flat_z: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
+    """Index of each row's nearest code, by ‖z‖² + ‖e‖² − 2 z·Eᵀ (the JAX
+    package's formula, term for term; ``argmin`` takes the first minimum)."""
+    z_sq = torch.sum(flat_z ** 2, dim=1, keepdim=True)
+    e_sq = torch.sum(embedding ** 2, dim=1)
+    distances = z_sq + e_sq - (2.0 * flat_z) @ embedding.T
+    return torch.argmin(distances, dim=1)
+
+
+def _quantize(z: torch.Tensor, embedding: torch.Tensor, eps: float):
+    """(rows of z channels-last, indices, quantized z, counts per code,
+    perplexity) of z (N, C, *spatial) against ``embedding`` (K, C)."""
+    z_last = torch.movedim(z, 1, -1)
+    flat_z = z_last.reshape(-1, z_last.shape[-1])
+    indices = _nearest_codes(flat_z, embedding)
+    quantized = torch.movedim(F.embedding(indices, embedding).reshape(z_last.shape), -1, 1)
+    counts = torch.bincount(indices, minlength=embedding.shape[0]).to(z.dtype)
+    avg_probs = counts / flat_z.shape[0]
+    perplexity = torch.exp(-torch.sum(avg_probs * torch.log(avg_probs + eps)))
+    return flat_z, indices.reshape(z_last.shape[:-1]), quantized, counts, perplexity
+
+
+class VectorQuantizer(nn.Module):
+    """The classic VQ-VAE quantizer: the codebook ``embedding`` (K, D) is a
+    parameter, trained by the codebook loss (counterpart of
+    ``fmdm_tpu/nn/vae_modules.py:317-345``)."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int, commitment_cost: float = 0.25,
+                 *, device: DeviceArg = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.num_embeddings = num_embeddings
+        self.embedding_dim = embedding_dim
+        self.commitment_cost = commitment_cost
+        self.embedding = nn.Parameter(torch.empty(num_embeddings, embedding_dim, device=device))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        if not self.embedding.is_meta:
+            self.embedding.copy_(torch.randn(self.embedding.shape, generator=generator))
+
+    def forward(self, z: torch.Tensor, *, train: bool = False) -> QuantizerOutput:
+        _, codes, quantized, _, perplexity = _quantize(z, self.embedding.to(z.dtype), 1e-5)
+        commitment_loss = torch.mean((quantized.detach() - z) ** 2)
+        codebook_loss = torch.mean((quantized - z.detach()) ** 2)
+        vq_loss = codebook_loss + self.commitment_cost * commitment_loss
+        return QuantizerOutput(z + (quantized - z).detach(), vq_loss, perplexity, codes, None)
+
+
+class VectorQuantizerEMA(nn.Module):
+    """The EMA-codebook quantizer (counterpart of
+    ``fmdm_tpu/nn/vae_modules.py:362-424``). ``embedding``,
+    ``ema_cluster_size`` and ``ema_w`` are persistent buffers: in the state
+    dict, in no optimizer. In a train-mode call with ``decay > 0`` the
+    update of all three is computed from this call's codes and returned in
+    ``new_state``; the caller applies it (:meth:`apply_update`). The per-code
+    counts and sums are ``bincount`` and ``index_add_`` over the rows, where
+    the JAX package multiplies by the one-hot matrix: the same sums, without
+    the (rows x K) matrix."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int, commitment_cost: float = 0.25,
+                 decay: float = 0.99, eps: float = 1e-5, *, device: DeviceArg = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.num_embeddings = num_embeddings
+        self.embedding_dim = embedding_dim
+        self.commitment_cost = commitment_cost
+        self.decay = decay
+        self.eps = eps
+        self.register_buffer("embedding", torch.empty(num_embeddings, embedding_dim, device=device))
+        self.register_buffer("ema_cluster_size", torch.empty(num_embeddings, device=device))
+        self.register_buffer("ema_w", torch.empty(num_embeddings, embedding_dim, device=device))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """A N(0, 1) codebook, no counts, and ``ema_w`` a copy of it."""
+        if self.embedding.is_meta:
+            return
+        self.embedding.copy_(torch.randn(self.embedding.shape, generator=generator))
+        self.ema_cluster_size.zero_()
+        self.ema_w.copy_(self.embedding)
+
+    @torch.no_grad()
+    def apply_update(self, new_state: Dict[str, torch.Tensor]) -> None:
+        for name, value in new_state.items():
+            getattr(self, name).copy_(value)
+
+    def forward(self, z: torch.Tensor, *, train: bool = False) -> QuantizerOutput:
+        flat_z, codes, quantized, counts, perplexity = _quantize(
+            z, self.embedding.to(z.dtype), self.eps)
+        new_state = None
+        if train and self.decay > 0.0:
+            with torch.no_grad():
+                dw = torch.zeros_like(self.ema_w).index_add_(0, codes.reshape(-1),
+                                                             flat_z.detach().to(self.ema_w.dtype))
+                ema_cluster_size = (self.ema_cluster_size * self.decay
+                                    + counts.to(self.ema_cluster_size.dtype) * (1 - self.decay))
+                ema_w = self.ema_w * self.decay + dw * (1 - self.decay)
+                n = torch.sum(ema_cluster_size)
+                cluster_size = ((ema_cluster_size + self.eps)
+                                / (n + self.num_embeddings * self.eps) * n)
+                new_state = {"embedding": ema_w / cluster_size[:, None],
+                             "ema_cluster_size": ema_cluster_size, "ema_w": ema_w}
+        commitment_loss = torch.mean((quantized.detach() - z) ** 2)
+        vq_loss = self.commitment_cost * commitment_loss
+        return QuantizerOutput(z + (quantized - z).detach(), vq_loss, perplexity, codes, new_state)

@@ -8,15 +8,17 @@ package's ``run_model.py`` runs here unchanged, on the card:
     python -m fmdm_tpu_torch.run_model --ckpt_dir RUN --mode evaluate --device cpu ...
 
 ``--device`` unset means CUDA, and the CLI raises without a card: only
-``--device cpu`` runs it on the CPU. The diffusion and flow-matching model
-types are ported, with ``--deep_cache``:
+``--device cpu`` runs it on the CPU. Every model type is ported (the
+diffusion, flow-matching and VAE run dirs, KL and VQ), with
+``--deep_cache`` and ``--latent_vae``:
 
     python -m fmdm_tpu_torch.run_model --ckpt_dir RUN --mode evaluate --deep_cache 3:1:adaptive
     python -m fmdm_tpu_torch.run_model --ckpt_dir RUN --mode evaluate --deep_cache auto:0.5
+    python -m fmdm_tpu_torch.run_model --ckpt_dir LATENT_RUN --mode evaluate \
+        --latent_vae "VAE_RUN?scale=0.18215"
 
-The ``vae`` model type's modes raise (ROADMAP Queue 1 item 8), as do
-``--latent_vae`` (item 8), ``--quantize`` (item 11) and sampling over
-several cards (item 10). There is no compile cache to enable.
+``--quantize`` (ROADMAP Queue 1 item 11) and sampling over several cards
+(item 10) raise. There is no compile cache to enable.
 """
 
 from __future__ import annotations
@@ -84,8 +86,9 @@ _FLAG_SPEC = [
                                "to diffusers_nd UNets; others sample exactly, with a warning. "
                                "Omit for exact sampling.")),
     ("--latent_vae", dict(type=str, default=None,
-                          help="Run dir of a trained VAE that decodes the samples as latents: "
-                               "not ported yet, raises (ROADMAP Queue 1 item 8).")),
+                          help="Run dir of a trained VAE that decodes the samples (and, in "
+                               "evaluate, the targets) as latents before saving and scoring; "
+                               "'<run_dir>?scale=S' divides the stored latents by S first.")),
     ("--quantize", dict(type=str, default=None, choices=["int8", "int8+linear"],
                         help="Post-training int8 inference: not ported yet, raises (ROADMAP "
                              "Queue 1 item 11).")),

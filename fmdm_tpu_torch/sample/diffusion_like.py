@@ -14,9 +14,10 @@ batch to batch, where the JAX package splits a ``PRNGKey(seed)`` per batch:
 the two packages, and a card and a CPU run, draw different noise. Under
 ``--deep_cache auto:<dPSNR>`` ``_run_evaluate`` resolves the setting on its
 first batch of references before the timed loop, from a generator seeded
-``seed + 1``.
-
-Not ported yet, and refused: ``latent_vae`` (ROADMAP Queue 1 item 8).
+``seed + 1``. Under ``--latent_vae <vae run dir>[?scale=S]`` the samples
+are latents: ``_run_decode`` and ``_run_evaluate`` decode them (and
+``_run_evaluate`` the target latents too) through the VAE before saving and
+scoring.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from fmdm_tpu_torch.sample.sampling_utils import (
     resolve_sample_indices,
     write_eval_metrics,
 )
+from fmdm_tpu_torch.sample.vae_utils import build_vae_model, decode_vae_batch
 from fmdm_tpu_torch.schedulers import build_scheduler, resolve_conditioning_mode
 from fmdm_tpu_torch.utils.config import set_seed
 from fmdm_tpu_torch.utils.evaluation import compute_ssim_sample
@@ -73,9 +75,36 @@ def _conditioning_mode(training_cfg: dict, model_cfg: dict) -> Optional[str]:
     return resolve_conditioning_mode(training_cfg.get("conditioning") or model_cfg.get("conditioning"))
 
 
-def _refuse_latent_vae(latent_vae) -> None:
-    if latent_vae:
-        raise NotImplementedError("--latent_vae is not ported yet (ROADMAP Queue 1 item 8)")
+def _load_latent_vae(latent_vae, device: torch.device):
+    """The latent-to-pixel decode of ``--latent_vae``, or None.
+
+    ``latent_vae`` is a VAE run dir, optionally ``<run_dir>?scale=S`` where S
+    is the factor the stored latents were multiplied by at encode time; the
+    decode divides it back out before the VAE's decoder and maps the output
+    to images in [0, 1] with the VAE config's ``recon_type``. Returns
+    ``decode(latents) -> numpy images`` (latents a tensor or an array)."""
+    if not latent_vae:
+        return None
+    path, scale = str(latent_vae), 1.0
+    if "?" in path:
+        path, _, query = path.partition("?")
+        for item in filter(None, query.split(",")):
+            key, _, value = item.partition("=")
+            if key != "scale":
+                raise ValueError(f"Unknown --latent_vae param '{key}'")
+            scale = float(value)
+    vae_dir = Path(path)
+    vae_cfg = load_run_config(vae_dir)
+    vae_model = build_vae_model(vae_cfg, device=device,
+                                ckpt_path=resolve_checkpoint(vae_dir, "vae")).eval()
+    recon_type = str(vae_cfg.get("training", {}).get("recon_type", "l1"))
+
+    @torch.no_grad()
+    def decode(latents) -> np.ndarray:
+        raw = torch.as_tensor(latents, dtype=torch.float32).to(device) / scale
+        return decode_vae_batch(vae_model, raw, recon_type=recon_type).cpu().numpy()
+
+    return decode
 
 
 def _save_batch_outputs(dataset, indices, samples, generated: np.ndarray, output_root: Path,
@@ -134,8 +163,8 @@ def _run_decode(*, ckpt_dir, model_type: str, data_txt=None, save: bool = False,
                 num_inference_steps=None, start_step=None, last_n_steps=None,
                 scheduler=None, save_tensor_cache: bool = False, latent_vae=None) -> None:
     """Sample each selected batch (from noise, or from its noised data under
-    ``start_step``/``last_n_steps``) and save the predictions."""
-    _refuse_latent_vae(latent_vae)
+    ``start_step``/``last_n_steps``) and save the predictions, decoded to
+    pixels through ``latent_vae`` when given."""
     device = resolve_device(device)
     ckpt_dir = Path(ckpt_dir)
     cfg = load_run_config(ckpt_dir)
@@ -149,6 +178,7 @@ def _run_decode(*, ckpt_dir, model_type: str, data_txt=None, save: bool = False,
 
     model = build_diffusion_model(cfg, ckpt_path=ckpt_path, device=device)
     conditioning_mode = _conditioning_mode(training_cfg, model_cfg)
+    vae_decode = _load_latent_vae(latent_vae, device)
     generator = torch.Generator(device).manual_seed(seed)
     for indices, samples in progress_batches(dataset, batch_size, f"{model_type} decode",
                                              indices=selected_indices):
@@ -163,7 +193,8 @@ def _run_decode(*, ckpt_dir, model_type: str, data_txt=None, save: bool = False,
             start_step=start_step, last_n_steps=last_n_steps,
             scheduler_override=scheduler, device=device,
         )
-        generated = np.clip(generated.cpu().numpy(), 0.0, 1.0)
+        generated = vae_decode(generated) if vae_decode is not None else generated.cpu().numpy()
+        generated = np.clip(generated, 0.0, 1.0)
         if output_root is not None:
             _save_batch_outputs(dataset, indices, samples, generated, output_root, save_input,
                                 save_conditioning)
@@ -179,8 +210,9 @@ def _run_evaluate(*, ckpt_dir, model_type: str, data_txt=None, save: bool = Fals
     """Decode each selected batch and score it against its data: MSE, PSNR
     and SSIM per image and on average, and the model's throughput, written
     to ``eval_metrics.csv`` and ``eval_metrics_per_image.csv`` (in a new
-    experiment dir under ``output_dir``, else appended in the run dir)."""
-    _refuse_latent_vae(latent_vae)
+    experiment dir under ``output_dir``, else appended in the run dir).
+    Under ``latent_vae`` the samples and the targets are latents, and both
+    are decoded to pixels before they are scored."""
     device = resolve_device(device)
     ckpt_dir = Path(ckpt_dir)
     cfg = load_run_config(ckpt_dir)
@@ -201,6 +233,7 @@ def _run_evaluate(*, ckpt_dir, model_type: str, data_txt=None, save: bool = Fals
                    else resolve_output_root(ckpt_dir, output_dir, save))
     model = build_diffusion_model(cfg, ckpt_path=ckpt_path, device=device)
     conditioning_mode = _conditioning_mode(training_cfg, model_cfg)
+    vae_decode = _load_latent_vae(latent_vae, device)
 
     # --deep_cache auto:<dPSNR>: resolved on the first batch of references,
     # at this run's settings, before the timed loop
@@ -211,7 +244,8 @@ def _run_evaluate(*, ckpt_dir, model_type: str, data_txt=None, save: bool = Fals
         resolve_auto_deep_cache(
             model, training_cfg, model_cfg, _stack(probe, "target"), _to(probe_cond, device),
             num_inference_steps=num_inference_steps, scheduler_override=scheduler,
-            generator=torch.Generator(device).manual_seed(seed + 1), device=device)
+            generator=torch.Generator(device).manual_seed(seed + 1), device=device,
+            postprocess=vae_decode)
 
     total_mse = total_psnr = total_ssim = 0.0
     count = ssim_count = 0
@@ -232,8 +266,15 @@ def _run_evaluate(*, ckpt_dir, model_type: str, data_txt=None, save: bool = Fals
             start_step=start_step, last_n_steps=last_n_steps,
             scheduler_override=scheduler, device=device,
         )
-        targets_np = np.clip(targets.numpy(), 0.0, 1.0)
-        generated = np.clip(generated.cpu().numpy(), 0.0, 1.0)
+        if vae_decode is not None:
+            # the latent chain: score in pixels, against the VAE's decode of
+            # the target latents (what the chain can reach)
+            generated = vae_decode(generated)
+            targets_np = np.clip(vae_decode(targets), 0.0, 1.0)
+        else:
+            generated = generated.cpu().numpy()
+            targets_np = np.clip(targets.numpy(), 0.0, 1.0)
+        generated = np.clip(generated, 0.0, 1.0)
         if output_root is not None:
             _save_batch_outputs(dataset, indices, samples, generated, output_root, save_input,
                                 save_conditioning)

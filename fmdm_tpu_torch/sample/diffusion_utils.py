@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -219,14 +219,18 @@ def resolve_auto_deep_cache(model: nn.Module, training_cfg: dict, model_cfg: dic
                             num_inference_steps: Optional[int] = None,
                             scheduler_override: Optional[str] = None,
                             generator: Optional[torch.Generator] = None,
-                            device: DeviceArg = None) -> Optional[Tuple]:
+                            device: DeviceArg = None,
+                            postprocess: Optional[Callable[[np.ndarray], np.ndarray]] = None
+                            ) -> Optional[Tuple]:
     """Resolve a pending ("auto", dPSNR) setting: decode ``targets``' shape
     exactly and under each of ``_AUTO_CANDIDATES`` from the same draws of
     ``generator`` (its state at the call; default: a generator on ``device``
     seeded 0), score each against ``targets`` as evaluate does (PSNR of
-    images clipped to [0, 1]), and install the first candidate that costs at
-    most dPSNR, or None (exact). Returns what it installed; a no-op that
-    returns the current setting when no auto setting is pending."""
+    images clipped to [0, 1], after ``postprocess`` of both sides, e.g. the
+    latent-to-pixel decode of ``--latent_vae``), and install the first
+    candidate that costs at most dPSNR, or None (exact). Returns what it
+    installed; a no-op that returns the current setting when no auto
+    setting is pending."""
     spec = _DEEP_CACHE
     if not _deep_cache_is_auto(spec):
         return spec
@@ -235,19 +239,21 @@ def resolve_auto_deep_cache(model: nn.Module, training_cfg: dict, model_cfg: dic
     if generator is None:
         generator = torch.Generator(device).manual_seed(0)
     start = generator.get_state()
-    ref = np.clip(torch.as_tensor(targets).float().cpu().numpy(), 0.0, 1.0)
+    targets = torch.as_tensor(targets).float().cpu().numpy()
+    ref = np.clip(postprocess(targets) if postprocess is not None else targets, 0.0, 1.0)
 
     def psnr_for(setting) -> float:
         set_deep_cache(setting)
         generator.set_state(start)
         try:
             out = decode_diffusion_batch(
-                model, training_cfg, model_cfg, tuple(ref.shape), conditioning_batch,
+                model, training_cfg, model_cfg, tuple(targets.shape), conditioning_batch,
                 generator=generator, num_inference_steps=num_inference_steps,
                 scheduler_override=scheduler_override, device=device)
         finally:
             set_deep_cache(spec)
-        out = np.clip(out.float().cpu().numpy(), 0.0, 1.0)
+        out = out.float().cpu().numpy()
+        out = np.clip(postprocess(out) if postprocess is not None else out, 0.0, 1.0)
         mse = float(np.mean((out - ref) ** 2))
         return float(10.0 * np.log10(1.0 / max(mse, 1e-12)))
 
@@ -290,6 +296,13 @@ _DP_SAMPLING = True
 def set_dp_sampling(enabled: bool) -> None:
     global _DP_SAMPLING
     _DP_SAMPLING = bool(enabled)
+
+
+def refuse_multi_card_sampling(device: torch.device) -> None:
+    """Raise where data-parallel sampling would span several cards."""
+    if _DP_SAMPLING and device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise NotImplementedError("data-parallel sampling over several cards is not ported yet "
+                                  "(ROADMAP Queue 1 item 10); call set_dp_sampling(False)")
 
 
 # FIFO-capped: each entry pins a SamplingEngine and its model (a copy of the
@@ -359,9 +372,7 @@ def decode_diffusion_batch(
     ``step_noise`` (one tensor per selected step) replace those draws, so a
     run can replay another run's noise."""
     device = resolve_device(device)
-    if _DP_SAMPLING and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError("data-parallel sampling over several cards is not ported yet "
-                                  "(ROADMAP Queue 1 item 10); call set_dp_sampling(False)")
+    refuse_multi_card_sampling(device)
     scheduler_cfg = dict(model_cfg.get("scheduler", {}))
     override_cfg = resolve_scheduler_override(scheduler_override)
     if override_cfg is not None:

@@ -4,10 +4,7 @@ Samplers and model handlers (counterpart of ``fmdm_tpu/sample/handlers.py``):
 ``VAESampler``, and ``ModelHandler`` with a lazily built ``sampler``, under
 the thin ``DiffusionHandler``, ``FlowMatchingHandler`` and ``VAEHandler``.
 Users call e.g. ``DiffusionHandler(ckpt_dir=..., device="cuda").evaluate()``.
-
-Not ported yet: the VAE's modes (``sample/autoencoder_like.py``, ROADMAP
-Queue 1 item 8); ``VAESampler`` raises for each (its ``build_tensor_cache``
-needs no model and works).
+``VAESampler`` runs the modes of :mod:`fmdm_tpu_torch.sample.autoencoder_like`.
 """
 
 from __future__ import annotations
@@ -15,7 +12,7 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Any, Dict, Optional
 
-from fmdm_tpu_torch.sample import diffusion_like
+from fmdm_tpu_torch.sample import autoencoder_like, diffusion_like
 from fmdm_tpu_torch.sample.sampling_utils import build_tensor_cache_from_config, load_run_config
 
 
@@ -100,15 +97,23 @@ class DiffusionLikeSampler(AbstractSampler):
         )
 
 
-def _vae_not_ported(*_args, **_kwargs):
-    raise NotImplementedError("the VAE's sampling modes (sample/autoencoder_like.py) are not "
-                              "ported yet (ROADMAP Queue 1 item 8)")
-
-
 class VAESampler(AbstractAutoencoderSampler):
-    """The VAE's modes: not ported yet, each raises."""
+    """The modes of :mod:`fmdm_tpu_torch.sample.autoencoder_like`."""
 
-    encode = decode = sample = evaluate = debug_compare = _vae_not_ported
+    def encode(self):
+        return autoencoder_like.encode(**self.options)
+
+    def decode(self):
+        return autoencoder_like.decode(**self.options)
+
+    def sample(self):
+        return autoencoder_like.sample(**self.options)
+
+    def evaluate(self):
+        return autoencoder_like.evaluate(**self.options)
+
+    def debug_compare(self):
+        return autoencoder_like.debug_compare(**self.options)
 
 
 class ModelHandler:

@@ -1,18 +1,24 @@
 """
-The KL autoencoder's trainer (counterpart of ``fmdm_tpu/train/vae_impl.py``
-for ``reg_type: "kl"``): its train and eval steps (the closure at
-:297-451), its learning-rate schedules (``_make_lr_schedule``, :57-82), the
-run loop (:func:`train`, :127-669) and visuals from a checkpoint
-(:func:`debug_visual_only`).
+The VAE trainer (counterpart of ``fmdm_tpu/train/vae_impl.py`` without its
+GAN step): the train and eval steps of the KL and VQ recipes (the closure
+at :297-451), their learning-rate schedules (``_make_lr_schedule``,
+:57-82), the run loop (:func:`train`, :127-669) and visuals from a
+checkpoint (:func:`debug_visual_only`).
 
 One step: the batch is wrap-padded to ``n_chunks`` equal chunks, the padded
 rows masked out of the reconstruction loss (``valid`` = 0) and of the counts;
-each chunk's loss is L1 (or MSE) over its valid rows plus ``kl_scale`` times
-the mean KL of the posterior over all its rows; the gradients are summed with
-each chunk's valid count as weight, divided by the total count, and applied
-by ``torch.optim.AdamW`` (b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay),
+each chunk's loss is the reconstruction loss (L1, MSE, or bce / focal /
+bce-focal on the logits) over its valid rows, plus ``perceptual_weight``
+times the VGG16 perceptual loss, plus ``kl_scale`` times the mean KL of the
+posterior (KL) or ``codebook_weight`` times the quantizer's loss (VQ), the
+last two over all its rows; the gradients are summed with each chunk's
+valid count as weight, divided by the total count, and applied by
+``torch.optim.AdamW`` (b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay),
 which is ``optax.adamw``'s update. The posterior is sampled from an explicit
-noise tensor or a ``torch.Generator``.
+noise tensor or a ``torch.Generator``. An EMA codebook's buffers are not
+parameters: they are updated from each chunk's codes, kept out of AdamW,
+and saved with the weights in the checkpoint's ``model``, as the JAX
+package merges them back.
 
 The run dir is the JAX package's: ``train_config.json``, ``metrics.csv``
 (``epoch`` and the train averages of ``loss``, ``recon`` and the
@@ -30,9 +36,9 @@ generated visuals of epoch ``e`` draw from one seeded with
 ``(seed + 23) * 100003 + e``.
 
 On CUDA the mid attention's forward runs K3 and its backward K4 and K5; K1's
-backward recomputes its plain version. Perceptual and GAN losses, the VQ
-recipe, the bce and focal losses, the mesh, FSDP, tensor and sequence
-parallelism raise ``NotImplementedError``.
+backward recomputes its plain version. The GAN loss (``gan_weight > 0``,
+ROADMAP Queue 1 item 8d), the mesh, FSDP, tensor and sequence parallelism
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,7 +53,8 @@ import numpy as np
 import torch
 
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
-from fmdm_tpu_torch.sample.vae_utils import build_vae_model
+from fmdm_tpu_torch.nn.losses import PerceptualLoss, _bce_with_logits, bce_focal_loss
+from fmdm_tpu_torch.sample.vae_utils import build_vae_model, reconstruct_raw
 from fmdm_tpu_torch.train import common as loop
 from fmdm_tpu_torch.train.common import autotune_grad_accum, batch_to_device, epoch_batches
 from fmdm_tpu_torch.utils import checkpoint as ckpt_utils
@@ -93,40 +100,50 @@ def kl_scale_at(kl_weight: float, kl_anneal_steps: int, global_step: int) -> flo
     return kl_weight
 
 
-def recon_loss(rec_img: torch.Tensor, raw: torch.Tensor, valid: torch.Tensor,
-               recon_type: str) -> torch.Tensor:
-    """Mean L1 or squared error over the valid rows."""
+def recon_loss(rec: torch.Tensor, rec_img: torch.Tensor, raw: torch.Tensor,
+               valid: torch.Tensor, recon_type: str) -> torch.Tensor:
+    """The reconstruction loss over the valid rows (JAX :297-310): L1 or
+    squared error of the image ``rec_img``, or the bce / focal / bce-focal
+    loss of the logits ``rec``, against ``raw``."""
     mask = valid.reshape((-1,) + (1,) * (raw.dim() - 1))
     denom = torch.clamp(valid.sum(), min=1.0) * math.prod(raw.shape[1:])
     if recon_type == "l1":
         return (torch.abs(rec_img - raw) * mask).sum() / denom
     if recon_type == "mse":
         return (torch.square(rec_img - raw) * mask).sum() / denom
-    if recon_type in ("bce", "focal", "bce_focal"):
-        raise NotImplementedError(f"recon_type '{recon_type}' is not ported yet")
+    if recon_type == "bce":
+        return (_bce_with_logits(rec, raw) * mask).sum() / denom
+    if recon_type in ("focal", "bce_focal"):
+        per = bce_focal_loss(rec, raw, alpha=0.25, gamma=2.0, reduction="none")
+        return (per * mask).sum() / denom
     raise ValueError(f"Unsupported recon_type '{recon_type}'.")
 
 
 def _refuse_unported(training_cfg: Mapping[str, Any]) -> None:
     unported = {
-        "perceptual_weight > 0": float(training_cfg.get("perceptual_weight", 0.0)) > 0,
-        "gan_weight > 0": float(training_cfg.get("gan_weight", 0.0)) > 0,
-        "reg_type 'vq'": str(training_cfg.get("reg_type", "kl")).lower() != "kl",
+        "gan_weight > 0 (ROADMAP Queue 1 item 8d)": float(training_cfg.get("gan_weight", 0.0)) > 0,
         "fsdp": bool(training_cfg.get("fsdp", False)),
         "tensor_parallel > 1": int(training_cfg.get("tensor_parallel", 1) or 1) > 1,
         "sequence_parallel > 1": int(training_cfg.get("sequence_parallel", 1) or 1) > 1,
-        f"recon_type '{training_cfg.get('recon_type')}'":
-            str(training_cfg.get("recon_type", "l1")) not in ("l1", "mse"),
     }
     refused = [name for name, on in unported.items() if on]
     if refused:
         raise NotImplementedError(f"VAE training with {', '.join(refused)} is not ported yet")
 
 
-class KLTrainStep:
-    """Train and eval steps of an ``AutoencoderKL`` under a config's
-    ``training`` section (learning_rate, weight_decay, kl_weight,
-    kl_anneal_steps, recon_type, gradient_accumulation_steps, scheduler)."""
+class VAETrainStep:
+    """Train and eval steps of an ``AutoencoderKL`` or a ``VQVAE`` under a
+    config's ``training`` section (learning_rate, weight_decay, kl_weight,
+    kl_anneal_steps, codebook_weight, perceptual_weight, recon_type,
+    gradient_accumulation_steps, scheduler).
+
+    The perceptual term compares the reconstructed image with the input
+    through a frozen VGG16 (:class:`PerceptualLoss` with ``resize``), on
+    only when its weights file is there. A VQ model's term is
+    ``codebook_weight`` times its ``vq_loss``; an EMA codebook's buffers are
+    updated after each chunk from that chunk's codes (padded rows included,
+    as in the JAX package), so chunk k quantizes with chunk k - 1's
+    codebook."""
 
     def __init__(self, model: torch.nn.Module, training_cfg: Mapping[str, Any], *,
                  steps_per_epoch: int = 1, n_chunks: Optional[int] = None):
@@ -135,6 +152,19 @@ class KLTrainStep:
         self.recon_type = str(training_cfg.get("recon_type", "l1"))
         self.kl_weight = float(training_cfg.get("kl_weight", 0.0))
         self.kl_anneal_steps = int(training_cfg.get("kl_anneal_steps", 0))
+        self.is_vq = hasattr(model, "codebook")
+        reg_type = str(training_cfg.get("reg_type", "kl")).lower()
+        # the codebook term counts only for a VQ model or reg_type "vq" (JAX :201-203)
+        self.codebook_weight = (float(training_cfg.get("codebook_weight", 1.0))
+                                if self.is_vq or reg_type == "vq" else 0.0)
+        self.perceptual_weight = float(training_cfg.get("perceptual_weight", 0.0))
+        self.perceptual = None
+        if self.perceptual_weight > 0:
+            self.perceptual = PerceptualLoss(resize=True,
+                                             device=next(model.parameters()).device)
+            if not self.perceptual.enabled:
+                logging.warning("PerceptualLoss disabled: no VGG16 weights available "
+                                "(FMDM_VGG16_WEIGHTS unset); contributes 0.")
         self.n_chunks = max(1, int(n_chunks if n_chunks is not None
                                    else training_cfg.get("gradient_accumulation_steps", 1)))
         lr = float(training_cfg.get("learning_rate", 1e-4))
@@ -150,16 +180,28 @@ class KLTrainStep:
 
     def losses(self, raw: torch.Tensor, valid: torch.Tensor, kl_scale: float, *,
                train: bool, noise: Optional[torch.Tensor] = None,
-               generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Metrics]:
-        """Total loss and its parts on one chunk of images in [0, 1]."""
+               generator: Optional[torch.Generator] = None
+               ) -> Tuple[torch.Tensor, Metrics, Optional[Dict[str, torch.Tensor]]]:
+        """Total loss, its parts, and an EMA codebook's update (else None)
+        on one chunk of images in [0, 1]."""
         model = self.model
-        rec, posterior = model(model.image_to_model_range(raw), sample_posterior=train,
-                               noise=noise, generator=generator)
-        kl_term = posterior.kl().mean()
-        recon = recon_loss(model.raw_output_to_image(rec, self.recon_type), raw, valid,
-                           self.recon_type)
-        total = recon + kl_scale * kl_term
-        return total, {"loss": total, "recon": recon, "kl": kl_term}
+        zero = raw.new_zeros(())
+        inputs = model.image_to_model_range(raw)
+        new_ema = None
+        if self.is_vq:
+            rec, aux = model(inputs, train=train)
+            vq_term, kl_term, new_ema = aux["vq_loss"], zero, aux["ema_update"]
+        else:
+            rec, posterior = model(inputs, sample_posterior=train, noise=noise,
+                                   generator=generator)
+            vq_term, kl_term = zero, posterior.kl().mean()
+        rec_img = model.raw_output_to_image(rec, self.recon_type)
+        recon = recon_loss(rec, rec_img, raw, valid, self.recon_type)
+        perc = self.perceptual(rec_img, raw) if self.perceptual is not None else zero
+        total = (recon + self.perceptual_weight * perc + kl_scale * kl_term
+                 + self.codebook_weight * vq_term)
+        return total, {"loss": total, "recon": recon, "kl": kl_term, "vq": vq_term,
+                       "perceptual": perc}, new_ema
 
     def step(self, raw: torch.Tensor, valid: torch.Tensor, *,
              noise: Optional[torch.Tensor] = None,
@@ -181,12 +223,18 @@ class KLTrainStep:
 
     def trial(self, raw: torch.Tensor, valid: torch.Tensor, generator: torch.Generator) -> None:
         """The forward and backward of one step at the current ``n_chunks``,
-        drawing from ``generator``, then the gradients freed: the optimizer
-        and the rate's step are left as they were."""
+        drawing from ``generator``, then the gradients freed and an EMA
+        codebook restored: the optimizer and the rate's step are left as
+        they were."""
+        buffers = {k: b.clone() for k, b in self.model.named_buffers()}
         try:
             self._accumulate(raw, valid, None, generator, self.kl_scale())
         finally:
             self.optimizer.zero_grad(set_to_none=True)
+            with torch.no_grad():
+                for k, b in self.model.named_buffers():
+                    b.copy_(buffers[k])
+            del buffers
             if raw.device.type == "cuda":
                 torch.cuda.empty_cache()
 
@@ -195,6 +243,8 @@ class KLTrainStep:
         chunk = max(1, -(-raw.shape[0] // n))
         pad = n * chunk - raw.shape[0]
         if pad:
+            # wrapped rows: masked out of the loss and the counts, but seen
+            # by the unmasked terms and an EMA codebook's statistics
             wrap = torch.arange(pad, device=raw.device) % raw.shape[0]
             raw = torch.cat([raw, raw[wrap]])
             valid = torch.cat([valid, valid.new_zeros(pad)])
@@ -207,11 +257,13 @@ class KLTrainStep:
         for i in range(n):
             rows = slice(i * chunk, (i + 1) * chunk)
             vc = valid[rows]
-            total, metrics = self.losses(raw[rows], vc, kl_scale, train=True,
-                                         noise=None if noise is None else noise[rows],
-                                         generator=generator)
+            total, metrics, new_ema = self.losses(
+                raw[rows], vc, kl_scale, train=True,
+                noise=None if noise is None else noise[rows], generator=generator)
             c = vc.sum()
             (total * c).backward()
+            if new_ema is not None:
+                self.model.codebook.apply_update(new_ema)
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v.detach() * c
             count = count + c
@@ -224,13 +276,19 @@ class KLTrainStep:
     @torch.no_grad()
     def eval(self, raw: torch.Tensor, valid: torch.Tensor,
              kl_scale: Optional[float] = None) -> Tuple[Metrics, torch.Tensor]:
-        """The losses at the posterior's mode, summed with the valid count as
-        weight, and the count."""
+        """The losses at the posterior's mode (KL) or with the codebook in
+        eval mode (VQ), summed with the valid count as weight, and the
+        count."""
         self.model.eval()
-        _, metrics = self.losses(raw, valid, self.kl_scale() if kl_scale is None else kl_scale,
-                                 train=False)
+        _, metrics, _ = self.losses(raw, valid,
+                                    self.kl_scale() if kl_scale is None else kl_scale,
+                                    train=False)
         count = valid.sum()
         return {k: v * count for k, v in metrics.items()}, count
+
+
+# the name the KL recipe's callers use
+KLTrainStep = VAETrainStep
 
 
 # ---------------------------------------------------------------------------
@@ -310,7 +368,7 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
     model_cfg = cfg.get("model", {})
     summarize_model(model, model_cfg, training_cfg, name="vae")
     steps_per_epoch = math.ceil(len(dataset) / batch_size)
-    trainer = KLTrainStep(model, training_cfg, steps_per_epoch=steps_per_epoch)
+    trainer = VAETrainStep(model, training_cfg, steps_per_epoch=steps_per_epoch)
 
     logging.info(
         "Data: train_samples=%d%s | batch_size=%d | grad_accum=%d | epochs=%d",
@@ -327,11 +385,11 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
 
     probe = np.stack([np.asarray(dataset[0]["target"], np.float32)] * batch_size)
 
-    def _build_step(accum: int) -> KLTrainStep:
+    def _build_step(accum: int) -> VAETrainStep:
         trainer.n_chunks = accum
         return trainer
 
-    def _trial(step: KLTrainStep, _accum: int) -> None:
+    def _trial(step: VAETrainStep, _accum: int) -> None:
         # a generator of its own: the loop's draws are untouched
         step.trial(torch.from_numpy(probe).to(device), torch.ones(batch_size, device=device),
                    torch.Generator(device).manual_seed(0))
@@ -453,8 +511,8 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
             vis_gen = torch.Generator(device).manual_seed((seed + 23) * 100003 + epoch)
             model.eval()
             with torch.no_grad():
-                rec, _ = model(model.image_to_model_range(torch.from_numpy(sample_batch).to(device)),
-                               sample_posterior=False)
+                rec, _ = reconstruct_raw(
+                    model, model.image_to_model_range(torch.from_numpy(sample_batch).to(device)))
                 rec_vis = model.raw_output_to_image(rec, recon_type=recon_type).cpu().numpy()
                 noise = torch.randn((sample_count, *latent), generator=vis_gen, device=device)
                 gen = model.raw_output_to_image(model.decode(noise), recon_type=recon_type)
@@ -498,8 +556,7 @@ def debug_visual_only(dataset, json_path, ckpt_path, *, output_dir=None,
     indices = select_visual_indices(dataset, int(visual_samples), seed=use_seed)
     batch = np.stack([np.asarray(dataset[idx]["target"], np.float32) for idx in indices])
     with torch.no_grad():
-        rec, _ = model(model.image_to_model_range(torch.from_numpy(batch).to(device)),
-                       sample_posterior=False)
+        rec, _ = reconstruct_raw(model, model.image_to_model_range(torch.from_numpy(batch).to(device)))
         rec_vis = np.clip(model.raw_output_to_image(rec, recon_type=recon_type).cpu().numpy(),
                           0.0, 1.0)
     input_vis = np.clip(batch, 0.0, 1.0)

@@ -258,7 +258,7 @@ def _adamw_from_optax(optimizer: torch.optim.Optimizer, entry: Mapping[str, Any]
     if n_leaves != 2 * n + 2:
         raise ValueError(
             f"{_JAX_STATE} has {n_leaves} leaves; optax.adamw over this model's {n} "
-            f"parameters has {2 * n + 2} (a VQ EMA split, a discriminator's state or another "
+            f"parameters has {2 * n + 2} (a discriminator's state or another "
             f"optimizer is not resumable here)")
     counts = (leaves[0], leaves[-1])
     if any(c.shape != () or not np.issubdtype(c.dtype, np.integer) for c in counts):

@@ -1,7 +1,7 @@
 """
 The model summary printed at train start (counterpart of
 ``fmdm_tpu/utils/summary.py``): a tree of parameter counts built from
-``named_parameters()`` — module path, leaf tensor shapes, per-subtree
+the state dict — module path, leaf tensor shapes, per-subtree
 totals — unless ``training.show_model_summary`` is false. Depth is
 ``training.summary_depth`` (default 3; <= 0 means full depth). The JAX
 package's trees carry torch's names and layouts, so the text is the same
@@ -60,9 +60,10 @@ def _tree_lines(tree: Dict, prefix: str, depth: int, max_depth: int, lines: List
 
 
 def _shape_tree(model: torch.nn.Module) -> Dict:
-    """``{module: {...: shape}}`` nested by the dotted parameter names."""
+    """``{module: {...: shape}}`` nested by the dotted state-dict names (the
+    parameters, and a VQ codebook's buffers, which the JAX tree holds)."""
     tree: Dict = {}
-    for name, param in model.named_parameters():
+    for name, param in model.state_dict().items():
         *parents, leaf = name.split(".")
         node = tree
         for part in parents:

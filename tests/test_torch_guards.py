@@ -50,10 +50,12 @@ def test_importing_the_port_loads_no_jax():
 def _entry_points():
     from fmdm_tpu_torch.models.factories import DiffusionUNetFactory, VAEFactory
     from fmdm_tpu_torch.models.unet_diffusers import UNetDiffusersND
-    from fmdm_tpu_torch.models.vae import AutoencoderKL
+    from fmdm_tpu_torch.models.vae import VQVAE, AutoencoderKL
     from fmdm_tpu_torch.models.unet_efficient import EfficientUNetND
     from fmdm_tpu_torch.nn.blocks import (PoolND, ResBlockND, SpatialCrossAttention,
                                           SpatialSelfAttention, UnPoolND)
+    from fmdm_tpu_torch.nn.losses import PerceptualLoss
+    from fmdm_tpu_torch.nn.vae_modules import VectorQuantizer, VectorQuantizerEMA
     from fmdm_tpu_torch.sample.diffusion_utils import build_diffusion_model, decode_diffusion_batch
     from fmdm_tpu_torch.sample.engine import SamplingEngine
     from fmdm_tpu_torch.sample.vae_utils import build_vae_model
@@ -94,6 +96,10 @@ def _entry_points():
         "vae_factory": lambda **kw: VAEFactory().build(vae, **kw),
         "autoencoder_kl": lambda **kw: AutoencoderKL(**vae, **kw),
         "build_vae_model": lambda **kw: build_vae_model({"model": vae}, **kw),
+        "vqvae": lambda **kw: VQVAE(**vae, codebook_size=8, **kw),
+        "vector_quantizer": lambda **kw: VectorQuantizer(8, 4, **kw),
+        "vector_quantizer_ema": lambda **kw: VectorQuantizerEMA(8, 4, **kw),
+        "perceptual_loss": lambda **kw: PerceptualLoss(resize=True, **kw),
         "spatial_attention": lambda **kw: SpatialSelfAttention(8, heads=2, dim_head=4, **kw),
         "linear_attention": lambda **kw: SpatialSelfAttention(8, heads=2, dim_head=4,
                                                               use_linear=True, **kw),
@@ -121,8 +127,11 @@ def _training_loops(unet, vae):
     import tempfile
 
     from fmdm_tpu_torch.data.mnist import MNISTDataset
+    from fmdm_tpu_torch.models.factories import VAEFactory
+    from fmdm_tpu_torch.sample import autoencoder_like
     from fmdm_tpu_torch.train import __main__ as train_cli
     from fmdm_tpu_torch.train import denoise_lib, vae_impl
+    from fmdm_tpu_torch.utils.checkpoint import save_checkpoint
 
     tmp = Path(tempfile.mkdtemp())
 
@@ -140,6 +149,20 @@ def _training_loops(unet, vae):
         paths[name] = tmp / f"{name}.json"
         paths[name].write_text(json.dumps({"training": training, "model": model}))
 
+    # a VAE run dir (embed_dim 1: decode takes the digits as latents)
+    vae_run = tmp / "vae_run"
+    vae_run.mkdir()
+    run_model = dict(vae, model_type="vae", z_channels=4, embed_dim=1)
+    (vae_run / "train_config.json").write_text(json.dumps({"training": training,
+                                                           "model": run_model}))
+    save_checkpoint({"model": VAEFactory().build(run_model, device="cpu")},
+                    vae_run / "vae_last.pt")
+
+    def autoencoder_modes(**kw):
+        for mode in ("encode", "decode", "sample", "evaluate", "debug_compare"):
+            getattr(autoencoder_like, mode)(ckpt_dir=vae_run, num_samples=2,
+                                            output_dir=str(tmp / mode), **kw)
+
     def cli(**kw):
         device = ["--device", str(kw["device"])] if kw.get("device") else []
         real = train_cli.build_train_val_datasets
@@ -156,6 +179,7 @@ def _training_loops(unet, vae):
         "vae_train": lambda **kw: vae_impl.train(digits(), paths["vae"], max_steps_per_epoch=1,
                                                  **kw),
         "train_cli": cli,
+        "autoencoder_modes": autoencoder_modes,
     }
 
 
@@ -165,7 +189,9 @@ def _training_loops(unet, vae):
                                   "efficient_factory", "efficient_unet",
                                   "build_denoise_trainer", "make_denoise_train_step",
                                   "build_diffusion_model", "decode_diffusion_batch",
-                                  "denoise_train", "vae_train", "train_cli"])
+                                  "denoise_train", "vae_train", "train_cli", "vqvae",
+                                  "vector_quantizer", "vector_quantizer_ema", "perceptual_loss",
+                                  "autoencoder_modes"])
 def test_entry_points_default_to_cuda_and_never_fall_back(name, monkeypatch):
     make = _entry_points()[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -325,7 +325,8 @@ def test_cli_without_device_raises_without_a_card(runs, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--latent_vae", "somewhere"], NotImplementedError, "item 8"),
+    # --latent_vae is ported: an unknown ?param raises as in JAX
+    (["--latent_vae", "somewhere?bogus=1"], ValueError, "Unknown --latent_vae param 'bogus'"),
     # --deep_cache is ported: it raises where JAX's does, on a schedule it
     # does not know and on an auto budget in a mode without references
     (["--deep_cache", "3:1:sideways"], ValueError, "schedule"),
@@ -344,11 +345,29 @@ def test_unported_flags_raise(runs, flags, error, match):
 
 @pytest.mark.parametrize("mode", ["sample", "encode", "decode", "evaluate", "debug_compare"])
 def test_vae_model_type_raises(runs, tmp_path, mode):
-    cfg = json.loads((runs["diffusion"] / "train_config.json").read_text())
-    cfg["model"]["model_type"] = "vae"
-    (tmp_path / "train_config.json").write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trm.main(["--ckpt_dir", str(tmp_path), "--mode", mode, "--device", "cpu"])
+    """The vae model type's modes are ported: each runs on the CPU through
+    the CLI's entry point on a KL-VAE run dir (``embed_dim`` 1, so decode
+    takes the one-channel targets as latents) and writes its outputs."""
+    from fmdm_tpu_torch.models.factories import VAEFactory
+    from fmdm_tpu_torch.utils.checkpoint import save_checkpoint
+
+    cfg = json.loads((REPO / "configs" / "LDCT" / "LDCT_autoencoder_kl.json").read_text())
+    cfg["model"].update(resolution=SIDE, base_ch=8, down_channels=[8, 16], num_res_blocks=1,
+                        embed_dim=1, attn_heads=2, attn_dim_head=4)
+    cfg["training"].update(
+        data_root=json.loads((runs["diffusion"] / "train_config.json").read_text())[
+            "training"]["data_root"], img_size=SIDE)
+    run = tmp_path / "vae"
+    run.mkdir()
+    (run / "train_config.json").write_text(json.dumps(cfg))
+    save_checkpoint({"model": VAEFactory().build(cfg["model"], device="cpu"), "epoch": 1},
+                    run / "vae_last.pt")
+    out = tmp_path / "out"
+    save = ["--save"] if mode in ("sample", "encode", "decode") else []
+    trm.main(["--ckpt_dir", str(run), "--mode", mode, "--device", "cpu", "--num_samples", "2",
+              "--output_dir", str(out), *save])
+    written = [p for p in out.rglob("*") if p.is_file()]
+    assert written and (mode != "evaluate" or any(p.name == "eval_metrics.csv" for p in written))
 
 
 def test_vae_build_tensor_cache_needs_no_model(runs, tmp_path):

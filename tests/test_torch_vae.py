@@ -166,18 +166,24 @@ def test_vae_factory_full_width_names_and_shapes_equal_jax():
 
 
 def test_vq_and_unported_training_options_raise():
-    with pytest.raises(NotImplementedError, match="VQVAE"):
-        VAEFactory().build(dict(REDUCED_MODEL, latent_type="vq"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        VQVAE()
+    """VQ builds, and the perceptual, VQ and bce recipes are ported; the
+    GAN step, fsdp, tensor and sequence parallelism, a VQ model's
+    discriminator and rmsnorm still raise."""
+    vq = VAEFactory().build(dict(REDUCED_MODEL, latent_type="vq"), device="cpu")
+    assert isinstance(vq, VQVAE)
+    with pytest.raises(NotImplementedError, match="8d"):
+        vq.make_discriminator()
     with pytest.raises(NotImplementedError, match="rmsnorm"):
         blocks.ResBlockND(8, None, 0.0, norm_type="rmsnorm", device="cpu")
     model = _port_kl()
-    for option in ({"perceptual_weight": 0.1}, {"gan_weight": 0.5}, {"reg_type": "vq"},
-                   {"fsdp": True}, {"tensor_parallel": 2}, {"sequence_parallel": 2},
-                   {"recon_type": "bce"}):
+    for option in ({"gan_weight": 0.5}, {"fsdp": True}, {"tensor_parallel": 2},
+                   {"sequence_parallel": 2}):
         with pytest.raises(NotImplementedError):
             KLTrainStep(model, option)
+    for option in ({"perceptual_weight": 0.1}, {"reg_type": "vq"}, {"recon_type": "bce"},
+                   {"recon_type": "focal"}):
+        KLTrainStep(model, option)
+        KLTrainStep(vq, option)
 
 
 @pytest.mark.parametrize("scheduler", [
