@@ -165,7 +165,33 @@ Phases, each printing one or more lines:
     --latent_vae '<[22]'s KL-VAE>?scale=S'`` in this process (K1 and K2 per
     UNet call, K1 and K3 per VAE decode of samples and targets), and at
     batch 1 card against the CPU with the card's draws replayed;
-31. the whole run's seconds, a ``{"kernels": [...]}`` line, then the result
+31. the GAN step of ``configs/ldm_autoencoder_kl.json`` with ``gan_start`` 0
+    (3 channels at 256², the perceptual loss on a surrogate VGG16 from
+    ``--seed``): the leak check (D's gradients in the step are those of D's
+    loss alone, and a leaked ``gan_weight * g_gan`` would be far larger),
+    one step at batch 1 card against the CPU (the losses ``g_gan``,
+    ``d_gan``, recon, perceptual and kl, both models' gradients and their
+    parameters after AdamW), a step with the gate off leaving D as it was,
+    10 timed steps at batch 4 with the gate on and off (launches K1, K3, K4,
+    K5 per step), ``python -m fmdm_tpu_torch.train`` for 1 epoch over
+    [22]'s root (3-slice windows as the channels) and ``--resume`` for a
+    second (D's parameters and AdamW in the checkpoint, its step
+    continuing), and one ``LDCT_magvit_vqvae.json`` step with ``gan_weight``
+    0.5;
+32. int8 inference of the flagship from [20]'s run dir: calibration at batch
+    1 on the card and on the CPU (the same quantized paths and int8
+    weights, the activation scales), the int8 forward card vs CPU on the
+    card's scales, one conv's int32 accumulators for the same int8 operands
+    bitwise, 3-step DPM++ decodes at batch 4 under ``int8`` and
+    ``int8+linear`` against the float decode (PSNR, K1 and K2 per model
+    call), ``linear_qdq`` at (2, 1024, 512) card vs CPU, ``run_model
+    evaluate --quantize int8`` on [21]'s root alone and with ``--deep_cache
+    3:1:adaptive``, and the int8 forward's time at batch 4 and 8 beside bf16
+    and f32, its convs split into quantize, im2col, ``_int_mm`` and
+    dequantize;
+33. ``ResBlockND(norm_type="rmsnorm")`` with FiLM at 256 channels, 256²,
+    batch 4, card vs CPU;
+34. the whole run's seconds, a ``{"kernels": [...]}`` line, then the result
     line ``{"ok": true, "device": {...}}``.
 
 The flagship is ``model.unet`` of ``configs/LDCT/LDCT_ddpm_diffusers_nd.json``
@@ -241,14 +267,14 @@ SDPA_PLAIN_CASES = (
     ((2, 4, 256, 96), 256, "float32", "self-attention, d = 96 at T = 256"),
     ((1, 2, 1024, 160), 1024, "float32", "self-attention, d = 160 at T = 1024"),
 )
-TRAIN_STEPS = 10
+TRAIN_STEPS = 5   # cut from 10 to make room for [31]-[33]
 DECODE_BATCH = 4     # run_model's default --batch_size
 SCHEDULER_STEPS = 25  # [19]: a whole schedule per scheduler
 # [20]: inference steps per decode, cut from 25 (and from 8 to make room for
-# [21]) to keep the run near 300 s: at batch 4 in f32 a flagship forward
+# [21], and from 4 for [31]-[33]): at batch 4 in f32 a flagship forward
 # takes 0.6-1.1 s on the H100, where cuDNN runs one convolution as an
 # FFT-tiled GEMM of 66,048 launches (python -m fmdm_tpu_torch.sample.decode_report)
-DECODE_STEPS = 4
+DECODE_STEPS = 3
 # [19]: the schedulers of the decode path, as (registry name, create params)
 NEW_SCHEDULERS = (
     ("ddim", {}), ("ddim", {"eta": 1.0}),
@@ -289,7 +315,7 @@ SERVE_CALLS = 5
 # thousands); the visuals' inference steps (the configs say 1000); the VAE's
 # visual_samples (20 in the config, a 4x5 grid needing 20 test cases)
 TRAIN_CASES, TRAIN_SLICES = (3, 4), 6
-TRAIN_EPOCHS = {"ddpm": 1, "flow": 1, "vae": 2}
+TRAIN_EPOCHS = {"ddpm": 1, "flow": 1, "vae": 1}   # the VAE's cut from 2 for [31]-[33]
 TRAIN_VISUAL_STEPS = 4
 VAE_VISUAL_SAMPLES = 4
 # [22]: launches per call of the in-process loops; a VAE epoch's visuals
@@ -314,8 +340,9 @@ EFFICIENT_FILM = 32   # of the 64 K1 calls
 SHALLOW_K1 = {1: 10, 3: 30}
 DEEP_CACHE_STEPS = 5          # interval 1 vs the uncached engine, bf16
 DEEP_CACHE_PARITY_STEPS = 3   # '2:1', card vs CPU, f32
-# the cached samples' settings at the first --batches; the later batches
-# leave out the last one (a cut of depth: its launches are checked at the first)
+# the cached samples' settings at the first --batches; the later batches take
+# the first one only (a cut of depth for the script's time: their launches
+# are checked at the first)
 DEEP_CACHE_SETTINGS = ((3, 1, "adaptive"), (3, 1, "uniform"), (5, 1, "adaptive"))
 # [27]-[30]: the rest of the VAE family. The VQ-VAE configs have the
 # KL-VAE's stages and ResBlocks and no attention: K1 50 per reconstruct and
@@ -335,11 +362,34 @@ LOSS_CONFIGS = (REPO_ROOT / "configs" / "LDCT" / "LDCT_autoencoder_kl_bce_focal.
 # gradient by about 1/sqrt(elements) of its size (its count is logged)
 PERCEPTUAL_GRAD_TOL = 1e-2
 VAE_CLI_SAMPLES = 8   # [29]: of [22]'s 24 test slices
+# [31]: the GAN step. configs/ldm_autoencoder_kl.json is the KL-VAE's
+# topology at 3 channels: its train step launches what the KL-VAE's does
+# (the discriminator and the VGG launch no kernel). The CLI takes windows of
+# GAN_SLICE_COUNT consecutive slices of [22]'s root as the 3 channels.
+GAN_CONFIG = REPO_ROOT / "configs" / "ldm_autoencoder_kl.json"
+GAN_LAUNCHES = VAE_LAUNCHES["train step"]
+GAN_SLICE_COUNT = 3
+# [32]: int8 inference of the flagship. INT8_STEPS DPM++ steps per decode;
+# an int8 decode at least INT8_FLOOR_DB from the float one, and the
+# card's int8 forward from the CPU's on the same scales; the forward timed
+# at INT8_TIMED_BATCHES; int8 tensor-core peak of the data sheet (dense)
+INT8_STEPS = 3
+INT8_FLOOR_DB = 20.0
+INT8_TIMED_BATCHES = (4, 8)
+INT8_OPS_PER_S = 1979e12
+# [33]: the rmsnorm ResBlock's (batch, channels, side)
+RMSNORM_SHAPE = (4, 256, 256)
 K2_X8_DRAWS = 4   # further draws of K2's bf16 case at logits x8
 K3_F32_DRAWS = 3  # further draws of each f32 K3 case
 
 
+# (phase label, host clock) at each phase's header line, for the seconds per phase
+PHASE_STARTS = []
+
+
 def log(msg: str = "") -> None:
+    if msg.startswith("[") and "]" in msg[:6]:
+        PHASE_STARTS.append((msg[:msg.index("]") + 1], time.perf_counter()))
     print(msg, flush=True)
 
 
@@ -2205,7 +2255,7 @@ def phase_deep_cache(torch, card: str, seed: int, gen, records, model, scheduler
                                            records)
         log(f"  batch {b}: exact {b * NUM_STEPS / exact_s:.2f} denoise steps/s here, "
             f"{exact_rates[b]:.2f} in [7] [{card}]")
-        for setting in DEEP_CACHE_SETTINGS if b == batches[0] else DEEP_CACHE_SETTINGS[:-1]:
+        for setting in DEEP_CACHE_SETTINGS if b == batches[0] else DEEP_CACHE_SETTINGS[:1]:
             mask = deep_cache_refresh_mask(len(timesteps), setting[0], setting[2])
             full = int(mask.sum())
             shallow = len(mask) - full
@@ -2278,7 +2328,8 @@ def vae_grad_errors(model, cpu_model):
     arithmetic): held to 1e-5 of the model's largest. Returns (worst, name,
     how many tensors were noise)."""
     pairs = [(n, pg.grad.detach().cpu().float(), pc.grad.detach().float())
-             for (n, pg), pc in zip(model.named_parameters(), cpu_model.parameters())]
+             for (n, pg), pc in zip(model.named_parameters(), cpu_model.parameters())
+             if pg.grad is not None]
     top = max(float(c.abs().max()) for _, _, c in pairs)
     worst, worst_name, noise = 0.0, "", 0
     for name, g, c in pairs:
@@ -2291,6 +2342,34 @@ def vae_grad_errors(model, cpu_model):
         if err > worst:
             worst, worst_name = err, name
     return worst, worst_name, noise
+
+
+def disc_grad_errors(disc, cpu_disc):
+    """The discriminator's gradients, card against CPU: per tensor,
+    ‖gpu-cpu‖/‖cpu‖ over its elements. Its LeakyReLUs and hinge losses have
+    kinks: where the two sides round a pre-activation to the other side of
+    0, an element's slope changes (1 or 0.2, 1 or 0), and a bias gradient
+    summing 16384 such elements moves by a share of its largest element;
+    the norm over the tensor bounds the change. A tensor whose CPU gradient
+    is rounding noise (below 1e-6 of D's largest) is held to 1e-5 of the
+    largest. Returns (worst, name, the worst max|gpu-cpu|/max|cpu| of the
+    other tensors, for the log)."""
+    pairs = [(name, pg.grad.detach().cpu().double(), pc.grad.detach().double())
+             for (name, pg), pc in zip(disc.named_parameters(), cpu_disc.parameters())
+             if pg.grad is not None]
+    top = max(float(c.abs().max()) for _, _, c in pairs)
+    worst, worst_name, worst_max = 0.0, "", 0.0
+    for name, g, c in pairs:
+        if float(c.abs().max()) < 1e-6 * top:
+            # rounding noise (a conv bias before a BatchNorm: 0 in exact
+            # arithmetic), held as vae_grad_errors holds it
+            err = float((g - c).abs().max()) / (1e-2 * top)
+        else:
+            err = float((g - c).norm() / c.norm())
+            worst_max = max(worst_max, float((g - c).abs().max() / c.abs().max()))
+        if err > worst:
+            worst, worst_name = err, name
+    return worst, worst_name, worst_max
 
 
 def code_agreement(torch, what: str, card_codes, cpu_codes, z_cpu, embedding_cpu) -> dict:
@@ -2315,17 +2394,18 @@ def code_agreement(torch, what: str, card_codes, cpu_codes, z_cpu, embedding_cpu
     return {"equal": frac, "differ": len(differ)}
 
 
-def timed_vae_steps(torch, card: str, trainer, raw, valid, records, want: dict, what: str):
+def timed_vae_steps(torch, card: str, trainer, raw, valid, records, want: dict, what: str,
+                    **step_kwargs):
     """TRAIN_STEPS timed steps of ``trainer`` on (raw, valid) drawing from a
     CUDA generator: ms per step, images/s, peak memory, launches per step."""
     gen = torch.Generator("cuda").manual_seed(0)
-    trainer.step(raw, valid, generator=gen)  # warm-up
+    trainer.step(raw, valid, generator=gen, **step_kwargs)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(records)
     start = time.perf_counter()
     for _ in range(TRAIN_STEPS):
-        metrics, _ = trainer.step(raw, valid, generator=gen)
+        metrics, _ = trainer.step(raw, valid, generator=gen, **step_kwargs)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - start) / TRAIN_STEPS
     counts = read_counts(records)
@@ -2797,6 +2877,474 @@ def phase_latent_chain(torch, card: str, seed: int, records, work: Path, vae_run
     return counts
 
 
+def phase_gan(torch, card: str, seed: int, gen, records, work: Path) -> dict:
+    """[31]: the GAN step of ``configs/ldm_autoencoder_kl.json`` (``gan_start``
+    0) at full width on a surrogate VGG16 drawn from ``seed``; returns the
+    launches of the timed GAN steps."""
+    import os
+
+    from fmdm_tpu_torch.nn.losses import generator_hinge_loss, write_surrogate_vgg16
+    from fmdm_tpu_torch.sample.vae_utils import build_vae_model
+    from fmdm_tpu_torch.train.vae_impl import VAETrainStep
+    from fmdm_tpu_torch.utils import checkpoint as ckpt_utils
+    from fmdm_tpu_torch.utils.evaluation import latent_shape
+
+    log(f"[31] the GAN step of {GAN_CONFIG.name} (gan_start 0) at full width, f32, TF32 off: "
+        f"batch 1 card vs CPU plain path, the leak check, the gate, timed steps at batch 4, "
+        f"the training CLI and its resume, a MAGVIT discriminator's step")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = json.loads(GAN_CONFIG.read_text())
+    training = dict(cfg["training"], gan_start=0)
+    chans, side = int(cfg["model"]["in_channels"]), int(cfg["model"]["resolution"])
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["FMDM_VGG16_WEIGHTS"] = write_surrogate_vgg16(Path(tmp) / "vgg16.npz", seed)
+        try:
+            model = build_vae_model(cfg, generator=torch.Generator().manual_seed(seed),
+                                    device="cuda")
+            random_weights(torch, model, torch.Generator().manual_seed(seed))
+            cpu_model = copy.deepcopy(model).cpu()
+            trainers = [VAETrainStep(m, training) for m in (model, cpu_model)]
+            disc, cpu_disc = (t.discriminator for t in trainers)
+            if not all(torch.equal(a.cpu(), b) for a, b in zip(disc.state_dict().values(),
+                                                                cpu_disc.state_dict().values())):
+                raise AssertionError("the two sides' discriminators differ before the step")
+            raw = torch.rand((1, chans, side, side), generator=gen)
+            noise = torch.randn((1, *latent_shape(cfg["model"])), generator=gen)
+            valid = torch.ones(1)
+            kl = float(training["kl_weight"])
+            n_disc = sum(p.numel() for p in disc.parameters())
+            log(f"  {sum(p.numel() for p in model.parameters())} VAE parameters, "
+                f"{type(disc).__name__} of {n_disc} ({len(trainers[0]._disc_trainable)} trained "
+                f"tensors, {sum(1 for _ in disc.parameters()) - len(trainers[0]._disc_trainable)} "
+                f"running statistics); disc_lr {trainers[0].disc_optimizer.param_groups[0]['lr']}")
+
+            # the leak check, on the card before any update
+            trainer = trainers[0]
+            trainer._accumulate(raw.cuda(), valid.cuda(), noise.cuda(), None, kl, True)
+            in_step = [p.grad.clone() for p in trainer._disc_trainable]
+            trainer.optimizer.zero_grad(set_to_none=True)
+            trainer.disc_optimizer.zero_grad(set_to_none=True)
+            with torch.no_grad():
+                rec, _ = model(model.image_to_model_range(raw.cuda()), noise=noise.cuda())
+            rec_img = model.raw_output_to_image(rec)
+            trainer.disc_loss(rec_img, raw.cuda()).backward()
+            alone = [p.grad.clone() for p in trainer._disc_trainable]
+            trainer.disc_optimizer.zero_grad(set_to_none=True)
+            (trainer.gan_weight * generator_hinge_loss(disc(rec_img, train=True))).backward()
+            leak = [p.grad.clone() for p in trainer._disc_trainable]
+            trainer.disc_optimizer.zero_grad(set_to_none=True)
+            top = max(float(g.abs().max()) for g in alone)
+            diff = max(float((a - b).abs().max()) for a, b in zip(in_step, alone)) / top
+            leak_size = max(float(g.abs().max()) for g in leak) / top
+            log(f"  leak check: D's gradients in the step against those of D's loss alone "
+                f"{diff:.3e} of the largest; a leaked gan_weight * g_gan would add "
+                f"{leak_size:.3e} of it (tolerance 1e-4)")
+            if not (diff <= 1e-4 and leak_size >= 100 * max(diff, 1e-6)):
+                raise AssertionError(f"the generator's GAN gradient reaches D ({diff}, "
+                                     f"leak size {leak_size})")
+
+            # one step, card against the CPU, from the same weights and batch
+            before = [[p.detach().cpu().clone() for p in m.parameters()] for m in (model, disc)]
+            reset_counts(records)
+            m_gpu, _ = trainers[0].step(raw.cuda(), valid.cuda(), noise=noise.cuda(),
+                                        disc_active=True)
+            torch.cuda.synchronize()
+            expect_counts("the GAN train step", read_counts(records), GAN_LAUNCHES)
+            start = time.perf_counter()
+            m_cpu, _ = trainers[1].step(raw, valid, noise=noise, disc_active=True)
+            cpu_s = time.perf_counter() - start
+            losses = {k: abs(float(m_gpu[k]) - float(m_cpu[k])) / max(abs(float(m_cpu[k])), 1e-12)
+                      for k in ("loss", "recon", "perceptual", "kl", "g_gan", "d_gan")}
+            gen_worst = vae_grad_errors(model, cpu_model)
+            disc_worst = disc_grad_errors(disc, cpu_disc)
+            moved = {}
+            for what, pair, lr in (("VAE", (model, cpu_model), training["learning_rate"]),
+                                   ("D", (disc, cpu_disc),
+                                    trainers[0].disc_optimizer.param_groups[0]["lr"])):
+                gaps = [float((a.detach().cpu() - b.detach()).abs().max())
+                        for a, b in zip(*(m.parameters() for m in pair))]
+                moved[what] = (max(gaps), lr)
+            log(f"  losses card/CPU: " + ", ".join(
+                f"{k} {float(m_gpu[k]):.6f}/{float(m_cpu[k]):.6f} ({v:.2e})"
+                for k, v in losses.items()) + f"; CPU step {cpu_s:.2f} s (tolerance 1e-4)")
+            log(f"  worst gradient: VAE {gen_worst[0]:.3e} ({gen_worst[1]}; {gen_worst[2]} "
+                f"rounding-noise tensors), D ‖gpu-cpu‖/‖cpu‖ {disc_worst[0]:.3e} "
+                f"({disc_worst[1]}; max|gpu-cpu|/max|cpu| at most {disc_worst[2]:.3e}) "
+                f"(tolerance {PERCEPTUAL_GRAD_TOL:g}); "
+                f"parameters after AdamW at most " + ", ".join(
+                    f"{k} {v[0]:.3e} apart (2 x lr = {2 * v[1]:g})" for k, v in moved.items()))
+            if not (max(losses.values()) <= 1e-4 and gen_worst[0] <= PERCEPTUAL_GRAD_TOL
+                    and disc_worst[0] <= PERCEPTUAL_GRAD_TOL
+                    and all(gap <= 2 * lr * (1 + 1e-3) for gap, lr in moved.values())):
+                raise AssertionError(f"GAN step: card disagrees with the CPU ({losses}, "
+                                     f"{gen_worst}, {disc_worst}, {moved})")
+            if any(torch.equal(b, a.detach().cpu()) for b, a in zip(before[1], disc.parameters())
+                   if a.dim() > 1):
+                raise AssertionError("a discriminator conv's weight did not move in the step")
+            del cpu_model, trainers[1], cpu_disc
+
+            # the gate off: D is left as it was
+            held = {k: v.clone() for k, v in disc.state_dict().items()}
+            m_off, _ = trainer.step(raw.cuda(), valid.cuda(), noise=noise.cuda(),
+                                    disc_active=False)
+            if not all(torch.equal(v, held[k]) for k, v in disc.state_dict().items()) or \
+                    any(p.grad is not None for p in disc.parameters()) or \
+                    float(m_off["g_gan"]) != 0 or float(m_off["d_gan"]) != 0:
+                raise AssertionError("a step with the gate off changed the discriminator")
+            log("  gate off: the discriminator's parameters and statistics unchanged, no D "
+                "gradient, g_gan = d_gan = 0")
+
+            batch = int(training["batch_size"])
+            raw4 = torch.rand((batch, chans, side, side), generator=gen).cuda()
+            valid4 = torch.ones(batch, device="cuda")
+            on_ms, out = timed_vae_steps(torch, card, trainer, raw4, valid4, records,
+                                         GAN_LAUNCHES, "GAN on", disc_active=True)
+            off_ms, _ = timed_vae_steps(torch, card, trainer, raw4, valid4, records,
+                                        GAN_LAUNCHES, "GAN off", disc_active=False)
+            log(f"  the GAN step at batch {batch}: {on_ms:.2f} ms with the gate on, "
+                f"{off_ms:.2f} ms off ({on_ms / off_ms:.3f}x) [{card}]")
+            del model, trainer, trainers, disc
+            torch.cuda.empty_cache()
+
+            # the training CLI: one epoch over [22]'s root, then a resumed second
+            root = work / "train_ldct"
+            run = work / "train" / "gan_run1"
+            per_epoch = -(-TRAIN_CASES[0] * (TRAIN_SLICES - GAN_SLICE_COUNT + 1) // batch)
+            for epochs, flags in ((1, ()), (2, ("--resume", run / "vae_last.pt"))):
+                # a tensor cache of its own: the root's holds [22]'s one-slice windows
+                cli = train_config(GAN_CONFIG, root, run if flags else work / "train" / "gan",
+                                   epochs=epochs, gan_start=0, slice_count=GAN_SLICE_COUNT,
+                                   visual_samples=VAE_VISUAL_SAMPLES,
+                                   tensor_cache_subdir=f"cache_window{GAN_SLICE_COUNT}")
+                text, wall = run_train_cli(card, f"gan {epochs}", "--config", write_config(
+                    work / "cfg" / f"gan{epochs}.json", cli), *flags)
+                describe_run(card, f"{GAN_CONFIG.name} (GAN on), epoch {epochs} at batch {batch}"
+                             f"{' resumed' if flags else ''}", loop_log(text), wall)
+                rows = check_run_dir(run, list(range(1, epochs + 1)),
+                                     ["vae_last.pt", f"epochs/epoch{epochs:04d}/recon.png"])
+                payload = ckpt_utils.load_checkpoint(run / "vae_last.pt")
+                steps = {int(s["step"]) for s in payload["disc_optimizer"]["state"].values()}
+                names = list(payload["extra_state"]["disc_params"])
+                resumed = f"Resumed the discriminator and its optimizer (step {per_epoch})"
+                if list(rows[0])[-2:] != ["g_gan", "d_gan"] or steps != {epochs * per_epoch} \
+                        or not names or float(rows[-1]["g_gan"]) == 0 or \
+                        (flags and resumed not in text):
+                    raise AssertionError(f"GAN CLI epoch {epochs}: columns {list(rows[0])}, "
+                                         f"D steps {steps}, {len(names)} D tensors saved")
+                log(f"  metrics.csv {rows}; the checkpoint holds D's {len(names)} tensors and "
+                    f"its AdamW at step {epochs * per_epoch}"
+                    f"{'; the log: ' + resumed if flags else ''}")
+
+            # the other discriminator: a MAGVIT VQ-VAE step with the GAN on
+            vq_cfg = json.loads(MAGVIT_CONFIG.read_text())
+            vq_training = dict(vq_cfg["training"], gan_weight=0.5, gan_start=0)
+            vq = build_vae_model(vq_cfg, generator=torch.Generator().manual_seed(seed),
+                                 device="cuda")
+            random_weights(torch, vq, torch.Generator().manual_seed(seed))
+            vq_trainer = VAETrainStep(vq, vq_training)
+            vq_chans, vq_side = (int(vq_cfg["model"][k]) for k in ("in_channels", "resolution"))
+            vq_raw = torch.rand((int(vq_training["batch_size"]), vq_chans, vq_side, vq_side),
+                                generator=gen).cuda()
+            m_vq, count = vq_trainer.step(vq_raw, torch.ones(vq_raw.shape[0], device="cuda"),
+                                          generator=torch.Generator("cuda").manual_seed(seed),
+                                          disc_active=True)
+            pred = vq_trainer.discriminator(vq_raw, train=False)
+            finite = all(math.isfinite(float(v)) for v in m_vq.values())
+            log(f"  {MAGVIT_CONFIG.name} with gan_weight 0.5: {type(vq_trainer.discriminator).__name__}"
+                f", patch logits {tuple(pred.shape)}, losses " + ", ".join(
+                    f"{k} {float(v) / float(count):.5f}" for k, v in m_vq.items()))
+            if not finite or tuple(pred.shape[:2]) != (vq_raw.shape[0], 1) or \
+                    type(vq_trainer.discriminator).__name__ != "MagvitDiscriminatorND" or \
+                    float(m_vq["d_gan"]) <= 0:
+                raise AssertionError("the MAGVIT GAN step: non-finite losses or wrong shapes")
+            del vq, vq_trainer
+            torch.cuda.empty_cache()
+        finally:
+            del os.environ["FMDM_VGG16_WEIGHTS"]
+    return out
+
+
+def phase_int8(torch, card: str, seed: int, gen, records, work: Path) -> dict:
+    """[32]: int8 inference of the flagship from [20]'s run dir: the card's
+    calibration against the CPU's, int8 forwards and accumulators card vs
+    CPU, decodes against the float decode, ``linear_qdq``, the CLI, and the
+    int8 forward's time split. Returns the K1 and K2 launches of the timed
+    int8 decode."""
+    from fmdm_tpu_torch.ops import quant
+    from fmdm_tpu_torch.sample import diffusion_utils as du
+    from fmdm_tpu_torch.sample.sampling_utils import load_run_config, resolve_checkpoint
+    from fmdm_tpu_torch.sample.engine import select_timesteps
+    from fmdm_tpu_torch.schedulers import build_scheduler, resolve_scheduler_override
+    from fmdm_tpu_torch.utils.evaluation import psnr_from_mse
+
+    log(f"[32] int8 (W8A8) decode of the flagship from [20]'s run dir: calibration card vs CPU, "
+        f"int8 forward card vs CPU, {INT8_STEPS}-step DPM++ decodes against the float one, "
+        f"linear_qdq, the CLI, the int8 forward's time split; f32, TF32 off")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run_dir = work / "ddpm"
+    run_cfg = load_run_config(run_dir)
+    training, model_cfg = run_cfg["training"], run_cfg["model"]
+    ckpt = resolve_checkpoint(run_dir, model_cfg["model_type"])
+    model = du.build_diffusion_model(run_cfg, ckpt, device="cuda")
+    cpu_model = du.build_diffusion_model(run_cfg, ckpt, device="cpu")
+    du._ENGINE_CACHE.clear()
+    du._QUANT_CACHE.clear()
+    scheduler, _ = build_scheduler(resolve_scheduler_override("dpmsolver++"), training)
+    timesteps = select_timesteps(scheduler.set_timesteps(INT8_STEPS))
+    mode = du.resolve_conditioning_mode(training.get("conditioning"))
+    side = int(model_cfg["unet"]["sample_size"])
+    one = (1, 1, side, side)
+    cond1 = torch.rand(one, generator=gen) * 2 - 1
+
+    du.set_quantize("int8")
+    try:
+        start = time.perf_counter()
+        qmodel = du._quantized_model_for(model, scheduler, timesteps, one, cond1.cuda(), mode,
+                                         None, torch.device("cuda", 0))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - start
+        start = time.perf_counter()
+        cpu_q = du._quantized_model_for(cpu_model, scheduler, timesteps, one, cond1, mode, None,
+                                        torch.device("cpu"))
+        cpu_s = time.perf_counter() - start
+    finally:
+        du.set_quantize(None)
+    paths, cpu_paths = quant.quantized_paths(qmodel), quant.quantized_paths(cpu_q)
+    scales = [abs(float(qmodel.get_submodule(p).act_scale) - float(cpu_q.get_submodule(p).act_scale))
+              / float(cpu_q.get_submodule(p).act_scale) for p in paths]
+    weights_equal = all(torch.equal(qmodel.get_submodule(p).qweight.cpu(),
+                                    cpu_q.get_submodule(p).qweight) for p in paths)
+    n_convs = sum(1 for m in model.modules() if type(m).__name__ == "Conv")
+    log(f"  calibration (3 probe forwards at batch 1): {len(paths)} of {n_convs} convs "
+        f"quantized on the card in {card_s:.2f} s, {len(cpu_paths)} on the CPU in {cpu_s:.2f} s; "
+        f"same paths: {paths == cpu_paths}; int8 weights bitwise equal: {weights_equal}; "
+        f"activation scales within {max(scales):.3e} relative [{card}]")
+    if paths != cpu_paths or not weights_equal or max(scales) > 1e-4:
+        raise AssertionError("the card's calibration picks other paths or scales than the CPU's")
+
+    # the card's scales on both sides. Each int8 conv of one forward, card
+    # against CPU on the card's own float input: the quantized operands and
+    # the int32 accumulators bitwise. End to end, the two forwards' float
+    # inputs differ by rounding (1e-6), and a value near a half step rounds
+    # to the other int8 value: such flips, amplified through 48 int8 convs
+    # of random weights, set the card-vs-CPU distance (JAX's own jitted
+    # int8 forward is ~38 dB from its eager one); logged, held above
+    # INT8_FLOOR_DB
+    shared = copy.deepcopy(qmodel).cpu()
+    x = torch.cat([torch.randn(one, generator=gen), cond1], dim=1)
+    t = torch.tensor([500])
+    seen = {"card": [], "cpu": []}
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a, side=side_name: seen[side].append((m, a[0].detach())))
+        for side_name, net in (("card", qmodel), ("cpu", shared)) for m in net.modules()
+        if isinstance(getattr(m, "weight", None), quant.QuantizedConvWeight)]
+    with torch.no_grad():
+        reset_counts(records)
+        y_card = qmodel(x.cuda(), t.cuda()).cpu()
+        counts = read_counts(records)
+        y_cpu = shared(x, t)
+        y_float = model(x.cuda(), t.cuda()).cpu()
+    for h in hooks:
+        h.remove()
+    expect_counts("an int8 flagship forward", counts, DENOISE_LAUNCHES)
+    snr = lambda ref, out: float(10 * torch.log10((ref.double() ** 2).mean()
+                                                  / ((out.double() - ref.double()) ** 2).mean()))
+    card_cpu, int8_float = snr(y_cpu, y_card), snr(y_float, y_card)
+    pair = lambda v: (v, v) if isinstance(v, int) else tuple(v)
+    operands_equal = accumulators_equal = True
+    geometries = set()   # the accumulators once per geometry: the CPU's GEMMs take ~0.5 s each
+    for m, xc in seen["card"]:
+        w = m.weight
+        kw = dict(stride=pair(m.stride), padding=pair(m.padding), dilation=(1, 1))
+        xq = quant.quantize_activation(xc, w.act_scale)
+        operands_equal &= torch.equal(xq.cpu(), quant.quantize_activation(
+            xc.cpu(), w.act_scale.cpu()))
+        geometry = (tuple(xc.shape), tuple(w.qweight.shape), kw["stride"])
+        if geometry not in geometries:
+            geometries.add(geometry)
+            accumulators_equal &= torch.equal(
+                quant.int8_conv_accumulate(xq, w.qweight, **kw).cpu(),
+                quant.int8_conv_accumulate(xq.cpu(), w.qweight.cpu(), **kw))
+    (m0, x0_card), (_, x0_cpu) = seen["card"][0], seen["cpu"][0]
+    flips = float((quant.quantize_activation(x0_card, m0.weight.act_scale).cpu()
+                   != quant.quantize_activation(x0_cpu, m0.weight.act_scale.cpu())).float().mean())
+    log(f"  the {len(seen['card'])} int8 convs of one batch-1 forward on the card's inputs: int8 "
+        f"operands card vs CPU bitwise equal: {operands_equal}; int32 accumulators of one conv "
+        f"per geometry ({len(geometries)}) bitwise equal: {accumulators_equal}; launches K1 "
+        f"{counts['K1']}, K2 {counts['K2']}")
+    log(f"  end to end: card vs CPU int8 forward SNR {card_cpu:.2f} dB (max|gpu-cpu|/max|cpu| "
+        f"{rel_err(y_card, y_cpu):.3e}), int8 vs float on the card {int8_float:.2f} dB; at the "
+        f"first int8 conv {flips:.3e} of the int8 inputs differ (a rounding-level float "
+        f"difference across a half step) [{card}]")
+    if not (operands_equal and accumulators_equal and card_cpu >= INT8_FLOOR_DB):
+        raise AssertionError(f"int8 card vs CPU: operands {operands_equal}, accumulators "
+                             f"{accumulators_equal}, SNR {card_cpu} dB")
+    del shared, cpu_q, cpu_model
+
+    # decodes at batch 4 against the float decode from the same noise
+    shape = (DECODE_BATCH, 1, side, side)
+    cond = torch.rand(shape, generator=gen) * 2 - 1
+    decoded, launches = {}, {}
+    for label in ("float", "int8", "int8+linear"):
+        du.set_quantize(None if label == "float" else label)
+        try:
+            kw = dict(generator=torch.Generator("cuda").manual_seed(seed),
+                      num_inference_steps=INT8_STEPS, scheduler_override="dpmsolver++",
+                      device="cuda")
+            if label != "float":   # calibrates: its forwards stay out of the counts
+                du.decode_diffusion_batch(model, training, model_cfg, shape, cond.cuda(), **kw)
+                kw["generator"].manual_seed(seed)
+            reset_counts(records)
+            timing = {}
+            decoded[label] = du.decode_diffusion_batch(model, training, model_cfg, shape,
+                                                       cond.cuda(), timing=timing, **kw).cpu()
+            launches[label] = read_counts(records)
+            expect_counts(f"the {label} decode", launches[label], DENOISE_LAUNCHES,
+                          timing["model_calls"])
+        finally:
+            du.set_quantize(None)
+        mse = float(((image_range(decoded[label]) - image_range(decoded["float"])) ** 2).mean())
+        psnr = psnr_from_mse(mse) if mse > 0 else float("inf")
+        log(f"  {label} decode, {timing['model_calls']} model calls at batch {DECODE_BATCH}: "
+            f"{timing['model_seconds']:.4f} s, PSNR against the float decode {psnr:.2f} dB "
+            f"(images in [0, 1]), launches K1 {launches[label]['K1']} K2 {launches[label]['K2']} "
+            f"[{card}]")
+        if not bool(torch.isfinite(decoded[label]).all()) or psnr < INT8_FLOOR_DB:
+            raise AssertionError(f"the {label} decode: non-finite or PSNR {psnr} dB")
+    linear = [p for _, m in du._QUANT_CACHE.values() for p in quant.quantized_paths(m)
+              if isinstance(m.get_submodule(p), quant.QuantizedLinearWeight)]
+    log(f"  int8+linear quantized Linears on the flagship: {len(linear)} (the token gate keeps "
+        f"every Linear float: the attentions at 16² and 8² carry <= 512 tokens at batch 2)")
+
+    # linear_qdq at a shape its gate admits, card vs CPU
+    xl = torch.randn((2, 1024, 512), generator=gen)
+    wl = torch.randn((512, 512), generator=gen) / 512 ** 0.5
+    ql = quant.make_quantized_linear(wl, float(xl.abs().max()))
+    acc = [quant.int8_matmul(quant.quantize_activation(a, ql.act_scale).reshape(-1, 512),
+                             ql.qweight.to(a.device).t()).cpu() for a in (xl.cuda(), xl)]
+    yl = [quant.linear_qdq(a, ql if a.device.type == "cpu" else copy.deepcopy(ql).cuda()).cpu()
+          for a in (xl.cuda(), xl)]
+    lin_snr = snr(xl @ wl.t(), yl[0])
+    log(f"  linear_qdq (2, 1024, 512) x (512, 512): int32 accumulators card vs CPU bitwise equal: "
+        f"{torch.equal(*acc)}; output max|gpu-cpu|/max|cpu| {rel_err(*yl):.3e}; SNR against the "
+        f"f32 product {lin_snr:.2f} dB")
+    if not torch.equal(*acc) or rel_err(*yl) > 1e-6:
+        raise AssertionError("linear_qdq: card disagrees with the CPU")
+
+    # the CLI, on [21]'s root
+    for label, flags in (("--quantize int8", ("--quantize", "int8")),
+                         ("--quantize int8 --deep_cache 3:1:adaptive",
+                          ("--quantize", "int8", "--deep_cache", "3:1:adaptive"))):
+        out_dir = work / "cli32" / label.replace(" ", "_").replace(":", "-")
+        text, _ = run_cli(card, run_dir, "evaluate", "--num_samples", DECODE_BATCH,
+                          "--num_inference_steps", CLI_STEPS, "--output_dir", out_dir, *flags)
+        row = check_evaluate(out_dir, DECODE_BATCH)
+        if "continuing with float weights" in text:
+            raise AssertionError(f"{label}: the CLI decoded in float")
+        log(f"  {label}: eval mse {float(row['mse']):.6f}, psnr {float(row['psnr']):.3f}, ssim "
+            f"{float(row['ssim']):.5f}, model seconds {float(row['model_seconds']):.3f} [{card}]")
+
+    # the int8 forward's time at batch 4 and 8 beside bf16 and f32, and its split
+    bf16 = copy.deepcopy(model).to(torch.bfloat16)
+    timed = {}
+    for batch in INT8_TIMED_BATCHES:
+        xb = torch.randn((batch, 2, side, side), generator=gen).cuda()
+        tb = torch.full((batch,), 500, device="cuda")
+        with torch.no_grad():
+            times = {"int8": time_ms(lambda: qmodel(xb, tb), iters=3, warmup=1),
+                     "bf16": time_ms(lambda: bf16(xb.bfloat16(), tb), iters=3, warmup=1),
+                     "f32": time_ms(lambda: model(xb, tb), iters=3, warmup=1)}
+        timed[batch] = times
+        log(f"  forward at batch {batch}: int8 {times['int8']:.2f} ms, bf16 {times['bf16']:.2f} "
+            f"ms, f32 {times['f32']:.2f} ms [{card}]")
+    split = int8_split(torch, quant, qmodel, (INT8_TIMED_BATCHES[0], 2, side, side), gen)
+    total = timed[INT8_TIMED_BATCHES[0]]["int8"]
+    log(f"  the int8 convs of one forward at batch {INT8_TIMED_BATCHES[0]} ({split['calls']} calls), "
+        f"timed apart: quantize {split['quantize']:.2f} ms, im2col {split['im2col']:.2f} ms, "
+        f"_int_mm {split['int_mm']:.2f} ms, dequantize {split['dequant']:.2f} ms; sum "
+        f"{sum(split[k] for k in ('quantize', 'im2col', 'int_mm', 'dequant')):.2f} ms of the "
+        f"{total:.2f} ms forward; the same GEMMs' bound {split['bound_ms']:.2f} ms (int8 at "
+        f"{INT8_OPS_PER_S / 1e12:g} TOP/s) [{card}]")
+    del bf16, qmodel, model
+    du._QUANT_CACHE.clear()
+    du._ENGINE_CACHE.clear()
+    torch.cuda.empty_cache()
+    return {k: v for k, v in launches["int8"].items()}
+
+
+def int8_split(torch, quant, qmodel, shape, gen) -> dict:
+    """Record the int8 convs of one forward of ``shape`` and time their parts
+    apart on their recorded inputs: the activation's quantization, im2col,
+    ``torch._int_mm`` and the dequantization (summed over the calls, ms)."""
+    calls = []
+    hooks = [m.register_forward_pre_hook(lambda m, a: calls.append((m, a[0].detach())))
+             for m in qmodel.modules()
+             if isinstance(getattr(m, "weight", None), quant.QuantizedConvWeight)]
+    with torch.no_grad():
+        qmodel(torch.randn(shape, generator=gen).cuda(),
+               torch.full(shape[:1], 500, device="cuda"))
+    for h in hooks:
+        h.remove()
+    prepared = []
+    for m, x in calls:
+        w = m.weight
+        pair = lambda v: (v, v) if isinstance(v, int) else tuple(v)
+        geometry = (tuple(w.qweight.shape[2:]), pair(m.stride), pair(m.padding), (1, 1))
+        xq = quant.quantize_activation(x, w.act_scale)
+        cols, _ = quant.im2col_int8(xq, *geometry)
+        b_t = w.qweight.reshape(w.qweight.shape[0], -1).t()
+        prepared.append((x, w, geometry, xq, cols, b_t, quant.int8_matmul(cols, b_t)))
+    parts = {
+        "quantize": time_ms(lambda: [quant.quantize_activation(x, w.act_scale)
+                                     for x, w, *_ in prepared], 3, 1),
+        "im2col": time_ms(lambda: [quant.im2col_int8(xq, *g) for _, _, g, xq, *_ in prepared],
+                          3, 1),
+        "int_mm": time_ms(lambda: [quant.int8_matmul(c, b) for *_, c, b, _ in prepared], 3, 1),
+        "dequant": time_ms(lambda: [(acc.float() * (w.wscale * w.act_scale)).to(x.dtype)
+                                    for x, w, *_, acc in prepared], 3, 1),
+        "bound_ms": sum(2 * c.shape[0] * c.shape[1] * b.shape[1] for *_, c, b, _ in prepared)
+        / INT8_OPS_PER_S * 1e3,
+    }
+    parts["calls"] = len(calls)
+    return parts
+
+
+def phase_rmsnorm(torch, card: str, gen) -> None:
+    """[33]: ``ResBlockND(norm_type="rmsnorm")`` with FiLM at the given
+    width, card against the CPU plain path (no kernel: RMSNorm is plain
+    PyTorch, as it is plain XLA in JAX)."""
+    from fmdm_tpu_torch.nn.blocks import ResBlockND
+
+    batch, channels, side = RMSNORM_SHAPE
+    log(f"[33] ResBlockND(norm_type='rmsnorm') with FiLM at {channels} channels, {side}², batch "
+        f"{batch}: card vs CPU plain path, f32, TF32 off")
+    torch.backends.cudnn.allow_tf32 = False
+    block = ResBlockND(channels, 512, 0.0, use_scale_shift_norm=True, norm_type="rmsnorm",
+                       device="cuda")
+    random_weights(torch, block, torch.Generator().manual_seed(7))
+    with torch.no_grad():
+        block.norm1.weight.uniform_(0.5, 1.5)
+        block.norm2.weight.uniform_(0.5, 1.5)
+    cpu_block = copy.deepcopy(block).cpu()
+    x = torch.randn((batch, channels, side, side), generator=gen)
+    emb = torch.randn((batch, 512), generator=gen)
+    xc, embc = x.cuda(), emb.cuda()
+    with torch.no_grad():
+        y = block(xc, embc).cpu()
+        ms = time_ms(lambda: block(xc, embc), iters=3, warmup=1)
+        start = time.perf_counter()
+        y_cpu = cpu_block(x, emb)
+        cpu_s = time.perf_counter() - start
+    rel = rel_err(y, y_cpu)
+    log(f"  output {tuple(y.shape)}: max|gpu-cpu|/max|cpu| = {rel:.3e} (tolerance {REL_TOL:g}); "
+        f"{ms:.2f} ms on the card, {cpu_s:.2f} s on the CPU [{card}]")
+    if not (torch.isfinite(y).all() and rel <= REL_TOL):
+        raise AssertionError(f"the rmsnorm ResBlock disagrees with the CPU (rel {rel})")
+
+
 def main() -> int:
     import torch
 
@@ -2970,6 +3518,9 @@ def main() -> int:
         vae_cli = phase_vae_clis(torch, card, args.seed, all_records, Path(tmp))
         chain_counts = phase_latent_chain(torch, card, args.seed, all_records, Path(tmp),
                                           vae_cli["run"], vae_cli["latents"])
+        gan_counts = phase_gan(torch, card, args.seed, gen, all_records, Path(tmp))
+        int8_counts = phase_int8(torch, card, args.seed, gen, all_records, Path(tmp))
+    phase_rmsnorm(torch, card, gen)
 
     k1["launches"], k2["launches"] = main_launches
     k3["launches"], k4["launches"], k5["launches"] = (train_counts[k] for k in ("K3", "K4", "K5"))
@@ -2998,10 +3549,16 @@ def main() -> int:
             f"VAE run_model evaluate in process, batch {DECODE_BATCH}":
                 vae_cli["launches"].get(kernel, 0),
             f"latent chain evaluate --latent_vae, batch {DECODE_BATCH}":
-                chain_counts.get(kernel, 0)}
+                chain_counts.get(kernel, 0),
+            f"GAN train step ({GAN_CONFIG.name}) x {TRAIN_STEPS}": gan_counts.get(kernel, 0),
+            f"int8 decode, {INT8_STEPS} DPM++ steps at batch {DECODE_BATCH}":
+                int8_counts.get(kernel, 0)}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_term", "library_ms", "shape", "dtype")
     extra = ("library_kernel", "variants", "per_forward", "launches_by_path")
+    ends = [s for _, s in PHASE_STARTS[1:]] + [time.perf_counter()]
+    log("seconds per phase: " + ", ".join(f"{label} {end - start:.1f}" for (label, start), end
+                                          in zip(PHASE_STARTS, ends)))
     log(f"whole run: {time.perf_counter() - run_start:.1f} s")
     log(json.dumps({"kernels": [{**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
                                 for r in (k1, k2, k3, k4, k5)]}))

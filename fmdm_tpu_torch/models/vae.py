@@ -5,8 +5,11 @@ the JAX tree: encoder, decoder, quant_conv, post_quant_conv.
 
 ``encode`` returns a :class:`DiagonalGaussian`; the forward samples the
 posterior from an explicit noise tensor or a ``torch.Generator``. ``VQVAE``
-(counterpart of :146-258) quantizes through the ``codebook``; its
-discriminators are not ported yet (ROADMAP Queue 1 item 8d).
+(counterpart of :146-258) quantizes through the ``codebook``.
+``make_discriminator(device=)`` builds the GAN step's discriminator on the
+decoder's output channels: a ``PatchDiscriminator`` for ``AutoencoderKL``,
+the ``discriminator_type``'s ('patchgan'/'default' or 'magvit') for
+``VQVAE``.
 """
 
 from __future__ import annotations
@@ -19,8 +22,9 @@ import torch.nn as nn
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
 from fmdm_tpu_torch.nn.blocks import ResBlockND
 from fmdm_tpu_torch.nn.layers import ConvND
-from fmdm_tpu_torch.nn.vae_modules import (Decoder, DiagonalGaussian, Encoder, VectorQuantizer,
-                                            VectorQuantizerEMA)
+from fmdm_tpu_torch.nn.vae_modules import (Decoder, DiagonalGaussian, Encoder,
+                                            MagvitDiscriminatorND, PatchDiscriminator,
+                                            VectorQuantizer, VectorQuantizerEMA)
 
 LATENT_SCALE: float = 0.18215
 
@@ -103,6 +107,10 @@ class AutoencoderKL(BaseAutoencoder):
         self.num_embeddings = num_embeddings
         self.codebook_size = codebook_size
         self.ckpt_path = ckpt_path
+
+    def make_discriminator(self, *, device: DeviceArg = None) -> PatchDiscriminator:
+        return PatchDiscriminator(in_channels=self.decoder.final_channels,
+                                  spatial_dims=self.spatial_dims, device=device)
 
     def encode(self, x: torch.Tensor, normalize: bool = False):
         """The posterior q(z|x), or its mode times ``LATENT_SCALE`` when
@@ -206,10 +214,16 @@ class VQVAE(BaseAutoencoder):
             raise ValueError(
                 f"Unknown quantizer_type '{self.quantizer_type}'. Expected 'classic' or 'ema'.")
 
-    def make_discriminator(self):
-        raise NotImplementedError(
-            f"the {self.discriminator_type} discriminator (gan_weight > 0) is not ported yet "
-            f"(ROADMAP Queue 1 item 8d)")
+    def make_discriminator(self, *, device: DeviceArg = None) -> nn.Module:
+        if self.discriminator_type in {"patchgan", "default"}:
+            return PatchDiscriminator(in_channels=self.decoder.final_channels,
+                                      spatial_dims=self.spatial_dims, device=device)
+        if self.discriminator_type == "magvit":
+            return MagvitDiscriminatorND(in_channels=self.decoder.final_channels,
+                                         spatial_dims=self.spatial_dims, device=device)
+        raise ValueError(
+            f"Unknown discriminator_type '{self.discriminator_type}'. Expected 'patchgan' or "
+            f"'magvit'.")
 
     def encode(self, x: torch.Tensor, normalize: bool = False) -> torch.Tensor:
         """``quant_conv``'s output (before quantization), times

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
 from fmdm_tpu_torch.nn.layers import (Conv, ConvND, ConvTransposeND, GroupNorm, Linear,
-                                      make_activation, make_group_norm)
+                                      RMSNormND, make_activation, make_group_norm)
 from fmdm_tpu_torch.ops.attention import linear_attention, sdpa
 from fmdm_tpu_torch.ops.kernels.group_norm import group_norm_act
 from fmdm_tpu_torch.ops.resample import avg_pool_nd, upsample_nearest
@@ -33,7 +33,9 @@ class ResBlockND(nn.Module):
     GroupNorm(+FiLM)+SiLU goes through kernel K1 on CUDA. An input given as a
     tuple of parts (the decoder's [hidden, skip]) is concatenated first, which
     the skip connection needs anyway, and K1 normalizes the concatenation:
-    numerically the JAX ``group_norm_parts`` path."""
+    numerically the JAX ``group_norm_parts`` path. ``norm_type="rmsnorm"``
+    (``RMSNormND``, eps 1e-6 whatever ``norm_eps`` says, as in JAX) takes the
+    plain path: norm, the optional FiLM, the activation; no K1."""
 
     def __init__(
         self,
@@ -58,10 +60,6 @@ class ResBlockND(nn.Module):
         device = resolve_device(device)
         if emb_channels is None and use_scale_shift_norm:
             raise ValueError("use_scale_shift_norm requires emb_channels to be provided.")
-        if norm_type.lower() == "rmsnorm":
-            raise NotImplementedError("ResBlockND norm_type 'rmsnorm' is not ported yet")
-        if norm_type.lower() != "gn":
-            raise ValueError(f"Unsupported norm_type '{norm_type}'")
         self.channels = channels
         self.out_channels = out_channels or channels
         self.dropout_rate = dropout
@@ -71,7 +69,7 @@ class ResBlockND(nn.Module):
         self.add_embedding_to_hidden = add_embedding_to_hidden
 
         self.act = make_activation(act)
-        self.norm1 = make_group_norm(channels, groups=norm_groups, eps=norm_eps, device=device)
+        self.norm1 = self._make_norm(norm_type, channels, norm_groups, norm_eps, device)
         self.conv1 = ConvND(spatial_dims, channels, self.out_channels, 3, padding=1, device=device)
         if self.uses_embedding:
             self.emb_layers = Linear(
@@ -79,7 +77,7 @@ class ResBlockND(nn.Module):
                 2 * self.out_channels if self.use_scale_shift_norm else self.out_channels,
                 device=device,
             )
-        self.norm2 = make_group_norm(self.out_channels, groups=norm_groups, eps=norm_eps, device=device)
+        self.norm2 = self._make_norm(norm_type, self.out_channels, norm_groups, norm_eps, device)
         self.conv2 = ConvND(spatial_dims, self.out_channels, self.out_channels, 3, padding=1,
                             zero_init=zero_init_last_conv, device=device)
 
@@ -91,9 +89,19 @@ class ResBlockND(nn.Module):
         else:
             self.skip_connection = ConvND(spatial_dims, channels, self.out_channels, 1, device=device)
 
-    def _gn_act(self, norm: GroupNorm, x: torch.Tensor, scale=None, shift=None) -> torch.Tensor:
-        """GroupNorm(+FiLM)+act; through K1 when the activation is SiLU."""
-        if self.act is F.silu:
+    @staticmethod
+    def _make_norm(norm_type: str, channels: int, norm_groups: int, norm_eps: float,
+                   device: torch.device) -> nn.Module:
+        norm_type = norm_type.lower()
+        if norm_type == "gn":
+            return make_group_norm(channels, groups=norm_groups, eps=norm_eps, device=device)
+        if norm_type == "rmsnorm":
+            return RMSNormND(channels, device=device)
+        raise ValueError(f"Unsupported norm_type '{norm_type}'")
+
+    def _gn_act(self, norm: nn.Module, x: torch.Tensor, scale=None, shift=None) -> torch.Tensor:
+        """Norm(+FiLM)+act; through K1 for a GroupNorm with SiLU."""
+        if isinstance(norm, GroupNorm) and self.act is F.silu:
             return group_norm_act(x, norm.weight, norm.bias, num_groups=norm.num_groups,
                                   eps=norm.eps, act=True, scale=scale, shift=shift)
         h = norm(x)

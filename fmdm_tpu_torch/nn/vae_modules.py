@@ -10,8 +10,9 @@ stage, run last).
 ``silu(GroupNorm(h))``, the same function in f32. The mid attention runs the
 flash kernels (K3, K4/K5 in training) at T >= 1024. The vector quantizers
 (``VectorQuantizer``, ``VectorQuantizerEMA``, :288-424) are plain PyTorch,
-as they are plain XLA in the JAX package. The discriminators are not ported
-yet (ROADMAP Queue 1 item 8d).
+as they are plain XLA in the JAX package. So are the GAN discriminators
+(``PatchDiscriminator``, ``MagvitDiscriminatorND``, :425-490): convolutions
+(cuDNN on the card), the JAX package's BatchNorm and LeakyReLU(0.2).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch.nn.functional as F
 
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
 from fmdm_tpu_torch.nn.blocks import DownsampleND, ResBlockND, SpatialSelfAttention, UpsampleND
-from fmdm_tpu_torch.nn.layers import ConvND, GroupNorm
+from fmdm_tpu_torch.nn.layers import BatchNorm, ConvND, GroupNorm, Sequential
 from fmdm_tpu_torch.ops.kernels.group_norm import group_norm_act
 
 
@@ -425,3 +426,65 @@ class VectorQuantizerEMA(nn.Module):
         commitment_loss = torch.mean((quantized.detach() - z) ** 2)
         vq_loss = self.commitment_cost * commitment_loss
         return QuantizerOutput(z + (quantized - z).detach(), vq_loss, perplexity, codes, new_state)
+
+
+# ---------------------------------------------------------------------------
+# Discriminators
+# ---------------------------------------------------------------------------
+
+class _LeakyReLU(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(x, 0.2)
+
+
+def _discriminator_layers(spatial_dims: int, in_channels: int, ch: int, deep: Tuple[int, int],
+                          last: Tuple[int, int], device: torch.device) -> Sequential:
+    """A 4-wide stride-2 conv and LeakyReLU, three (conv, BatchNorm,
+    LeakyReLU) stages doubling the width, and a one-channel conv: ``deep``
+    is the (stride, padding) of the fourth conv, ``last`` the (kernel,
+    padding) of the last."""
+    if spatial_dims not in (1, 2, 3):
+        raise ValueError("spatial_dims must be 1, 2 or 3")
+    layers = [ConvND(spatial_dims, in_channels, ch, 4, 2, 1, device=device), _LeakyReLU()]
+    for c_in, c_out, (stride, pad) in ((ch, ch * 2, (2, 1)), (ch * 2, ch * 4, (2, 1)),
+                                       (ch * 4, ch * 8, deep)):
+        layers += [ConvND(spatial_dims, c_in, c_out, 4, stride, pad, device=device),
+                   BatchNorm(c_out, device=device), _LeakyReLU()]
+    layers.append(ConvND(spatial_dims, ch * 8, 1, last[0], 1, last[1], device=device))
+    return Sequential(*layers)
+
+
+class PatchDiscriminator(nn.Module):
+    """The 4-down-conv PatchGAN head; parameters under ``model.N`` (conv
+    ``model.0/2/5/8/11.conv``, BatchNorm ``model.3/6/9``).
+    ``forward(x, train=)`` passes ``train`` to the BatchNorms only."""
+
+    def __init__(self, in_channels: int = 1, base_channels: int = 64, spatial_dims: int = 2, *,
+                 device: DeviceArg = None):
+        super().__init__()
+        self.model = _discriminator_layers(spatial_dims, in_channels, base_channels, (2, 1),
+                                           (3, 1), resolve_device(device))
+
+    def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+        return self.model(x, train=train)
+
+
+class MagvitDiscriminatorND(nn.Module):
+    """The MAGVIT-style 5-conv discriminator: the fourth conv keeps the
+    resolution, the last is a 4-wide conv without padding."""
+
+    def __init__(self, in_channels: int = 3, base_channels: int = 64, spatial_dims: int = 2, *,
+                 device: DeviceArg = None):
+        super().__init__()
+        self.model = _discriminator_layers(spatial_dims, in_channels, base_channels, (1, 1),
+                                           (4, 0), resolve_device(device))
+
+    def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+        return self.model(x, train=train)
+
+
+class MagvitDiscriminator(MagvitDiscriminatorND):
+    def __init__(self, in_channels: int = 3, base_channels: int = 64, *,
+                 device: DeviceArg = None):
+        super().__init__(in_channels=in_channels, base_channels=base_channels, spatial_dims=2,
+                         device=device)

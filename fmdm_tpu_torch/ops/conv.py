@@ -6,7 +6,11 @@ Channels-first tensors (N, C, *spatial), torch-layout weights (OI + spatial
 for ``conv_nd``, IO + spatial for ``conv_transpose_nd``) and integer padding
 that defaults to k//2 per dim. The JAX package leaves convolutions to XLA,
 so the port leaves them to cuDNN through ``F.conv1d/2d/3d`` and
-``F.conv_transpose1d/2d/3d``.
+``F.conv_transpose1d/2d/3d``. A ``QuantizedConvWeight`` weight takes the
+int8 path of ``ops/quant.py`` (W8A8: the input quantized with the weight's
+static scale, im2col and an int8 GEMM with exact int32 accumulation, one f32
+dequantization), as JAX's ``conv_nd`` dispatches on the weight's type
+(``fmdm_tpu/ops/conv.py:73-84``).
 """
 
 from __future__ import annotations
@@ -15,6 +19,9 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from fmdm_tpu_torch.ops.quant import (QuantizedConvWeight, dequant_scale, int8_conv_accumulate,
+                                      quantize_activation)
 
 SizeArg = Union[int, Tuple[int, ...], Sequence[int]]
 
@@ -46,7 +53,7 @@ def conv_nd(
     x: (N, C_in, *spatial); weight: (C_out, C_in//groups, *kernel).
     ``padding=None`` defaults to k//2 per dim. The convolution runs in the
     input dtype; the bias is added afterwards in the output dtype, as the
-    JAX version does.
+    JAX version does. A ``QuantizedConvWeight`` runs the int8 path.
     """
     nd = x.dim() - 2
     if nd not in _CONV:
@@ -56,11 +63,15 @@ def conv_nd(
         padding = tuple(k // 2 for k in kernel)
     else:
         padding = _normalize(padding, nd)
-    out = _CONV[nd](
-        x, weight.to(x.dtype), None,
-        stride=_normalize(stride, nd), padding=padding,
-        dilation=_normalize(dilation, nd), groups=groups,
-    )
+    stride, dilation = _normalize(stride, nd), _normalize(dilation, nd)
+    if isinstance(weight, QuantizedConvWeight):
+        acc = int8_conv_accumulate(quantize_activation(x, weight.act_scale), weight.qweight,
+                                   stride=stride, padding=padding, dilation=dilation,
+                                   groups=groups)
+        out = (acc.float() * dequant_scale(weight, nd)).to(x.dtype)
+    else:
+        out = _CONV[nd](x, weight.to(x.dtype), None, stride=stride, padding=padding,
+                        dilation=dilation, groups=groups)
     if bias is not None:
         out = out + bias.to(out.dtype).reshape((1, -1) + (1,) * nd)
     return out

@@ -112,3 +112,28 @@ def group_norm_parts(
 
     x = torch.cat(list(parts), dim=1)
     return _normalize_affine_f32(x, mean, var, weight, bias, num_groups, eps).to(x.dtype)
+
+
+def rms_norm_nd(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over ALL non-batch dims (not per channel or group) with a
+    per-channel scale, in f32, cast back to the input dtype."""
+    xf = x.float()
+    dims = tuple(range(1, x.dim()))
+    rms = torch.sqrt(torch.mean(torch.square(xf), dim=dims, keepdim=True) + eps)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    return (weight.float().reshape(shape) * xf / rms).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor], bias: Optional[torch.Tensor], *,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the trailing dim: biased variance and rsqrt(var + eps)
+    in f32, one rounding to the input dtype at the end."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.square(xf - mean).mean(dim=-1, keepdim=True)
+    out = (xf - mean) * torch.rsqrt(var + eps)
+    if weight is not None:
+        out = out * weight.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)

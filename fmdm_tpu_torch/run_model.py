@@ -17,8 +17,13 @@ diffusion, flow-matching and VAE run dirs, KL and VQ), with
     python -m fmdm_tpu_torch.run_model --ckpt_dir LATENT_RUN --mode evaluate \
         --latent_vae "VAE_RUN?scale=0.18215"
 
-``--quantize`` (ROADMAP Queue 1 item 11) and sampling over several cards
-(item 10) raise. There is no compile cache to enable.
+``--quantize int8|int8+linear`` decodes with the int8 weights of
+``utils/quantize.py``'s policy, calibrated on the card at the first batch:
+
+    python -m fmdm_tpu_torch.run_model --ckpt_dir RUN --mode evaluate --quantize int8
+
+Sampling over several cards (ROADMAP Queue 1 item 10) raises. There is no
+compile cache to enable.
 """
 
 from __future__ import annotations
@@ -90,8 +95,11 @@ _FLAG_SPEC = [
                                "evaluate, the targets) as latents before saving and scoring; "
                                "'<run_dir>?scale=S' divides the stored latents by S first.")),
     ("--quantize", dict(type=str, default=None, choices=["int8", "int8+linear"],
-                        help="Post-training int8 inference: not ported yet, raises (ROADMAP "
-                             "Queue 1 item 11).")),
+                        help="Post-training quantized inference: 'int8' runs eligible "
+                             "convolutions as int8 GEMMs (W8A8, per-channel weight scales, "
+                             "activation scales calibrated on the first batch); 'int8+linear' "
+                             "also quantizes the attention to_q/to_k/to_v/to_out projections "
+                             "(token-gated policy, utils/quantize.py). Beyond-reference flag.")),
     ("--use_ema", dict(action="store_true",
                        help="Load the EMA shadow weights ('ema' tree, written when "
                             "training.ema_decay > 0) instead of the live weights. "

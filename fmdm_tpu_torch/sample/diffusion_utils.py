@@ -22,13 +22,22 @@ aggressive of ``_AUTO_CANDIDATES`` within the budget by
 :func:`resolve_auto_deep_cache` on a batch with references, before any
 decode.
 
-Not ported yet, and refused rather than ignored: int8 inference
-(``set_quantize``, ROADMAP Queue 1 item 11) and data-parallel sampling over
-several cards (``set_dp_sampling``, item 10).
+int8 inference (``set_quantize``, ``run_model --quantize``): at a decode's
+first call the float model is calibrated on the decode's device with the
+JAX package's draw (``np.random.default_rng(0)`` normal times the
+scheduler's ``init_noise_sigma`` at batch min(2, B), the first, middle and
+last timestep, the conditioning as the engine builds it), quantized by
+``utils/quantize.py``'s policy, and cached (FIFO, at most 4) by the model,
+its weights and the calibration's fingerprint. Only when the policy finds
+nothing to quantize does the decode warn and go on in float, as in JAX.
+
+Not ported yet, and refused rather than ignored: data-parallel sampling over
+several cards (``set_dp_sampling``, ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -40,7 +49,8 @@ import torch.nn as nn
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
 from fmdm_tpu_torch.models.factories import DiffusionUNetFactory
 from fmdm_tpu_torch.nn.layers import init_weights
-from fmdm_tpu_torch.sample.engine import SamplingEngine, select_timesteps
+from fmdm_tpu_torch.sample.engine import (SamplingEngine, normalize_latent_conditioning,
+                                          prepare_attention_context, select_timesteps)
 from fmdm_tpu_torch.schedulers import build_scheduler, resolve_conditioning_mode, resolve_scheduler_override
 from fmdm_tpu_torch.utils.checkpoint import flatten_params, load_checkpoint
 from fmdm_tpu_torch.utils.evaluation import select_visual_indices
@@ -277,13 +287,74 @@ def resolve_auto_deep_cache(model: nn.Module, training_cfg: dict, model_cfg: dic
     return chosen
 
 
+# Post-training int8 inference (run_model --quantize): module-level like
+# _DEEP_CACHE. The cache maps (id(model), its weights, the calibration
+# fingerprint) to (model, quantized model) and holds STRONG references: an
+# id is unique only among live objects, and the identity is checked again
+# on a hit. FIFO-capped so that multi-checkpoint evaluations stay bounded.
+_QUANTIZE: Optional[str] = None
+_QUANT_CACHE: Dict[Tuple, Tuple[nn.Module, nn.Module]] = {}
+_QUANT_CACHE_MAX = 4
+
+
 def set_quantize(mode: Optional[str]) -> None:
-    """int8 inference is not ported yet (ROADMAP Queue 1 item 11): anything
-    but None raises."""
+    global _QUANTIZE
     if mode is not None and mode not in ("int8", "int8+linear"):
         raise ValueError(f"--quantize supports 'int8' or 'int8+linear', got '{mode}'")
-    if mode is not None:
-        raise NotImplementedError(f"--quantize {mode} is not ported yet (ROADMAP Queue 1 item 11)")
+    _QUANTIZE = mode
+
+
+def _quantized_model_for(model: nn.Module, scheduler, timesteps: np.ndarray,
+                         batch_shape: Tuple[int, ...], conditioning_batch,
+                         conditioning_mode: Optional[str], latent_norm,
+                         device: torch.device) -> nn.Module:
+    """Calibrate once per (model, weights, calibration fingerprint) on
+    ``device`` and cache the quantized copy; the float model itself when
+    the policy quantizes nothing."""
+    from fmdm_tpu_torch.utils import quantize as quant
+
+    b = max(1, min(2, int(batch_shape[0])))
+    shape = (b,) + tuple(batch_shape[1:])
+    sigma = float(np.asarray(getattr(scheduler, "init_noise_sigma", 1.0)))
+    ts = np.asarray(timesteps)
+    probe_ts = [ts[0], ts[len(ts) // 2], ts[-1]]
+    fingerprint = (
+        scheduler.__class__.__name__, round(sigma, 6), tuple(float(t) for t in probe_ts),
+        shape, conditioning_mode, conditioning_batch is not None, str(latent_norm), _QUANTIZE,
+        str(device),
+    )
+    key = (id(model), _weights_key(model), fingerprint)
+    hit = _QUANT_CACHE.get(key)
+    if hit is not None and hit[0] is model:
+        return hit[1]
+    x = np.random.default_rng(0).standard_normal(shape).astype(np.float32) * sigma
+    model_input = torch.from_numpy(x)
+    ctx = None
+    if conditioning_batch is not None:
+        cond = torch.as_tensor(conditioning_batch)[:b].float().cpu()
+        if conditioning_mode == "concatenate":
+            model_input = torch.cat([model_input, cond], dim=1)
+        elif conditioning_mode == "attention":
+            ctx = prepare_attention_context(normalize_latent_conditioning(cond, latent_norm))
+    t_dtype = torch.int32 if np.issubdtype(ts.dtype, np.integer) else torch.float32
+    example_args = [(model_input, torch.full((b,), t.item(), dtype=t_dtype), ctx)
+                    for t in probe_ts]
+
+    qmodel = copy.deepcopy(model).to(device).eval()
+    records = quant.calibrate(
+        qmodel, [tuple(a if a is None else a.to(device) for a in args) for args in example_args],
+        lambda m, xi, tb, cc: m(xi, tb, context_ca=cc))
+    try:
+        plan = quant.quantization_plan(records, quantize_linear=(_QUANTIZE == "int8+linear"))
+    except ValueError as exc:
+        logging.warning("--quantize %s: %s — continuing with float weights.", _QUANTIZE, exc)
+        qmodel = model
+    else:
+        quant.apply_plan(qmodel, plan)
+    while len(_QUANT_CACHE) >= _QUANT_CACHE_MAX:
+        _QUANT_CACHE.pop(next(iter(_QUANT_CACHE)))
+    _QUANT_CACHE[key] = (model, qmodel)
+    return qmodel
 
 
 # Data-parallel sampling: as in the JAX package, on by default, and a no-op
@@ -398,10 +469,14 @@ def decode_diffusion_batch(
         logging.warning("deep_cache requested but %s has no deep/shallow split; ignoring.",
                         model.__class__.__name__)
         deep_cache = None
+    if _QUANTIZE is not None:
+        model = _quantized_model_for(model, scheduler, timesteps, batch_shape, conditioning_batch,
+                                     conditioning_mode, latent_norm, device)
     cache_key = (
         id(model), _weights_key(model), scheduler.__class__.__name__,
         _scheduler_fingerprint(scheduler), tuple(np.asarray(timesteps).tolist()),
-        conditioning_mode, str(latent_norm), tuple(batch_shape), str(device), deep_cache,
+        conditioning_mode, str(latent_norm), tuple(batch_shape), str(device), _QUANTIZE,
+        deep_cache,
     )
     engine = _ENGINE_CACHE.get(cache_key)
     if engine is None:

@@ -1,9 +1,9 @@
 """
-The VAE trainer (counterpart of ``fmdm_tpu/train/vae_impl.py`` without its
-GAN step): the train and eval steps of the KL and VQ recipes (the closure
-at :297-451), their learning-rate schedules (``_make_lr_schedule``,
-:57-82), the run loop (:func:`train`, :127-669) and visuals from a
-checkpoint (:func:`debug_visual_only`).
+The VAE trainer (counterpart of ``fmdm_tpu/train/vae_impl.py``): the train
+and eval steps of the KL and VQ recipes with the GAN loss (the closure at
+:297-453), their learning-rate schedules (``_make_lr_schedule``, :57-82),
+the run loop (:func:`train`, :127-669) and visuals from a checkpoint
+(:func:`debug_visual_only`).
 
 One step: the batch is wrap-padded to ``n_chunks`` equal chunks, the padded
 rows masked out of the reconstruction loss (``valid`` = 0) and of the counts;
@@ -15,10 +15,26 @@ last two over all its rows; the gradients are summed with each chunk's
 valid count as weight, divided by the total count, and applied by
 ``torch.optim.AdamW`` (b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay),
 which is ``optax.adamw``'s update. The posterior is sampled from an explicit
-noise tensor or a ``torch.Generator``. An EMA codebook's buffers are not
-parameters: they are updated from each chunk's codes, kept out of AdamW,
-and saved with the weights in the checkpoint's ``model``, as the JAX
-package merges them back.
+noise tensor or a ``torch.Generator``.
+
+The GAN loss (``gan_weight > 0``): the model's discriminator
+(``make_discriminator``), drawn from a generator seeded ``seed + 1`` (JAX's
+``PRNGKey(seed + 1)``), has an AdamW of its own at the constant rate
+``disc_lr`` (else ``learning_rate``), b1 0.9, b2 0.999, eps 1e-8, no weight
+decay. While the gate is on (``global_step >= gan_start_steps`` when that
+is set, else ``epoch >= gan_start``), each chunk's generator loss adds
+``gan_weight`` times the generator hinge loss of D(reconstruction), taken
+with D's parameters frozen, so that none of its gradient reaches D (as in
+JAX); then D's hinge loss on the real chunk and the detached reconstruction
+accumulates D's gradients. Both come from the parameters before the update;
+with several chunks both are averaged over the valid counts, BatchNorm's
+batch statistics are per chunk, and the generator and D step once each.
+The eval step takes ``g_gan`` with D's stored (never updated) running
+statistics and ``d_gan`` with batch statistics, as JAX does.
+
+An EMA codebook's buffers are not parameters: they are updated from each
+chunk's codes, kept out of AdamW, and saved with the weights in the
+checkpoint's ``model``, as the JAX package merges them back.
 
 The run dir is the JAX package's: ``train_config.json``, ``metrics.csv``
 (``epoch`` and the train averages of ``loss``, ``recon`` and the
@@ -35,10 +51,14 @@ package's ``PRNGKey(seed + 23)``), whose state each checkpoint keeps; the
 generated visuals of epoch ``e`` draw from one seeded with
 ``(seed + 23) * 100003 + e``.
 
+D's parameters are saved under ``extra_state["disc_params"]`` and its
+optimizer under ``disc_optimizer``; a resume reads them from the port's
+checkpoints and from the JAX package's (the flattened pytrees by leaf
+position, its ``optax.adamw`` at a constant rate with 2n + 1 leaves).
+
 On CUDA the mid attention's forward runs K3 and its backward K4 and K5; K1's
-backward recomputes its plain version. The GAN loss (``gan_weight > 0``,
-ROADMAP Queue 1 item 8d), the mesh, FSDP, tensor and sequence parallelism
-raise ``NotImplementedError``.
+backward recomputes its plain version. The mesh, FSDP, tensor and sequence
+parallelism raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -53,7 +73,9 @@ import numpy as np
 import torch
 
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
-from fmdm_tpu_torch.nn.losses import PerceptualLoss, _bce_with_logits, bce_focal_loss
+from fmdm_tpu_torch.nn.layers import init_weights
+from fmdm_tpu_torch.nn.losses import (PerceptualLoss, _bce_with_logits, bce_focal_loss,
+                                      discriminator_hinge_loss, generator_hinge_loss)
 from fmdm_tpu_torch.sample.vae_utils import build_vae_model, reconstruct_raw
 from fmdm_tpu_torch.train import common as loop
 from fmdm_tpu_torch.train.common import autotune_grad_accum, batch_to_device, epoch_batches
@@ -121,7 +143,6 @@ def recon_loss(rec: torch.Tensor, rec_img: torch.Tensor, raw: torch.Tensor,
 
 def _refuse_unported(training_cfg: Mapping[str, Any]) -> None:
     unported = {
-        "gan_weight > 0 (ROADMAP Queue 1 item 8d)": float(training_cfg.get("gan_weight", 0.0)) > 0,
         "fsdp": bool(training_cfg.get("fsdp", False)),
         "tensor_parallel > 1": int(training_cfg.get("tensor_parallel", 1) or 1) > 1,
         "sequence_parallel > 1": int(training_cfg.get("sequence_parallel", 1) or 1) > 1,
@@ -135,7 +156,8 @@ class VAETrainStep:
     """Train and eval steps of an ``AutoencoderKL`` or a ``VQVAE`` under a
     config's ``training`` section (learning_rate, weight_decay, kl_weight,
     kl_anneal_steps, codebook_weight, perceptual_weight, recon_type,
-    gradient_accumulation_steps, scheduler).
+    gradient_accumulation_steps, scheduler, gan_weight, gan_start,
+    gan_start_steps, disc_lr, seed).
 
     The perceptual term compares the reconstructed image with the input
     through a frozen VGG16 (:class:`PerceptualLoss` with ``resize``), on
@@ -143,7 +165,9 @@ class VAETrainStep:
     ``codebook_weight`` times its ``vq_loss``; an EMA codebook's buffers are
     updated after each chunk from that chunk's codes (padded rows included,
     as in the JAX package), so chunk k quantizes with chunk k - 1's
-    codebook."""
+    codebook. With ``gan_weight > 0`` it holds the ``discriminator`` and its
+    ``disc_optimizer``; a step or eval with ``disc_active`` adds the GAN
+    terms (see the module's docstring)."""
 
     def __init__(self, model: torch.nn.Module, training_cfg: Mapping[str, Any], *,
                  steps_per_epoch: int = 1, n_chunks: Optional[int] = None):
@@ -174,16 +198,44 @@ class VAETrainStep:
             model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
             weight_decay=float(training_cfg.get("weight_decay", 0.0)))
         self.global_step = 0
+        self.gan_weight = float(training_cfg.get("gan_weight", 0.0))
+        self.gan_start = int(training_cfg.get("gan_start", 0))
+        start_steps = training_cfg.get("gan_start_steps")
+        self.gan_start_steps = int(start_steps) if start_steps is not None else None
+        self.discriminator = self.disc_optimizer = None
+        self._disc_trainable: List[torch.nn.Parameter] = []
+        if self.gan_weight > 0:
+            seed = int(training_cfg.get("seed") or 0)
+            self.discriminator = init_weights(
+                model.make_discriminator(device=next(model.parameters()).device),
+                torch.Generator().manual_seed(seed + 1))
+            self._disc_trainable = [p for p in self.discriminator.parameters() if p.requires_grad]
+            disc_lr = training_cfg.get("disc_lr")
+            self.disc_optimizer = torch.optim.AdamW(
+                self.discriminator.parameters(), lr=float(disc_lr) if disc_lr is not None else lr,
+                betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+
+    def disc_is_active(self, epoch: int, global_step: int) -> bool:
+        """The GAN gate (JAX :85-92): off without a discriminator or weight;
+        else from ``gan_start_steps`` loop steps when that is set, else from
+        epoch ``gan_start``."""
+        if self.discriminator is None or self.gan_weight <= 0:
+            return False
+        if self.gan_start_steps is not None:
+            return global_step >= self.gan_start_steps
+        return epoch >= self.gan_start
 
     def kl_scale(self) -> float:
         return kl_scale_at(self.kl_weight, self.kl_anneal_steps, self.global_step)
 
     def losses(self, raw: torch.Tensor, valid: torch.Tensor, kl_scale: float, *,
                train: bool, noise: Optional[torch.Tensor] = None,
-               generator: Optional[torch.Generator] = None
-               ) -> Tuple[torch.Tensor, Metrics, Optional[Dict[str, torch.Tensor]]]:
-        """Total loss, its parts, and an EMA codebook's update (else None)
-        on one chunk of images in [0, 1]."""
+               generator: Optional[torch.Generator] = None, disc_active: bool = False
+               ) -> Tuple[torch.Tensor, Metrics, Optional[Dict[str, torch.Tensor]], torch.Tensor]:
+        """Total loss, its parts, an EMA codebook's update (else None) and the
+        reconstructed image, on one chunk of images in [0, 1]. With
+        ``disc_active`` the generator's GAN term uses D's batch statistics
+        in ``train`` mode and its running statistics otherwise."""
         model = self.model
         zero = raw.new_zeros(())
         inputs = model.image_to_model_range(raw)
@@ -200,37 +252,58 @@ class VAETrainStep:
         perc = self.perceptual(rec_img, raw) if self.perceptual is not None else zero
         total = (recon + self.perceptual_weight * perc + kl_scale * kl_term
                  + self.codebook_weight * vq_term)
-        return total, {"loss": total, "recon": recon, "kl": kl_term, "vq": vq_term,
-                       "perceptual": perc}, new_ema
+        metrics = {"loss": total, "recon": recon, "kl": kl_term, "vq": vq_term,
+                   "perceptual": perc}
+        if self.discriminator is not None:
+            g_gan = (generator_hinge_loss(self.discriminator(rec_img, train=train))
+                     if disc_active else zero)
+            total = total + self.gan_weight * g_gan
+            metrics.update(loss=total, g_gan=g_gan)
+        return total, metrics, new_ema, rec_img
+
+    def disc_loss(self, rec_img: torch.Tensor, raw: torch.Tensor) -> torch.Tensor:
+        """D's hinge loss on real images and the detached reconstruction,
+        with batch statistics."""
+        return discriminator_hinge_loss(self.discriminator(raw, train=True),
+                                        self.discriminator(rec_img.detach(), train=True))
 
     def step(self, raw: torch.Tensor, valid: torch.Tensor, *,
              noise: Optional[torch.Tensor] = None,
              generator: Optional[torch.Generator] = None,
-             kl_scale: Optional[float] = None) -> Tuple[Metrics, torch.Tensor]:
+             kl_scale: Optional[float] = None,
+             disc_active: bool = False) -> Tuple[Metrics, torch.Tensor]:
         """One optimizer step on a batch (B, C, *spatial) with its (B,) valid
         mask, at ``kl_scale`` (default: annealed by this step's own count).
         ``noise``, when given, covers the padded batch: (n_chunks ·
         ceil(B / n_chunks), embed_dim, *latent). Returns the metrics summed
         with the valid counts as weights, and the count; ``p.grad`` holds the
-        averaged gradient that was applied."""
+        averaged gradient that was applied (D's too, when ``disc_active``,
+        and then D steps as well)."""
         sums, count = self._accumulate(raw, valid, noise, generator,
-                                       self.kl_scale() if kl_scale is None else kl_scale)
+                                       self.kl_scale() if kl_scale is None else kl_scale,
+                                       disc_active)
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr_schedule(self.global_step)
         self.optimizer.step()
+        if disc_active:
+            self.disc_optimizer.step()
         self.global_step += 1
         return sums, count
 
     def trial(self, raw: torch.Tensor, valid: torch.Tensor, generator: torch.Generator) -> None:
-        """The forward and backward of one step at the current ``n_chunks``,
-        drawing from ``generator``, then the gradients freed and an EMA
-        codebook restored: the optimizer and the rate's step are left as
-        they were."""
+        """The forward and backward of one step at the current ``n_chunks``
+        (with the GAN terms when there is a discriminator), drawing from
+        ``generator``, then the gradients freed and an EMA codebook
+        restored: the optimizers and the rate's step are left as they
+        were."""
         buffers = {k: b.clone() for k, b in self.model.named_buffers()}
         try:
-            self._accumulate(raw, valid, None, generator, self.kl_scale())
+            self._accumulate(raw, valid, None, generator, self.kl_scale(),
+                             self.discriminator is not None)
         finally:
             self.optimizer.zero_grad(set_to_none=True)
+            if self.disc_optimizer is not None:
+                self.disc_optimizer.zero_grad(set_to_none=True)
             with torch.no_grad():
                 for k, b in self.model.named_buffers():
                     b.copy_(buffers[k])
@@ -238,7 +311,8 @@ class VAETrainStep:
             if raw.device.type == "cuda":
                 torch.cuda.empty_cache()
 
-    def _accumulate(self, raw, valid, noise, generator, kl_scale) -> Tuple[Metrics, torch.Tensor]:
+    def _accumulate(self, raw, valid, noise, generator, kl_scale,
+                    disc_active: bool) -> Tuple[Metrics, torch.Tensor]:
         n = self.n_chunks
         chunk = max(1, -(-raw.shape[0] // n))
         pad = n * chunk - raw.shape[0]
@@ -252,16 +326,29 @@ class VAETrainStep:
             raise ValueError(f"noise covers {noise.shape[0]} rows; the padded batch has {n * chunk}")
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
+        if self.disc_optimizer is not None:
+            self.disc_optimizer.zero_grad(set_to_none=True)
         sums: Metrics = {}
         count = valid.new_zeros(())
         for i in range(n):
             rows = slice(i * chunk, (i + 1) * chunk)
             vc = valid[rows]
-            total, metrics, new_ema = self.losses(
+            # D frozen through the generator's loss: its g_gan gradient
+            # never reaches D's parameters
+            self._set_disc_grad(False)
+            total, metrics, new_ema, rec_img = self.losses(
                 raw[rows], vc, kl_scale, train=True,
-                noise=None if noise is None else noise[rows], generator=generator)
+                noise=None if noise is None else noise[rows], generator=generator,
+                disc_active=disc_active)
+            self._set_disc_grad(True)
             c = vc.sum()
             (total * c).backward()
+            if self.discriminator is not None:
+                d_gan = raw.new_zeros(())
+                if disc_active:
+                    d_gan = self.disc_loss(rec_img, raw[rows])
+                    (d_gan * c).backward()
+                metrics["d_gan"] = d_gan
             if new_ema is not None:
                 self.model.codebook.apply_update(new_ema)
             for k, v in metrics.items():
@@ -271,18 +358,30 @@ class VAETrainStep:
         for p in self.model.parameters():
             if p.grad is not None:
                 p.grad.div_(divisor)
+        for p in self._disc_trainable:
+            if p.grad is not None:
+                p.grad.div_(divisor)
         return sums, count
+
+    def _set_disc_grad(self, on: bool) -> None:
+        for p in self._disc_trainable:
+            p.requires_grad_(on)
 
     @torch.no_grad()
     def eval(self, raw: torch.Tensor, valid: torch.Tensor,
-             kl_scale: Optional[float] = None) -> Tuple[Metrics, torch.Tensor]:
+             kl_scale: Optional[float] = None,
+             disc_active: bool = False) -> Tuple[Metrics, torch.Tensor]:
         """The losses at the posterior's mode (KL) or with the codebook in
         eval mode (VQ), summed with the valid count as weight, and the
-        count."""
+        count; with ``disc_active``, ``g_gan`` on D's running statistics and
+        ``d_gan`` on batch statistics (JAX :441-453)."""
         self.model.eval()
-        _, metrics, _ = self.losses(raw, valid,
-                                    self.kl_scale() if kl_scale is None else kl_scale,
-                                    train=False)
+        _, metrics, _, rec_img = self.losses(raw, valid,
+                                             self.kl_scale() if kl_scale is None else kl_scale,
+                                             train=False, disc_active=disc_active)
+        if self.discriminator is not None:
+            metrics["d_gan"] = (self.disc_loss(rec_img, raw) if disc_active
+                                else raw.new_zeros(()))
         count = valid.sum()
         return {k: v * count for k, v in metrics.items()}, count
 
@@ -408,6 +507,14 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
         if payload.get("optimizer") is not None:
             trainer.global_step = ckpt_utils.load_optimizer_state(
                 trainer.optimizer, payload["optimizer"], model)
+        if trainer.discriminator is not None:
+            if payload.get("extra_state") is not None:
+                ckpt_utils.load_disc_params(trainer.discriminator, payload["extra_state"])
+            if payload.get("disc_optimizer") is not None:
+                disc_step = ckpt_utils.load_optimizer_state(
+                    trainer.disc_optimizer, payload["disc_optimizer"], trainer.discriminator,
+                    constant_rate=True)
+                logging.info("Resumed the discriminator and its optimizer (step %d)", disc_step)
         loop.restore_generator(generator, payload.get("rng_state"))
         best_metric = float(payload.get("best_metric", best_metric))
         start_epoch = int(payload.get("epoch", 0)) + 1
@@ -433,7 +540,8 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
                 break
             placed = batch_to_device({"target": batch["target"], "valid": batch["valid"]}, device)
             m, count = trainer.step(placed["target"], placed["valid"], generator=generator,
-                                    kl_scale=kl_scale_at(kl_weight, kl_anneal_steps, global_step))
+                                    kl_scale=kl_scale_at(kl_weight, kl_anneal_steps, global_step),
+                                    disc_active=trainer.disc_is_active(epoch, global_step))
             # one step in flight: read step i - 1's metrics while step i runs
             pending.append((m, count))
             if len(pending) > 1:
@@ -465,11 +573,12 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
             val_totals = dict.fromkeys(LOSS_KEYS, 0.0)
             val_samples = 0
             kl_scale = kl_scale_at(kl_weight, kl_anneal_steps, global_step)
+            disc_active = trainer.disc_is_active(epoch, global_step)
             for batch in epoch_batches(val_dataset, batch_size, shuffle=False, seed=seed,
                                        epoch=epoch):
                 placed = batch_to_device({"target": batch["target"], "valid": batch["valid"]},
                                          device)
-                m, count = trainer.eval(placed["target"], placed["valid"], kl_scale)
+                m, count = trainer.eval(placed["target"], placed["valid"], kl_scale, disc_active)
                 _add_metrics(val_totals, m)
                 val_samples += int(count)
             val_avg = {k: v / max(1, val_samples) for k, v in val_totals.items()}
@@ -489,9 +598,13 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
             # "best" at checkpoint granularity: an unsaved epoch never lowers it
             improved = current_metric < best_metric
             best_metric = min(best_metric, current_metric)
-            state = {"model": model, "optimizer": trainer.optimizer, "disc_optimizer": None,
+            state = {"model": model, "optimizer": trainer.optimizer,
+                     "disc_optimizer": trainer.disc_optimizer,
                      "scheduler": {"last_epoch": epoch}, "scaler": None, "epoch": epoch,
                      "best_metric": best_metric, "rng_state": loop.generator_state(generator)}
+            if trainer.discriminator is not None:
+                state["extra_state"] = {"disc_params": {
+                    k: v.detach().cpu() for k, v in trainer.discriminator.state_dict().items()}}
             mirrors = ([output_dir / "vae_best.pt"] if improved else []) + (
                 [epoch_dir / "epoch.pt"] if should_save else [])
             t_ckpt = time.perf_counter()

@@ -5,7 +5,9 @@ both packages.
 
 Layout: run dirs hold ``{vae|diff|flow}_last.pt``, ``{vae|diff|flow}_best.pt``
 and ``epochs/epochXXXX/epoch.pt``. Payload keys: ``model``, ``ema``,
-``optimizer``, ``lr_scheduler``, ``scaler``, ``epoch``, ``best_metric``.
+``optimizer``, ``lr_scheduler``, ``scaler``, ``epoch``, ``best_metric``, and
+for a VAE's GAN run ``extra_state`` (``{"disc_params": ...}``) and
+``disc_optimizer``.
 
 - ``model`` is a genuine torch ``state_dict`` (dotted names, CPU tensors).
 - ``ema`` is stored as the JAX package stores it: a *nested* dict of numpy
@@ -241,33 +243,47 @@ def _optimizer_step(optimizer: torch.optim.Optimizer) -> int:
     return 0
 
 
-def _adamw_from_optax(optimizer: torch.optim.Optimizer, entry: Mapping[str, Any],
-                      model: torch.nn.Module) -> int:
-    """Set AdamW's moments and step from the flattened state of
-    ``optax.adamw(schedule, ...)``: ``chain(scale_by_adam,
-    add_decayed_weights, scale_by_learning_rate)``, whose leaves are Adam's
-    count, ``mu`` and ``nu`` in ``tree_flatten`` order (dict keys sorted
-    level by level: the order of the names' component tuples), then the
-    schedule's count. Returns the schedule's count."""
+def _tree_leaves(entry: Mapping[str, Any]) -> list:
+    """The leaves of a JAX flattened pytree, in ``tree_flatten`` order."""
     n_leaves = len(entry) - 1
     if set(entry) != {TREEDEF, *(f"leaf_{i}" for i in range(n_leaves))}:
         raise ValueError(f"{_JAX_STATE} is not a flattened pytree of leaf_0.. leaves")
-    leaves = [np.asarray(entry[f"leaf_{i}"]) for i in range(n_leaves)]
+    return [np.asarray(entry[f"leaf_{i}"]) for i in range(n_leaves)]
+
+
+def _tree_order(names) -> list:
+    """Positions of dotted ``names`` in ``tree_flatten`` order: dict keys
+    sorted level by level, the order of the names' component tuples."""
+    return sorted(range(len(names)), key=lambda i: tuple(names[i].split(".")))
+
+
+def _adamw_from_optax(optimizer: torch.optim.Optimizer, entry: Mapping[str, Any],
+                      model: torch.nn.Module, constant_rate: bool) -> int:
+    """Set AdamW's moments and step from the flattened state of
+    ``optax.adamw(rate, ...)``: ``chain(scale_by_adam, add_decayed_weights,
+    scale_by_learning_rate)``, whose leaves are Adam's count, ``mu`` and
+    ``nu`` in ``tree_flatten`` order, then, for a schedule, the schedule's
+    count: 2n + 2 leaves over n parameters, or 2n + 1 at a
+    ``constant_rate`` (the discriminator's), which keeps no count. Returns
+    the schedule's count, or Adam's at a constant rate."""
+    leaves = _tree_leaves(entry)
+    n_leaves = len(leaves)
     named = list(model.named_parameters())
     n = len(named)
-    if n_leaves != 2 * n + 2:
+    want = 2 * n + 1 if constant_rate else 2 * n + 2
+    if n_leaves != want:
         raise ValueError(
             f"{_JAX_STATE} has {n_leaves} leaves; optax.adamw over this model's {n} "
-            f"parameters has {2 * n + 2} (a discriminator's state or another "
-            f"optimizer is not resumable here)")
-    counts = (leaves[0], leaves[-1])
+            f"parameters has {want} {'at a constant rate' if constant_rate else 'with a schedule'}"
+            f" (another optimizer is not resumable here)")
+    counts = (leaves[0],) if constant_rate else (leaves[0], leaves[-1])
     if any(c.shape != () or not np.issubdtype(c.dtype, np.integer) for c in counts):
         raise ValueError(f"{_JAX_STATE}: its counts are not integer scalars: "
                          f"{[(c.dtype, c.shape) for c in counts]}")
-    if int(counts[0]) != int(counts[1]):
+    if int(counts[0]) != int(counts[-1]):
         raise ValueError(f"{_JAX_STATE}: Adam's count {int(counts[0])} disagrees with the "
                          f"schedule's {int(counts[1])}")
-    order = sorted(range(n), key=lambda i: tuple(named[i][0].split(".")))
+    order = _tree_order([name for name, _ in named])
     group_params = {id(p) for g in optimizer.param_groups for p in g["params"]}
     if group_params != {id(p) for _, p in named}:
         raise ValueError(f"{_JAX_STATE}: the optimizer's parameters are not the model's")
@@ -286,22 +302,48 @@ def _adamw_from_optax(optimizer: torch.optim.Optimizer, entry: Mapping[str, Any]
             "exp_avg_sq": torch.from_numpy(np.array(nus[pos], copy=True)).to(param.device,
                                                                                param.dtype),
         }
-    return int(counts[1])
+    return int(counts[-1])
+
+
+def load_disc_params(discriminator: torch.nn.Module, entry: Mapping[str, Any]) -> None:
+    """Load a payload's ``extra_state`` into the GAN's discriminator: the
+    port's ``{"disc_params": {dotted name: tensor}}``, or the JAX package's
+    flattened pytree of ``{"disc_params": tree}``, read by leaf position
+    against the discriminator's state dict names (shapes checked)."""
+    if is_jax_tree_map(entry):
+        leaves = _tree_leaves(entry)
+        current = discriminator.state_dict()
+        names = list(current)
+        if len(leaves) != len(names):
+            raise ValueError(f"the JAX extra_state has {len(leaves)} leaves; the "
+                             f"discriminator has {len(names)} entries")
+        state = {}
+        for leaf, i in zip(leaves, _tree_order(names)):
+            want = tuple(current[names[i]].shape)
+            if tuple(leaf.shape) != want:
+                raise ValueError(f"the JAX extra_state's leaf for {names[i]} has shape "
+                                 f"{leaf.shape}; the discriminator's is {want}")
+            state[names[i]] = _to_tensor(leaf)
+    else:
+        state = {k: _to_tensor(v) for k, v in flatten_params(entry["disc_params"]).items()}
+    discriminator.load_state_dict(state, strict=True)
 
 
 def load_optimizer_state(optimizer: torch.optim.Optimizer, entry,
-                         model: Optional[torch.nn.Module] = None) -> int:
-    """Load a payload's ``optimizer`` entry into ``optimizer`` and return
-    the step the learning-rate schedule resumes from: a ``torch.optim``
-    state dict as it is, or the ``optax.adamw`` state the JAX package
-    writes into ``torch.optim.AdamW`` (which needs ``model``, whose
-    parameters the optimizer holds). Any other optax structure raises a
-    ``ValueError``."""
+                         model: Optional[torch.nn.Module] = None, *,
+                         constant_rate: bool = False) -> int:
+    """Load a payload's ``optimizer`` (or ``disc_optimizer``) entry into
+    ``optimizer`` and return the step the learning-rate schedule resumes
+    from: a ``torch.optim`` state dict as it is, or the ``optax.adamw``
+    state the JAX package writes into ``torch.optim.AdamW`` (which needs
+    ``model``, whose parameters the optimizer holds; ``constant_rate`` for
+    the discriminator's, which has no schedule). Any other optax structure
+    raises a ``ValueError``."""
     if is_jax_tree_map(entry):
         if model is None or not isinstance(optimizer, torch.optim.AdamW):
             raise ValueError(f"{_JAX_STATE} loads only into torch.optim.AdamW, with the model "
                              f"whose parameters it holds")
-        return _adamw_from_optax(optimizer, entry, model)
+        return _adamw_from_optax(optimizer, entry, model, constant_rate)
     optimizer.load_state_dict(entry)
     return _optimizer_step(optimizer)
 

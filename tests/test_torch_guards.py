@@ -62,6 +62,9 @@ def _entry_points():
     from fmdm_tpu_torch.schedulers import DDPMScheduler, DPMSolverMultistepScheduler
     from fmdm_tpu_torch.train.common import make_adamw, make_denoise_train_step
     from fmdm_tpu_torch.train.denoise_lib import build_denoise_trainer
+    from fmdm_tpu_torch.nn.layers import BatchNorm, RMSNormND
+    from fmdm_tpu_torch.nn.vae_modules import MagvitDiscriminatorND, PatchDiscriminator
+    from fmdm_tpu_torch.utils.quantize import quantize_model
 
     cfg = {"unet_impl": "diffusers_nd", "block_out_channels": [8, 16], "norm_num_groups": 4,
            "layers_per_block": 1, "down_block_types": ["DownBlock2D", "DownBlock2D"],
@@ -116,6 +119,17 @@ def _entry_points():
         "build_diffusion_model": lambda **kw: build_diffusion_model(run, **kw),
         "decode_diffusion_batch": lambda **kw: decode_diffusion_batch(
             cpu_unet, run["training"], run["model"], (1, 1, 8, 8), torch.zeros(1, 1, 8, 8), **kw),
+        "rmsnorm_resblock": lambda **kw: ResBlockND(8, 4, 0.0, norm_type="rmsnorm",
+                                                    use_scale_shift_norm=True, **kw),
+        "rmsnorm": lambda **kw: RMSNormND(8, **kw),
+        "batch_norm": lambda **kw: BatchNorm(8, **kw),
+        "patch_discriminator": lambda **kw: PatchDiscriminator(base_channels=4, **kw),
+        "magvit_discriminator": lambda **kw: MagvitDiscriminatorND(base_channels=4, **kw),
+        "make_discriminator": lambda **kw: AutoencoderKL(**vae, device="cpu").make_discriminator(
+            **kw),
+        "quantize_model": lambda **kw: quantize_model(
+            cpu_unet, [(torch.zeros(1, 2, 8, 8), torch.tensor([3]))], min_hw=4, min_channels=4,
+            **kw),
         **loops,
     }
 
@@ -129,6 +143,7 @@ def _training_loops(unet, vae):
     from fmdm_tpu_torch.data.mnist import MNISTDataset
     from fmdm_tpu_torch.models.factories import VAEFactory
     from fmdm_tpu_torch.sample import autoencoder_like
+    from fmdm_tpu_torch import legacy_train
     from fmdm_tpu_torch.train import __main__ as train_cli
     from fmdm_tpu_torch.train import denoise_lib, vae_impl
     from fmdm_tpu_torch.utils.checkpoint import save_checkpoint
@@ -144,10 +159,13 @@ def _training_loops(unet, vae):
                 "img_size": 8, "save_images": False, "conditioning": "concatenate",
                 "output_dir": str(tmp / "run")}
     paths = {}
-    for name, model in (("diffusion", {"unet": unet, "model_type": "diffusion"}),
-                        ("vae", dict(vae, model_type="vae", z_channels=4, embed_dim=4))):
+    for name, model, extra in (
+            ("diffusion", {"unet": unet, "model_type": "diffusion"}, {}),
+            ("vae", dict(vae, model_type="vae", z_channels=4, embed_dim=4), {}),
+            ("vae_gan", dict(vae, model_type="vae", z_channels=4, embed_dim=4, resolution=32),
+             {"gan_weight": 0.5, "img_size": 32})):
         paths[name] = tmp / f"{name}.json"
-        paths[name].write_text(json.dumps({"training": training, "model": model}))
+        paths[name].write_text(json.dumps({"training": dict(training, **extra), "model": model}))
 
     # a VAE run dir (embed_dim 1: decode takes the digits as latents)
     vae_run = tmp / "vae_run"
@@ -172,13 +190,30 @@ def _training_loops(unet, vae):
         finally:
             train_cli.build_train_val_datasets = real
 
+    def legacy(**kw):
+        device = ["--device", str(kw["device"])] if kw.get("device") else []
+        real = legacy_train.build_train_val_datasets
+        legacy_train.build_train_val_datasets = lambda cfg: (digits(), None)
+        try:
+            legacy_train.main(["vae", "--config", str(paths["vae"]), "--epochs", "1", *device])
+        finally:
+            legacy_train.build_train_val_datasets = real
+
+    def gan_digits():
+        ds = MNISTDataset(tmp / "data32", img_size=32)
+        ds.images, ds.labels, ds.data = ds.images[:4], ds.labels[:4], ds.data[:4]
+        return ds
+
     return {
         "denoise_train": lambda **kw: denoise_lib.train(digits(), paths["diffusion"],
                                                         variant="diffusion",
                                                         max_steps_per_epoch=1, **kw),
         "vae_train": lambda **kw: vae_impl.train(digits(), paths["vae"], max_steps_per_epoch=1,
                                                  **kw),
+        "vae_gan_train": lambda **kw: vae_impl.train(gan_digits(), paths["vae_gan"],
+                                                     max_steps_per_epoch=1, **kw),
         "train_cli": cli,
+        "legacy_train": legacy,
         "autoencoder_modes": autoencoder_modes,
     }
 
@@ -191,7 +226,10 @@ def _training_loops(unet, vae):
                                   "build_diffusion_model", "decode_diffusion_batch",
                                   "denoise_train", "vae_train", "train_cli", "vqvae",
                                   "vector_quantizer", "vector_quantizer_ema", "perceptual_loss",
-                                  "autoencoder_modes"])
+                                  "autoencoder_modes", "rmsnorm_resblock", "rmsnorm",
+                                  "batch_norm", "patch_discriminator", "magvit_discriminator",
+                                  "make_discriminator", "quantize_model", "vae_gan_train",
+                                  "legacy_train"])
 def test_entry_points_default_to_cuda_and_never_fall_back(name, monkeypatch):
     make = _entry_points()[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -391,8 +391,10 @@ def test_unported_options_refuse_and_defaults_pass(monkeypatch):
                                        device="cpu")
     finally:
         tdu.set_deep_cache(None)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tdu.set_quantize("int8")
+    for mode in ("int8", "int8+linear"):   # int8 inference is ported: the modes set
+        tdu.set_quantize(mode)
+        assert tdu._QUANTIZE == mode
+    tdu.set_quantize(None)
     with pytest.raises(ValueError):
         tdu.set_quantize("int4")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)

@@ -331,7 +331,8 @@ def test_cli_without_device_raises_without_a_card(runs, monkeypatch):
     # does not know and on an auto budget in a mode without references
     (["--deep_cache", "3:1:sideways"], ValueError, "schedule"),
     (["--deep_cache", "auto", "--mode", "decode"], RuntimeError, "deep_cache auto"),
-    (["--quantize", "int8"], NotImplementedError, "item 11"),
+    # --quantize is ported: a mode outside JAX's choices is refused by argparse
+    (["--quantize", "int4"], SystemExit, "2"),
 ], ids=["latent_vae", "deep_cache", "deep_cache_auto", "quantize"])
 def test_unported_flags_raise(runs, flags, error, match):
     try:
@@ -375,3 +376,45 @@ def test_vae_build_tensor_cache_needs_no_model(runs, tmp_path):
     cfg["model"]["model_type"] = "vae"
     (tmp_path / "train_config.json").write_text(json.dumps(cfg))
     assert thandlers.VAEHandler(ckpt_dir=tmp_path, num_samples=3, seed=2).build_tensor_cache() == 3
+
+
+def test_quantize_flag_decodes_through_the_int8_model(runs, tmp_path, capsys):
+    """``--quantize int8`` in process: on the reduced run dir (16², 16 and 32
+    channels) the policy keeps every conv float and the evaluate warns and
+    matches the float one, as JAX's does; on a run dir of 64 channels at 32²
+    the evaluate decodes through the quantized copy."""
+    from fmdm_tpu_torch.ops.quant import is_quantized
+    from fmdm_tpu_torch.utils.checkpoint import save_checkpoint
+
+    def evaluate(run, out, *flags):
+        trm.main(["--ckpt_dir", str(run), "--mode", "evaluate", "--device", "cpu",
+                  "--num_samples", "2", "--batch_size", "2", "--num_inference_steps", "2",
+                  "--output_dir", str(out), *flags])
+        (exp,) = out.iterdir()
+        return _read_csv(exp / "eval_metrics_per_image.csv")[1]
+
+    try:
+        want = evaluate(runs["diffusion"], tmp_path / "float")
+        capsys.readouterr()
+        got = evaluate(runs["diffusion"], tmp_path / "int8", "--quantize", "int8")
+        assert "continuing with float weights" in capsys.readouterr().err   # the CLI's log
+        assert [r["mse"] for r in got] == [r["mse"] for r in want]
+        cfg = json.loads((runs["diffusion"] / "train_config.json").read_text())
+        cfg["model"]["unet"] = dict(SMALL_UNET, sample_size=32, block_out_channels=[64, 64])
+        # 32² samples from the 16² root (not its 16² tensor cache, which
+        # another test of this file may have written)
+        cfg["training"].update(img_size=32, use_tensor_cache=False)
+        wide = tmp_path / "wide"
+        wide.mkdir()
+        (wide / "train_config.json").write_text(json.dumps(cfg))
+        model = tdu.build_diffusion_model(cfg, generator=torch.Generator().manual_seed(5),
+                                          device="cpu")
+        save_checkpoint({"model": model, "epoch": 1}, wide / "diff_last.pt")
+        tdu._QUANT_CACHE.clear()
+        rows = evaluate(wide, tmp_path / "wide_int8", "--quantize", "int8")
+        assert len(rows) == 2 and all(np.isfinite(float(r["mse"])) for r in rows)
+        (source, qmodel), = tdu._QUANT_CACHE.values()
+        assert is_quantized(qmodel) and not is_quantized(source)
+    finally:
+        tdu.set_quantize(None)
+        tdu._QUANT_CACHE.clear()

@@ -66,9 +66,10 @@ def vae_draws(args, accum):
 def replay_vae_steps(monkeypatch, draws, kl_scales):
     real = tvae.KLTrainStep.step
 
-    def step(self, raw, valid, *, noise=None, generator=None, kl_scale=None):
+    def step(self, raw, valid, *, noise=None, generator=None, kl_scale=None, disc_active=False):
         kl_scales.append(kl_scale)
-        return real(self, raw, valid, noise=torch.from_numpy(draws.pop(0)), kl_scale=kl_scale)
+        return real(self, raw, valid, noise=torch.from_numpy(draws.pop(0)), kl_scale=kl_scale,
+                    disc_active=disc_active)
 
     monkeypatch.setattr(tvae.KLTrainStep, "step", step)
 

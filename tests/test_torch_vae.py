@@ -166,24 +166,23 @@ def test_vae_factory_full_width_names_and_shapes_equal_jax():
 
 
 def test_vq_and_unported_training_options_raise():
-    """VQ builds, and the perceptual, VQ and bce recipes are ported; the
-    GAN step, fsdp, tensor and sequence parallelism, a VQ model's
-    discriminator and rmsnorm still raise."""
+    """VQ builds, and the perceptual, VQ, bce and GAN recipes, a VQ model's
+    discriminator and rmsnorm are ported; fsdp, tensor and sequence
+    parallelism still raise."""
     vq = VAEFactory().build(dict(REDUCED_MODEL, latent_type="vq"), device="cpu")
     assert isinstance(vq, VQVAE)
-    with pytest.raises(NotImplementedError, match="8d"):
-        vq.make_discriminator()
-    with pytest.raises(NotImplementedError, match="rmsnorm"):
-        blocks.ResBlockND(8, None, 0.0, norm_type="rmsnorm", device="cpu")
+    assert type(vq.make_discriminator(device="cpu")).__name__ == "PatchDiscriminator"
+    block = blocks.ResBlockND(8, None, 0.0, norm_type="rmsnorm", device="cpu")
+    assert type(block.norm1).__name__ == "RMSNormND"
     model = _port_kl()
-    for option in ({"gan_weight": 0.5}, {"fsdp": True}, {"tensor_parallel": 2},
-                   {"sequence_parallel": 2}):
+    for option in ({"fsdp": True}, {"tensor_parallel": 2}, {"sequence_parallel": 2}):
         with pytest.raises(NotImplementedError):
             KLTrainStep(model, option)
     for option in ({"perceptual_weight": 0.1}, {"reg_type": "vq"}, {"recon_type": "bce"},
-                   {"recon_type": "focal"}):
+                   {"recon_type": "focal"}, {"gan_weight": 0.5}):
         KLTrainStep(model, option)
         KLTrainStep(vq, option)
+    assert KLTrainStep(model, {"gan_weight": 0.5}).discriminator is not None
 
 
 @pytest.mark.parametrize("scheduler", [

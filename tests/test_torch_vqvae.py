@@ -188,8 +188,12 @@ def test_vq_configs_state_dict_equals_jax(path):
         assert trainable == set(shapes) - buffers
     else:
         assert trainable == set(shapes) and "codebook.embedding" in trainable
-    with pytest.raises(NotImplementedError, match="8d"):
-        tm.make_discriminator()
+    # the GAN step is ported: the config's discriminator has JAX's names and shapes
+    disc = tm.make_discriminator(device="meta")
+    assert type(disc).__name__ == type(jm.make_discriminator()).__name__
+    assert {k: tuple(v.shape) for k, v in disc.state_dict().items()} == {
+        k: tuple(v.shape) for k, v in flatten_params(jax.eval_shape(
+            jm.make_discriminator().init, jax.random.PRNGKey(0))).items()}
 
 
 def test_vq_weights_carry_over_with_the_codebook_buffers():
