@@ -101,9 +101,9 @@ Phases, each printing one or more lines:
 22. training from a config: ``python -m fmdm_tpu_torch.train`` in
     subprocesses over a synthetic LDCT root (a train split of 3 cases and a
     test split of 4, 6 slices of 256² each): the flagship DDPM config for 1
-    epoch at its batch 8 (18 slices: a ragged, padded last batch), then
-    ``--resume`` for a second (the optimizer's step and the rate continue),
-    the flow-matching config for 1 epoch, the KL-VAE config for 2 epochs at
+    epoch at its batch 8 (18 slices: a ragged, padded last batch; [35a]
+    resumes the same config for a second under torchrun), the
+    flow-matching config for 1 epoch, the KL-VAE config for 1 epoch at
     batch 4 with the validation split, and ``--debug_visual_only`` on the
     DDPM run: exit codes, ``metrics.csv``, checkpoints, visuals, and the
     loop's logged build seconds, samples/s, checkpoint seconds per write;
@@ -191,7 +191,39 @@ Phases, each printing one or more lines:
     dequantize;
 33. ``ResBlockND(norm_type="rmsnorm")`` with FiLM at 256 channels, 256²,
     batch 4, card vs CPU;
-34. the whole run's seconds, a ``{"kernels": [...]}`` line, then the result
+34. the checkpoint backends on the flagship's train state after [17] (its
+    weights, AdamW's moments, an EMA of the weights: 1.82 GB): each of
+    ``torch``, ``torch_async``, ``orbax`` (``torch.distributed.checkpoint``)
+    and ``orbax_async`` saved and read back, every tensor bitwise equal to
+    the state at the save; under the async backends, 5 train steps that
+    change every tensor in place while the write is pending, the file still
+    holding the state at the call; the save's seconds and GB/s, the async
+    stall and the copies' device time, the flush, the steps beside a
+    pending write against 5 without, the DCP directory's size against the
+    file's (the training-CLI run under ``orbax_async`` is [35a]'s);
+35. data parallelism: (a) ``python -m torch.distributed.run
+    --nproc_per_node 1`` (NCCL) training the flagship DDPM config over
+    [22]'s root under ``orbax_async`` for 1 epoch, its loss equal to [22]'s
+    run without torchrun, then ``--resume`` for a second (the optimizer's
+    step and the rate continue, from a DCP directory), and ``run_model
+    evaluate`` of that run dir in this process with data-parallel sampling
+    on (one card: one shard) and with ``--no_dp_sampling``, equal per-image
+    metrics; (b) two gloo ranks on the one card (this process rank 0, a
+    child ``chip_smoke.py --dp-rank 1``): the flagship's train step at 2
+    rows per rank with valid counts 2 and 1, the KL-VAE's GAN step
+    (BatchNorm over the global batch, K3-K5) and the VQ-VAE's EMA step at 1
+    row per rank, each against one process on the global batch of a copy
+    of the same weights (f32, TF32 off; the parameters within 1e-5 of each
+    tensor's largest plus what AdamW's first step makes of the gradients'
+    difference, the gradients within 1e-5 of the largest, the GAN step's as
+    [31] holds it against the CPU and its losses within 1e-5, the EMA
+    codebook within 1e-5), the steps' seconds and launches, and the GAN
+    step once more with per-rank BatchNorm statistics, a planted fault that
+    tolerance must catch; (c) ``SamplingEngine`` over two shards of the card
+    (a 3-step DPM++ bf16 sample at batch 4 against each shard's rows
+    sampled alone) and the VAE engines' ``_make_dp_fn`` (a reconstruct at
+    batch 3, edge-padded to 4, against batch 3 unsplit), their launches;
+36. the whole run's seconds, a ``{"kernels": [...]}`` line, then the result
     line ``{"ok": true, "device": {...}}``.
 
 The flagship is ``model.unet`` of ``configs/LDCT/LDCT_ddpm_diffusers_nd.json``
@@ -1352,7 +1384,8 @@ def phase_denoise(torch, card: str, seed: int, gen, records):
         raise AssertionError(f"bf16 DDPM sample: shape {tuple(out.shape)} or non-finite values")
     log(f"  bf16, batch {batch}: {DDPM_BF16_STEPS} steps in {timing['model_seconds']:.4f} s, "
         f"output mean {float(out.mean()):.4f} std {float(out.std()):.4f} [{card}]")
-    return train_counts
+    return {"counts": train_counts, "model": model, "step": step, "data": data,
+            "noise_gen": noise_gen}
 
 
 def phase_schedulers(torch, gen) -> None:
@@ -1556,22 +1589,72 @@ def write_ldct_root(root: Path, seed: int, cases=(CLI_CASES, CLI_CASES),
     return cases[1] * slices
 
 
-def run_cli(card: str, run: Path, mode: str, *flags):
-    """``python -m fmdm_tpu_torch.run_model`` in a subprocess on the card:
-    its standard output followed by its log (standard error) and its wall
-    seconds; a non-zero exit fails the run."""
-    cmd = [sys.executable, "-m", "fmdm_tpu_torch.run_model", "--ckpt_dir", str(run),
-           "--mode", mode, *map(str, flags)]
+def run_cli(card: str, run: Path, mode: str, *flags, process: bool = False):
+    """``fmdm_tpu_torch.run_model``'s CLI on the card, with ``process`` in a
+    subprocess (``python -m``), else through its ``main`` in this process
+    (:func:`in_process`): its standard output followed by its log and its
+    wall seconds; a non-zero exit or an error fails the run."""
+    from fmdm_tpu_torch import run_model
+
+    argv = ["--ckpt_dir", str(run), "--mode", mode, *map(str, flags)]
+    if process:
+        text, secs = in_subprocess("fmdm_tpu_torch.run_model", argv, f"run_model --mode {mode}")
+    else:
+        text, secs = in_process(run_model.main, argv)
+    log(f"  CLI {mode} on {run.name} {' '.join(map(str, flags))}: "
+        f"{'exit 0' if process else 'in process'}, wall {secs:.2f} s [{card}]")
+    return text, secs
+
+
+def in_subprocess(module: str, argv, what: str):
+    """``python -m module argv`` on the card: its output then its log, and
+    its wall seconds; a non-zero exit fails the run."""
     start = time.perf_counter()
-    out = subprocess.run(cmd, cwd=REPO_ROOT, capture_output=True, text=True, timeout=600)
+    out = subprocess.run([sys.executable, "-m", module, *argv], cwd=REPO_ROOT,
+                         capture_output=True, text=True, timeout=600)
     secs = time.perf_counter() - start
     if out.returncode != 0:
         log(out.stdout[-2000:])
         log(out.stderr[-6000:])
-        raise AssertionError(f"run_model --mode {mode} on {run.name} exited {out.returncode}")
-    log(f"  CLI {mode} on {run.name} {' '.join(map(str, flags))}: exit 0, wall {secs:.2f} s "
-        f"[{card}]")
+        raise AssertionError(f"python -m {module} ({what}) exited {out.returncode}")
     return out.stdout + out.stderr, secs
+
+
+def in_process(main, argv):
+    """A CLI's ``main(argv)`` in this process, as a new process would run it
+    (PyTorch's default TF32 flags, the default checkpoint backend), with its
+    standard output, standard error and log captured: (text, wall seconds).
+    A cut of the subprocesses' start (7-8 s each on the card's host)."""
+    import io
+    import logging
+
+    import torch
+
+    from fmdm_tpu_torch.sample import diffusion_utils
+    from fmdm_tpu_torch.utils import checkpoint as ckpt_utils
+
+    buf = io.StringIO()
+    root = logging.getLogger()
+    saved = (root.handlers[:], root.level, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    start = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+            main(list(argv))
+    except BaseException:
+        log(buf.getvalue()[-6000:])
+        raise
+    finally:
+        root.handlers, root.level = saved[0], saved[1]
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved[2:]
+        # the settings a CLI leaves behind, back at a new process's
+        ckpt_utils.set_checkpoint_backend("torch")
+        diffusion_utils.set_deep_cache(None)
+        diffusion_utils.set_quantize(None)
+        diffusion_utils.set_use_ema(False)
+        diffusion_utils.set_dp_sampling(True)
+    return buf.getvalue(), time.perf_counter() - start
 
 
 def read_csv_rows(path: Path) -> list:
@@ -1657,7 +1740,7 @@ def phase_run_model(torch, card: str, seed: int, records, work: Path) -> dict:
     for label, extra in (("ddpm", ()), ("unipc", ("--scheduler", "unipc"))):
         out_dir = work / "cli" / f"evaluate_{label}"
         stdout, secs = run_cli(card, runs["ddpm"], "evaluate", *subset, "--output_dir", out_dir,
-                               *extra)
+                               *extra, process=not extra)
         row = check_evaluate(out_dir, samples)
         calls, model_s = int(row["model_calls"]), float(row["model_seconds"])
         throughput = next(line for line in stdout.splitlines() if line.startswith("Model throughput"))
@@ -1794,19 +1877,15 @@ def phase_run_model(torch, card: str, seed: int, records, work: Path) -> dict:
     return totals
 
 
-def run_train_cli(card: str, what: str, *flags):
-    """``python -m fmdm_tpu_torch.train`` in a subprocess on the card: its
-    log (standard error and output) and wall seconds; a non-zero exit fails
-    the run."""
-    cmd = [sys.executable, "-m", "fmdm_tpu_torch.train", *map(str, flags)]
-    start = time.perf_counter()
-    out = subprocess.run(cmd, cwd=REPO_ROOT, capture_output=True, text=True, timeout=600)
-    secs = time.perf_counter() - start
-    if out.returncode != 0:
-        log(out.stdout[-2000:])
-        log(out.stderr[-6000:])
-        raise AssertionError(f"python -m fmdm_tpu_torch.train ({what}) exited {out.returncode}")
-    return out.stderr + out.stdout, secs
+def run_train_cli(card: str, what: str, *flags, process: bool = False):
+    """``fmdm_tpu_torch.train``'s CLI on the card, with ``process`` in a
+    subprocess, else through its ``main`` in this process: its log and wall
+    seconds; a non-zero exit or an error fails the run."""
+    from fmdm_tpu_torch.train import __main__ as train_main
+
+    if process:
+        return in_subprocess("fmdm_tpu_torch.train", list(map(str, flags)), what)
+    return in_process(train_main.main, list(map(str, flags)))
 
 
 def loop_log(text: str) -> dict:
@@ -1831,7 +1910,7 @@ def loop_log(text: str) -> dict:
 
 
 def describe_run(card: str, what: str, logged: dict, wall: float) -> None:
-    log(f"  CLI {what}: exit 0, wall {wall:.2f} s, model build {logged['build_s']:.3f} s [{card}]")
+    log(f"  CLI {what}: wall {wall:.2f} s, model build {logged['build_s']:.3f} s [{card}]")
     for e in logged["epochs"]:
         log(f"    epoch {e['epoch']}: {e['steps']} steps in {e['steps_s']:.3f} s "
             f"({e['samples_per_s']:.3f} samples/s, {e['data_wait_s']:.3f} s waiting for data), "
@@ -1870,6 +1949,17 @@ def write_config(path: Path, cfg: dict) -> Path:
     return path
 
 
+def ddpm_rate(cfg: dict, epochs: int):
+    """The DDPM config's rate per optimizer step over ``epochs`` of [22]'s
+    train split."""
+    from fmdm_tpu_torch.train import common
+
+    batch = int(cfg["training"]["train_batch_size"])
+    return common.cosine_warmup_schedule(
+        float(cfg["training"]["learning_rate"]), int(cfg["training"]["lr_warmup_steps"]),
+        epochs * -(-TRAIN_CASES[0] * TRAIN_SLICES // batch))
+
+
 def phase_train(torch, card: str, seed: int, records, work: Path) -> dict:
     """[22]: training from a config through the CLI and in process; returns
     the launches of the in-process loops."""
@@ -1892,43 +1982,22 @@ def phase_train(torch, card: str, seed: int, records, work: Path) -> dict:
     base = work / "train"
     runs = {"ddpm": base / "ddpm_run1", "flow": base / "flow_run1", "vae": base / "vae_run1"}
 
-    # the flagship DDPM config, 1 epoch, then a resumed second
+    # the flagship DDPM config, 1 epoch ([35a] resumes the same run under
+    # torchrun for a second)
     epochs = TRAIN_EPOCHS["ddpm"]
     cfg = train_config(CONFIG, root, base / "ddpm", num_epochs=epochs)
-    text, wall = run_train_cli(card, "ddpm", "--config", write_config(work / "cfg" / "ddpm.json", cfg))
+    text, wall = run_train_cli(card, "ddpm", "--config", write_config(work / "cfg" / "ddpm.json", cfg),
+                               process=True)
     first = loop_log(text)
     describe_run(card, f"DDPM, {epochs} epochs at batch {batch}", first, wall)
     check_run_dir(runs["ddpm"], list(range(1, epochs + 1)),
                   ["diff_last.pt", "diff_best.pt", f"epochs/epoch{epochs:04d}/epoch.pt",
                    *(f"visuals/epoch{epochs:04d}_{k}.png" for k in ("input", "output", "target"))])
-    rate = {}
-    for total in (epochs, epochs + 1):
-        rate[total] = common.cosine_warmup_schedule(
-            float(cfg["training"]["learning_rate"]), int(cfg["training"]["lr_warmup_steps"]),
-            total * per_epoch)
     payload = ckpt_utils.load_checkpoint(runs["ddpm"] / "diff_last.pt")
     steps = int(payload["optimizer"]["state"][0]["step"])
     lr = payload["optimizer"]["param_groups"][0]["lr"]
-    if steps != epochs * per_epoch or lr != rate[epochs](steps - 1):
+    if steps != epochs * per_epoch or lr != ddpm_rate(cfg, epochs)(steps - 1):
         raise AssertionError(f"DDPM run: optimizer step {steps}, rate {lr}")
-    resumed = train_config(CONFIG, root, runs["ddpm"], num_epochs=epochs + 1)
-    text, wall = run_train_cli(card, "ddpm --resume", "--config",
-                               write_config(work / "cfg" / "ddpm_resume.json", resumed),
-                               "--resume", runs["ddpm"] / "diff_last.pt")
-    second = loop_log(text)
-    describe_run(card, f"DDPM --resume diff_last.pt, epoch {epochs + 1}", second, wall)
-    check_run_dir(runs["ddpm"], list(range(1, epochs + 2)),
-                  [f"epochs/epoch{epochs + 1:04d}/epoch.pt", f"visuals/epoch{epochs + 1:04d}_output.png"])
-    payload = ckpt_utils.load_checkpoint(runs["ddpm"] / "diff_last.pt")
-    steps_after = int(payload["optimizer"]["state"][0]["step"])
-    lr_after = payload["optimizer"]["param_groups"][0]["lr"]
-    log(f"  resume: optimizer step {steps} -> {steps_after}, last rate {lr:.6e} -> {lr_after:.6e} "
-        f"(the resumed schedule's rate at step {steps_after - 1}: "
-        f"{rate[epochs + 1](steps_after - 1):.6e}); epoch {payload['epoch']}")
-    if steps_after != (epochs + 1) * per_epoch or lr_after != rate[epochs + 1](steps_after - 1) \
-            or second["epochs"][0]["optimizer_step"] != steps_after:
-        raise AssertionError(f"the resumed run did not continue the optimizer's step {steps}: "
-                             f"{steps_after}, rate {lr_after}")
 
     # flow matching, 1 epoch
     flow = train_config(FLOW_CONFIG, root, base / "flow", num_epochs=TRAIN_EPOCHS["flow"])
@@ -1959,7 +2028,7 @@ def phase_train(torch, card: str, seed: int, records, work: Path) -> dict:
                                "--debug_visual_only", "--ckpt", runs["ddpm"] / "diff_best.pt",
                                "--visual_samples", 2, "--output_dir", out_dir)
     written = sorted(str(p.relative_to(out_dir)) for p in out_dir.rglob("*") if p.is_file())
-    log(f"  CLI --debug_visual_only: exit 0, wall {wall:.2f} s, {len(written)} files [{card}]")
+    log(f"  CLI --debug_visual_only: wall {wall:.2f} s, {len(written)} files [{card}]")
     if not any(f.startswith("grid_output") for f in written) or \
             not any(f.startswith("generated") for f in written):
         raise AssertionError(f"--debug_visual_only wrote {written}")
@@ -2330,18 +2399,30 @@ def vae_grad_errors(model, cpu_model):
     pairs = [(n, pg.grad.detach().cpu().float(), pc.grad.detach().float())
              for (n, pg), pc in zip(model.named_parameters(), cpu_model.parameters())
              if pg.grad is not None]
+    return worst_grad(pairs, norm=False)[:3]
+
+
+def worst_grad(pairs, norm: bool):
+    """The worst of (name, got, want) gradient pairs as :func:`vae_grad_errors`
+    (``norm`` False) and :func:`disc_grad_errors` (``norm`` True) hold them:
+    (worst, its name, the noise tensors' count, the worst max|got-want|/max|want|
+    of the others)."""
     top = max(float(c.abs().max()) for _, _, c in pairs)
-    worst, worst_name, noise = 0.0, "", 0
+    worst, worst_name, noise, worst_max = 0.0, "", 0, 0.0
     for name, g, c in pairs:
         scale = float(c.abs().max())
         if scale < 1e-6 * top:
+            # rounding noise (0 in exact arithmetic, as a bias before a
+            # norm of one channel per group): held to 1e-5 of the largest
             noise += 1
             err = float((g - c).abs().max()) / (1e-2 * top)
         else:
-            err = float((g - c).abs().max()) / scale
+            rel_max = float((g - c).abs().max()) / scale
+            worst_max = max(worst_max, rel_max)
+            err = float((g - c).norm() / c.norm()) if norm else rel_max
         if err > worst:
             worst, worst_name = err, name
-    return worst, worst_name, noise
+    return worst, worst_name, noise, worst_max
 
 
 def disc_grad_errors(disc, cpu_disc):
@@ -2357,18 +2438,7 @@ def disc_grad_errors(disc, cpu_disc):
     pairs = [(name, pg.grad.detach().cpu().double(), pc.grad.detach().double())
              for (name, pg), pc in zip(disc.named_parameters(), cpu_disc.parameters())
              if pg.grad is not None]
-    top = max(float(c.abs().max()) for _, _, c in pairs)
-    worst, worst_name, worst_max = 0.0, "", 0.0
-    for name, g, c in pairs:
-        if float(c.abs().max()) < 1e-6 * top:
-            # rounding noise (a conv bias before a BatchNorm: 0 in exact
-            # arithmetic), held as vae_grad_errors holds it
-            err = float((g - c).abs().max()) / (1e-2 * top)
-        else:
-            err = float((g - c).norm() / c.norm())
-            worst_max = max(worst_max, float((g - c).abs().max() / c.abs().max()))
-        if err > worst:
-            worst, worst_name = err, name
+    worst, worst_name, _, worst_max = worst_grad(pairs, norm=True)
     return worst, worst_name, worst_max
 
 
@@ -3345,6 +3415,615 @@ def phase_rmsnorm(torch, card: str, gen) -> None:
         raise AssertionError(f"the rmsnorm ResBlock disagrees with the CPU (rel {rel})")
 
 
+# ---------------------------------------------------------------------------
+# [34] checkpoint backends, [35] data parallelism
+# ---------------------------------------------------------------------------
+
+def state_tensors(torch, state: dict) -> dict:
+    """Every tensor of a train state by a path name, copied to the host."""
+    out = {}
+    for key, value in state.items():
+        if isinstance(value, torch.nn.Module):
+            value = value.state_dict()
+        elif isinstance(value, torch.optim.Optimizer):
+            value = value.state_dict()["state"]
+        if isinstance(value, dict):
+            for name, v in value.items():
+                items = v.items() if isinstance(v, dict) else [("", v)]
+                for sub, t in items:
+                    if isinstance(t, torch.Tensor):
+                        out[f"{key}/{name}/{sub}"] = t.detach().cpu().clone()
+    return out
+
+
+def loaded_tensors(torch, payload: dict) -> dict:
+    """The same paths of a loaded checkpoint."""
+    out = {}
+    for key in ("model", "ema"):
+        out.update({f"{key}/{n}/": t for n, t in payload[key].items()})
+    for i, st in payload["optimizer"]["state"].items():
+        out.update({f"optimizer/{i}/{k}": t for k, t in st.items()})
+    out["rng_state/state/"] = payload["rng_state"]["state"]
+    return out
+
+
+def tree_bytes(torch, tensors: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors.values())
+
+
+def phase_checkpoints(torch, card: str, seed: int, records, train: dict, work: Path) -> dict:
+    """[34]: the four checkpoint backends on the flagship's train state after
+    [17]'s steps (the model, AdamW and an EMA of the weights); returns the
+    launches of the train steps that ran while an async write was pending."""
+    from fmdm_tpu_torch.train.common import generator_state
+    from fmdm_tpu_torch.utils import checkpoint as ckpt_utils
+
+    log("[34] checkpoint backends on the flagship's train state after [17] (model, AdamW, EMA): "
+        "each saved and read back bitwise, the async snapshot against in-place updates, the "
+        "stall, the flush and the steps under a pending write")
+    model, step, data, noise_gen = (train[k] for k in ("model", "step", "data", "noise_gen"))
+    torch.backends.cudnn.allow_tf32 = False
+    ema = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state = {"model": model, "optimizer": step.optimizer, "ema": ema,
+             "lr_scheduler": {"last_epoch": 1}, "scaler": None, "epoch": 1, "best_metric": 0.5,
+             "rng_state": generator_state(noise_gen)}
+    root = work / "backends"
+    batch = int(data["valid"].shape[0])
+    out = {}
+
+    @functools.lru_cache(maxsize=None)
+    def quiet_steps() -> float:
+        """Seconds per step of TRAIN_STEPS train steps with no write pending (once)."""
+        start = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            step.step(data, generator=noise_gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - start) / TRAIN_STEPS
+
+    for backend in ckpt_utils.BACKENDS:
+        want = state_tensors(torch, state)
+        gb = tree_bytes(torch, want) / 1e9
+        path = root / backend / "diff_last.pt"
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        ckpt_utils.save_checkpoint(state, path, backend=backend)
+        t1 = time.perf_counter()
+        line = f"  {backend}: {gb:.3f} GB, "
+        if backend.endswith("_async"):
+            # an event after the return completes after the snapshot's copies
+            e1 = torch.cuda.Event(enable_timing=True)
+            e1.record()
+            e1.synchronize()
+            copied_s = time.perf_counter() - t0
+            copy_s = e0.elapsed_time(e1) / 1e3
+            # train steps while the write is pending: they change every
+            # tensor of the state in place
+            reset_counts(records)
+            t2 = time.perf_counter()
+            for _ in range(TRAIN_STEPS):
+                step.step(data, generator=noise_gen)
+            torch.cuda.synchronize()
+            pending_s = (time.perf_counter() - t2) / TRAIN_STEPS
+            out = read_counts(records)
+            expect_counts("a train step beside a pending write", out, DENOISE_LAUNCHES, TRAIN_STEPS)
+            t3 = time.perf_counter()
+            ckpt_utils.flush_checkpoint_writes()
+            flush_s = time.perf_counter() - t3
+            quiet_s = quiet_steps()
+            moved = max(float((p.detach().cpu() - want[f"model/{n}/"]).abs().max())
+                        for n, p in model.named_parameters())
+            line += (f"save_checkpoint returned after {t1 - t0:.3f} s (the stall); the "
+                     f"device-to-host copies into pinned memory {copy_s:.3f} s on the card, done "
+                     f"{copied_s:.3f} s after the call; flush {flush_s:.3f} s; {TRAIN_STEPS} train steps "
+                     f"at batch {batch} {pending_s * 1e3:.2f} ms per step with the write pending, "
+                     f"{quiet_s * 1e3:.2f} without; the live weights moved {moved:.3e} after the "
+                     f"enqueue")
+            if not moved > 0:
+                raise AssertionError(f"{backend}: the steps under the pending write moved nothing")
+        else:
+            line += f"save {t1 - t0:.3f} s ({gb / (t1 - t0):.3f} GB/s)"
+        t5 = time.perf_counter()
+        got = loaded_tensors(torch, ckpt_utils.load_checkpoint(path))
+        load_s = time.perf_counter() - t5
+        same = got.keys() == want.keys() and all(
+            got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]) for k in want)
+        size = (sum(p.stat().st_size for p in path.rglob("*") if p.is_file()) if path.is_dir()
+                else path.stat().st_size)
+        log(line + f"; read back {load_s:.3f} s, {len(want)} tensors bitwise equal to the state at "
+            f"the save: {same}; {'directory' if path.is_dir() else 'file'} of {size / 1e9:.4f} GB "
+            f"[{card}]")
+        if not same:
+            raise AssertionError(f"{backend}: the checkpoint does not hold the state at the save")
+    torch_size = (root / "torch" / "diff_last.pt").stat().st_size
+    dcp_size = sum(p.stat().st_size for p in (root / "orbax" / "diff_last.pt").rglob("*")
+                   if p.is_file())
+    log(f"  the DCP directory {dcp_size} bytes against the .pt file's {torch_size} "
+        f"({dcp_size / torch_size:.4f}x)")
+    return out
+
+
+DP_LAUNCHES = {"flagship": DENOISE_LAUNCHES, "KL-VAE GAN": VAE_LAUNCHES["train step"],
+               "VQ-VAE EMA": VQ_LAUNCHES["train step"]}
+DP_TOL = 1e-5          # [35b]: f32, TF32 off
+# [35b]'s GAN step: the losses at tests/test_torch_gan.py's 1e-5; the
+# gradients per tensor as [31] holds the card against the CPU (1e-2), since
+# batch 1 and batch 2 round apart under D's BatchNorm over near-constant
+# reconstructions. Read beside: the elementwise excess over that file's
+# gradient tolerance (rtol, and the larger of a share of the tensor's
+# largest and of the model's), and a planted fault (per-rank BatchNorm
+# statistics) the 1e-2 must catch.
+DP_GAN_GRAD_TOL = (1e-3, 5e-4, 1e-5)
+DP_GAN_LOSS_TOL = 1e-5
+DP_RANKS = 2
+DP_TIMEOUT_S = 300
+
+
+def adam_first_update(torch, g, lr: float):
+    """AdamW's first step on ``g`` (bias-corrected moments g and g²) without
+    the decay: lr g / (|g| + eps)."""
+    g = g.double()
+    return lr * g / (g.abs() + 1e-8)
+
+
+def dp_vae_configs():
+    """[35b]'s VAE steps: (what, config, training section)."""
+    vae = json.loads(VAE_CONFIG.read_text())
+    vq = json.loads(VQ_CONFIGS["ema"].read_text())
+    return (("KL-VAE GAN", vae, dict(vae["training"], gan_weight=0.5, gan_start=0)),
+            ("VQ-VAE EMA", vq, dict(vq["training"])))
+
+
+def one_process(step):
+    """A copy of a train step over a mesh as one process's step: its model,
+    optimizers and discriminator copied, no reduction over ranks."""
+    ref = copy.deepcopy(step)
+    ref.mesh = None
+    for module in [ref.model] + ([ref.discriminator] if getattr(ref, "discriminator", None)
+                                 is not None else []):
+        for m in module.modules():
+            if hasattr(m, "mesh"):
+                m.mesh = None
+    return ref
+
+
+def per_rank_batch_norm(step):
+    """A copy of a GAN train step over the ranks whose discriminator's
+    BatchNorms take this rank's batch statistics, not the global batch's:
+    the planted fault [35b]'s tolerance must catch."""
+    from fmdm_tpu_torch.nn.layers import BatchNorm
+
+    ctl = copy.deepcopy(step)
+    for m in ctl.discriminator.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = None
+    return ctl
+
+
+def host_state(torch, module) -> dict:
+    return {n: t.detach().cpu().clone() for n, t in module.state_dict().items()}
+
+
+def host_grads(torch, module) -> dict:
+    return {n: p.grad.detach().cpu().clone() for n, p in module.named_parameters()
+            if p.grad is not None}
+
+
+def dp_steps(torch, seed: int, mesh, rank: int):
+    """[35b]'s three train steps over ``mesh`` (every rank builds the same
+    weights from ``seed``), each as (what, step, run(step, rows) -> outputs,
+    the global batch's rows of this rank, the rate): the flagship's at 2 rows
+    per rank (valid 1, 1 on rank 0 and 1, 0 on rank 1), the KL-VAE's GAN
+    step and the VQ-VAE's EMA step at 1 row per rank."""
+    from fmdm_tpu_torch.sample.vae_utils import build_vae_model
+    from fmdm_tpu_torch.train.denoise_lib import build_denoise_trainer
+    from fmdm_tpu_torch.train.vae_impl import VAETrainStep
+
+    cfg = json.loads(CONFIG.read_text())
+    warmup = int(cfg["training"]["lr_warmup_steps"])
+    model, _, step = build_denoise_trainer(cfg, variant="diffusion", num_samples=8,
+                                           device="cuda", mesh=mesh)
+    random_weights(torch, model, torch.Generator().manual_seed(seed))
+    step.global_step = warmup
+    data = train_batch(torch, torch.Generator().manual_seed(seed + 5), 2 * DP_RANKS, "cuda")
+    data["valid"] = torch.tensor([1.0, 1.0, 1.0, 0.0], device="cuda")
+
+    def denoise(st, rows):
+        gen = torch.Generator("cuda").manual_seed(seed + 7)
+        return st.step({k: v[rows] for k, v in data.items()}, generator=gen)
+
+    yield "flagship", step, denoise, slice(2 * rank, 2 * rank + 2), step.lr_schedule(warmup)
+    del model, step
+    for what, vae_cfg, training in dp_vae_configs():
+        model = build_vae_model(vae_cfg, generator=torch.Generator().manual_seed(seed),
+                                device="cuda")
+        random_weights(torch, model, torch.Generator().manual_seed(seed))
+        trainer = VAETrainStep(model, training, mesh=mesh)
+        raw = torch.rand((DP_RANKS, 1, 256, 256),
+                         generator=torch.Generator().manual_seed(seed + 6)).cuda()
+
+        def vae(st, rows, raw=raw):
+            gen = torch.Generator("cuda").manual_seed(seed + 8)
+            return st.step(raw[rows], torch.ones(raw[rows].shape[0], device="cuda"),
+                           generator=gen, disc_active=st.discriminator is not None)
+
+        yield what, trainer, vae, slice(rank, rank + 1), float(training["learning_rate"])
+        del model, trainer
+    torch.cuda.empty_cache()
+
+
+def dp_result(torch, step, run, rows, lr: float, records=None, warm: bool = True) -> dict:
+    """One train step and (``warm``) a warm one through ``run``: the model's
+    (and a discriminator's) parameters and gradients after the first, its
+    metrics, count and seconds, the warm step's seconds, and with
+    ``records`` the first step's launches."""
+    torch.cuda.synchronize()
+    if records is not None:
+        reset_counts(records)
+    start = time.perf_counter()
+    out, count = run(step, rows)
+    torch.cuda.synchronize()
+    res = {"secs": time.perf_counter() - start,
+           "counts": read_counts(records) if records is not None else None,
+           "state": host_state(torch, step.model), "grads": host_grads(torch, step.model),
+           "metrics": ({k: float(v) for k, v in out.items()} if isinstance(out, dict)
+                       else {"loss_sum": float(out)}),
+           "count": float(count), "lr": lr}
+    disc = getattr(step, "discriminator", None)
+    if disc is not None:
+        res["disc"] = {"state": host_state(torch, disc), "grads": host_grads(torch, disc),
+                       "lr": step.disc_optimizer.param_groups[0]["lr"]}
+    if warm:
+        start = time.perf_counter()
+        run(step, rows)
+        torch.cuda.synchronize()
+        res["warm_secs"] = time.perf_counter() - start
+    return res
+
+
+def dp_run(torch, seed: int, mesh, rank: int, records=None) -> dict:
+    """[35b]'s steps over ``mesh``, every rank in lockstep; with ``records``
+    (rank 0) also each step's one-process reference on the global batch,
+    from a copy of the same weights taken before the step."""
+    results, refs, controls = {}, {}, {}
+    for what, step, run, rows, lr in dp_steps(torch, seed, mesh, rank):
+        ref = one_process(step) if records is not None else None
+        ctl = per_rank_batch_norm(step) if getattr(step, "discriminator", None) is not None \
+            else None
+        results[what] = dp_result(torch, step, run, rows, lr, records)
+        if ref is not None:
+            refs[what] = dp_result(torch, ref, run, slice(None), lr)
+        if ctl is not None:   # every rank, after the reference: the collectives pair up
+            controls[what] = dp_result(torch, ctl, run, rows, lr, warm=False)
+        del ref, ctl
+    return {"dp": results, "one": refs, "control": controls}
+
+
+def dp_compare(torch, what: str, got: dict, want: dict, gan: str = "") -> dict:
+    """The step over the ranks against one process on the global batch: the
+    gradients (the model's largest difference over its largest gradient,
+    within DP_TOL; a GAN step's generator and discriminator, ``gan``
+    "generator" or "discriminator", per tensor as [31] holds the card
+    against the CPU, within PERCEPTUAL_GRAD_TOL, and their elementwise
+    excess over DP_GAN_GRAD_TOL for the log), the parameters' excess over
+    DP_TOL of each tensor's largest plus what AdamW's first step makes of
+    the gradients' difference, the buffers (an EMA codebook) within DP_TOL
+    of their largest, the metrics within DP_TOL of the largest
+    (DP_GAN_LOSS_TOL for a GAN step)."""
+    g, w = got["grads"], want["grads"]
+    model_max = max(float(t.abs().max()) for t in w.values())
+    grad_rel = max(float((g[n] - w[n]).abs().max()) for n in w) / model_max
+    excess = None
+    if gan:
+        rtol, share, floor = DP_GAN_GRAD_TOL
+        excess = max(float(((g[n] - w[n]).abs() - rtol * w[n].abs()).max())
+                     - max(share * float(w[n].abs().max()), floor * model_max) for n in w)
+        grad_err = worst_grad([(n, g[n].double(), w[n].double()) for n in w],
+                              norm=gan == "discriminator")[0]
+        grad_tol, metric_tol = PERCEPTUAL_GRAD_TOL, DP_GAN_LOSS_TOL
+    else:
+        grad_err, grad_tol, metric_tol = grad_rel, DP_TOL, DP_TOL
+    param_excess = max(float(((got["state"][n] - want["state"][n]).abs().double()
+                              - DP_TOL * float(want["state"][n].abs().max())
+                              - (adam_first_update(torch, g[n], got["lr"])
+                                 - adam_first_update(torch, w[n], got["lr"])).abs()).max())
+                       for n in w)
+    buffers = [n for n in want["state"] if n not in w and n.startswith("codebook.")]
+    buffer_rel = max((float((got["state"][n] - want["state"][n]).abs().max())
+                      / max(float(want["state"][n].abs().max()), 1e-30) for n in buffers),
+                     default=0.0)
+    scale = max(abs(v) for v in want["metrics"].values())
+    metric_rel = max(abs(got["metrics"][k] - want["metrics"][k]) for k in want["metrics"]) / scale
+    ok = (param_excess <= 0 and grad_err <= grad_tol and buffer_rel <= DP_TOL
+          and metric_rel <= metric_tol and got["count"] == want["count"])
+    return {"grad_rel": grad_rel, "grad_err": grad_err, "grad_tol": grad_tol,
+            "excess": excess, "param_excess": param_excess, "buffer_rel": buffer_rel,
+            "metric_rel": metric_rel, "ok": ok}
+
+def dp_worker(rank: int, port: int, seed: int) -> int:
+    """Rank ``rank`` of [35b]'s two gloo ranks on the one card (started by
+    the main run, which is rank 0)."""
+    import torch
+    import torch.distributed as dist
+
+    from fmdm_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=DP_RANKS, timeout=mesh_lib.timeout())
+    try:
+        mesh = mesh_lib.create_data_mesh(2, "cuda")
+        results = dp_run(torch, seed, mesh, rank)["dp"]
+    finally:
+        dist.destroy_process_group()
+    print("dp rank", rank, json.dumps({k: {"secs": v["secs"], "warm_secs": v["warm_secs"],
+                                           "count": v["count"]} for k, v in results.items()}))
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_torchrun(torch, card: str, seed: int, records, work: Path) -> dict:
+    """[35a]: torchrun with NCCL (one rank) training the flagship over [22]'s
+    root under ``orbax_async`` with a resume (also [34]'s training-CLI run),
+    and ``run_model evaluate`` of that run dir with data-parallel sampling on
+    and off; returns the launches of the evaluate with it on."""
+    from fmdm_tpu_torch import run_model
+    from fmdm_tpu_torch.utils import checkpoint as ckpt_utils
+
+    counts = {}
+    # (a) torchrun, NCCL, one rank: the flagship config over [22]'s root
+    # under orbax_async (this is also [34]'s training-CLI run), then --resume
+    log("[35a] data parallelism: python -m torch.distributed.run --nproc_per_node 1 (NCCL) on "
+        "the flagship DDPM config over [22]'s root, checkpoint_backend orbax_async, 1 epoch and "
+        "--resume, against [22]'s run without torchrun; run_model evaluate of its run dir with "
+        "data-parallel sampling on and with --no_dp_sampling")
+    root, base = work / "train_ldct", work / "torchrun"
+    reference = work / "train" / "ddpm_run1"
+    epochs = TRAIN_EPOCHS["ddpm"]
+    runs = []
+    for total, resume in ((epochs, None), (epochs + 1, base / "ddpm_run1" / "diff_last.pt")):
+        out_dir = base / "ddpm" if resume is None else base / "ddpm_run1"
+        cfg = train_config(CONFIG, root, out_dir, num_epochs=total,
+                           checkpoint_backend="orbax_async")
+        flags = ["--config", write_config(work / "cfg" / f"torchrun_{total}.json", cfg)]
+        if resume is not None:
+            flags += ["--resume", resume]
+        start = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+                               "--nproc_per_node", "1", "--master_addr", "127.0.0.1",
+                               "--master_port", str(free_port()), "-m", "fmdm_tpu_torch.train",
+                               *map(str, flags)], cwd=REPO_ROOT, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - start
+        if proc.returncode != 0:
+            log(proc.stdout[-2000:])
+            log(proc.stderr[-6000:])
+            raise AssertionError(f"torchrun training exited {proc.returncode}")
+        text = proc.stderr + proc.stdout
+        if "Process group: backend nccl, rank 0 of 1" not in text:
+            log(text[-3000:])
+            raise AssertionError("the torchrun run did not join an NCCL group of one rank")
+        runs.append(loop_log(text))
+        describe_run(card, f"torchrun, orbax_async, {'--resume, ' if resume else ''}"
+                           f"epochs to {total}", runs[-1], wall)
+    run = base / "ddpm_run1"
+    rows = check_run_dir(run, [epochs, epochs + 1],
+                         ["diff_last.pt", "diff_best.pt", f"epochs/epoch{epochs:04d}/epoch.pt",
+                          f"epochs/epoch{epochs + 1:04d}/epoch.pt",
+                          f"visuals/epoch{epochs + 1:04d}_output.png"])
+    ref_rows = read_csv_rows(reference / "metrics.csv")
+    losses = [(float(r["train_loss"]), float(w["train_loss"])) for r, w in zip(rows, ref_rows)]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in losses)
+    first = ckpt_utils.load_checkpoint(run / "epochs" / f"epoch{epochs:04d}" / "epoch.pt")
+    payload = ckpt_utils.load_checkpoint(run / "diff_last.pt")
+    steps = int(first["optimizer"]["state"][0]["step"])
+    steps_after = int(payload["optimizer"]["state"][0]["step"])
+    lr_after = payload["optimizer"]["param_groups"][0]["lr"]
+    rate = ddpm_rate(cfg, epochs + 1)
+    per_epoch = steps // epochs
+    log(f"  run dir {run.name}: checkpoints are DCP directories "
+        f"{(run / 'diff_last.pt' / '.metadata').is_file()}; epoch losses (torchrun, [22]'s run "
+        f"without it) {losses}, rel {loss_rel:.3e}; resume: optimizer step {steps} -> "
+        f"{steps_after}, last rate {lr_after:.6e} (the resumed schedule's at step "
+        f"{steps_after - 1}: {rate(steps_after - 1):.6e}); epoch {payload['epoch']}")
+    if not ((run / "diff_last.pt" / ".metadata").is_file() and len(losses) == epochs
+            and loss_rel <= 1e-5 and steps_after == (epochs + 1) * per_epoch
+            and lr_after == rate(steps_after - 1)
+            and runs[1]["epochs"][0]["optimizer_step"] == steps_after):
+        raise AssertionError(f"the torchrun run differs from the run without it ({losses}) or "
+                             f"did not continue the optimizer's step {steps}: {steps_after}, "
+                             f"rate {lr_after}")
+
+    # run_model evaluate of the DCP run dir, in this process, with
+    # data-parallel sampling on (one card: one shard) and off
+    per_image = {}
+    for flag in ((), ("--no_dp_sampling",)):
+        out_dir = work / "dp_eval" / ("off" if flag else "on")
+        reset_counts(records)
+        in_process(run_model.main, ["--ckpt_dir", str(run), "--mode", "evaluate", "--num_samples",
+                                    str(VAE_CLI_SAMPLES), "--num_inference_steps", str(CLI_STEPS),
+                                    "--batch_size", str(DECODE_BATCH), "--output_dir",
+                                    str(out_dir), *flag])
+        torch.cuda.synchronize()
+        if not flag:
+            counts["evaluate"] = read_counts(records)
+            calls = -(-VAE_CLI_SAMPLES // DECODE_BATCH) * CLI_STEPS
+            expect_counts("[35a] evaluate", counts["evaluate"], DENOISE_LAUNCHES, calls)
+        row = check_evaluate(out_dir, VAE_CLI_SAMPLES)
+        per_image[bool(flag)] = [float(r["mse"]) for r in row["per_image"]]
+    log(f"  evaluate of {VAE_CLI_SAMPLES} slices (DCP run dir): per-image MSE with data-parallel "
+        f"sampling {per_image[False]} equal to --no_dp_sampling: "
+        f"{per_image[False] == per_image[True]}; launches {counts['evaluate']} [{card}]")
+    if per_image[False] != per_image[True]:
+        raise AssertionError("data-parallel sampling on one card changed the evaluation")
+    return counts
+
+
+def phase_gloo_ranks(torch, card: str, seed: int, records) -> dict:
+    """[35b]: two gloo ranks sharing the card (this process rank 0, a child
+    rank 1) against one process on the global batch; returns the launches
+    of rank 0's steps."""
+    import torch.distributed as dist
+
+    from fmdm_tpu_torch.parallel import mesh as mesh_lib
+
+    counts = {}
+    log(f"[35b] {DP_RANKS} gloo ranks on the one card (this process rank 0, a child rank 1): "
+        f"the flagship's train step at 2 rows per rank (valid 1, 1 and 1, 0), the KL-VAE's GAN "
+        f"step and the VQ-VAE's EMA step at 1 row per rank, each against one process on the "
+        f"global batch, f32, TF32 off; the GAN step also with per-rank "
+        f"BatchNorm statistics (a planted fault the tolerance must catch)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    port = free_port()
+    child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank", "1",
+                              "--dp-port", str(port), "--seed", str(seed)], cwd=REPO_ROOT,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                                world_size=DP_RANKS, timeout=mesh_lib.timeout())
+        try:
+            mesh = mesh_lib.create_data_mesh(2, "cuda")
+            ran = dp_run(torch, seed, mesh, 0, records)
+        finally:
+            dist.destroy_process_group()
+        child_out = child.communicate(timeout=DP_TIMEOUT_S)[0]
+    except BaseException:
+        if child.poll() is None:
+            child.kill()
+        log(child.communicate()[0][-4000:])
+        raise
+    if child.returncode != 0:
+        log(child_out[-4000:])
+        raise AssertionError(f"rank 1 exited {child.returncode}")
+    log("  " + [line for line in child_out.splitlines() if line.startswith("dp rank")][-1])
+    want = ran["one"]
+    for what, res in ran["dp"].items():
+        expect_counts(f"[35b] {what} step over the ranks", res["counts"], DP_LAUNCHES[what])
+        counts[what] = res["counts"]
+        gan = "disc" in res
+        cmp = dp_compare(torch, what, res, want[what], "generator" if gan else "")
+        line = (f"  {what}: gradients max|ranks-one|/max {cmp['grad_rel']:.3e}"
+                + (f" (worst per tensor as [31] holds them {cmp['grad_err']:.3e}, tolerance "
+                   f"{cmp['grad_tol']:g}; elementwise excess over tests/test_torch_gan.py's "
+                   f"{DP_GAN_GRAD_TOL} {cmp['excess']:.3e})" if gan else "")
+                + f", parameters' excess over the bound {cmp['param_excess']:.3e}, buffers "
+                f"{cmp['buffer_rel']:.3e}, metrics {cmp['metric_rel']:.3e}, count {res['count']}"
+                f"; step over the ranks {res['secs'] * 1e3:.1f} ms (warm {res['warm_secs'] * 1e3:.1f}),"
+                f" one process on the global batch {want[what]['secs'] * 1e3:.1f} ms (warm "
+                f"{want[what]['warm_secs'] * 1e3:.1f}); launches {res['counts']} [{card}]")
+        ok = cmp["ok"]
+        if gan:
+            d = dp_compare(torch, what, dict(res["disc"], metrics=res["metrics"],
+                                             count=res["count"]),
+                           dict(want[what]["disc"], metrics=want[what]["metrics"],
+                                count=want[what]["count"]), "discriminator")
+            line += (f"; D: gradients ‖ranks-one‖/‖one‖ per tensor {d['grad_err']:.3e} "
+                     f"(tolerance {d['grad_tol']:g}), elementwise excess {d['excess']:.3e}, "
+                     f"max|ranks-one|/max {d['grad_rel']:.3e}, parameters' excess "
+                     f"{d['param_excess']:.3e}")
+            ok = ok and d["ok"]
+        log(line)
+        if not ok:
+            raise AssertionError(f"[35b] {what}: the step over the ranks differs from one process")
+        if gan:
+            ctl = ran["control"][what]
+            c_g = dp_compare(torch, what, ctl, want[what], "generator")
+            c_d = dp_compare(torch, what, dict(ctl["disc"], metrics=ctl["metrics"],
+                                               count=ctl["count"]),
+                             dict(want[what]["disc"], metrics=want[what]["metrics"],
+                                  count=want[what]["count"]), "discriminator")
+            log(f"  {what} with per-rank BatchNorm statistics (planted fault): G's gradients per "
+                f"tensor {c_g['grad_err']:.3e} (elementwise excess {c_g['excess']:.3e}), D's "
+                f"{c_d['grad_err']:.3e} ({c_d['excess']:.3e}), metrics {c_g['metric_rel']:.3e}; "
+                f"caught {not (c_g['ok'] and c_d['ok'])} [{card}]")
+            if c_g["ok"] and c_d["ok"]:
+                raise AssertionError(f"[35b] {what}: the tolerance does not catch per-rank "
+                                     f"BatchNorm statistics")
+    return counts
+
+
+def phase_split_engines(torch, card: str, seed: int, records) -> dict:
+    """[35c]: the sampling engines split over two shards of the one card;
+    returns the launches of the split sample and reconstruct."""
+    from fmdm_tpu_torch.parallel import mesh as mesh_lib
+    from fmdm_tpu_torch.sample import autoencoder_like
+    from fmdm_tpu_torch.sample.engine import SamplingEngine
+    from fmdm_tpu_torch.sample.vae_utils import reconstruct_vae_batch
+    from fmdm_tpu_torch.schedulers import DPMSolverMultistepScheduler
+
+    counts = {}
+    log("[35c] SamplingEngine and the VAE engines' _make_dp_fn over the device list "
+        "[cuda:0, cuda:0]: a 3-step DPM++ bf16 sample at batch 4, a reconstruct at batch 3 "
+        "(ragged), against the unsplit run")
+    from fmdm_tpu_torch.models.factories import DiffusionUNetFactory
+
+    unet = DiffusionUNetFactory().build(json.loads(CONFIG.read_text())["model"]["unet"],
+                                        conditioning="concatenate", channels=1, device="cuda")
+    random_weights(torch, unet, torch.Generator().manual_seed(seed))
+    scheduler = DPMSolverMultistepScheduler.create(
+        num_train_timesteps=1000, algorithm_type="dpmsolver++", solver_order=2,
+        beta_start=0.0001, beta_end=0.02)
+    steps = scheduler.set_timesteps(NUM_STEPS)[:3]
+    shape = (4, 1, 256, 256)
+    cond = torch.full(shape, 0.5, device="cuda")
+    two = mesh_lib.create_mesh(devices=["cuda:0", "cuda:0"])
+    init = torch.randn(shape, generator=torch.Generator().manual_seed(seed)).cuda()
+    # the split sample, and the unsplit engine on each shard's rows alone:
+    # the same forwards at batch 2 and the same elementwise scheduler steps
+    halves = []
+    for rows in (slice(0, 2), slice(2, 4)):
+        engine = SamplingEngine(unet, scheduler, steps, conditioning_mode="concatenate",
+                                compute_dtype=torch.bfloat16, device="cuda")
+        halves.append(engine((2, 1, 256, 256), conditioning_batch=cond[rows],
+                             init_sample=init[rows] * scheduler.init_noise_scale(steps)))
+    engine = SamplingEngine(unet, scheduler, steps, conditioning_mode="concatenate",
+                            compute_dtype=torch.bfloat16, device="cuda", mesh=two)
+    reset_counts(records)
+    split = engine(shape, conditioning_batch=cond,
+                   init_sample=init * scheduler.init_noise_scale(steps))
+    torch.cuda.synchronize()
+    counts["sample split"] = read_counts(records)
+    expect_counts("[35c] the split sample", counts["sample split"],
+                  {"K1": 2 * K1_PER_FORWARD, "K2": 2 * K2_PER_FORWARD}, 3)
+    whole = torch.cat(halves)
+    sample_rel = rel_err(split, whole)
+    bitwise = bool(torch.equal(split, whole))
+    from fmdm_tpu_torch.sample.vae_utils import build_vae_model
+
+    vae = build_vae_model(dp_vae_configs()[0][1], generator=torch.Generator().manual_seed(seed),
+                          device="cuda").eval()
+    images = torch.rand((3, 1, 256, 256), generator=torch.Generator().manual_seed(seed)).numpy()
+    core = lambda m, x: reconstruct_vae_batch(m, x)
+    rec_one = autoencoder_like._make_dp_fn(core, vae, 3, torch.device("cuda"))(images)
+    reset_counts(records)
+    rec_split = autoencoder_like._make_dp_fn(core, vae, 3, torch.device("cuda"), two)(images)
+    torch.cuda.synchronize()
+    counts["reconstruct split"] = read_counts(records)
+    expect_counts("[35c] the split reconstruct", counts["reconstruct split"],
+                  VAE_LAUNCHES["reconstruct"], 2)
+    rec_rel = rel_err(rec_split, rec_one)
+    log(f"  sample over the two shards against each shard's rows sampled alone: max|split-one|/"
+        f"max|one| {sample_rel:.3e}, bitwise {bitwise} (tolerance {REL_TOL:g}), launches per step "
+        f"{({k: v // 3 for k, v in counts['sample split'].items() if v})}; reconstruct "
+        f"{tuple(rec_split.shape)} against batch 3 unsplit {rec_rel:.3e} (tolerance "
+        f"{REL_TOL:g}), launches {({k: v for k, v in counts['reconstruct split'].items() if v})} "
+        f"[{card}]")
+    if not (sample_rel <= REL_TOL and rec_rel <= REL_TOL and tuple(rec_split.shape) == (3, 1, 256, 256)):
+        raise AssertionError(f"[35c] the split engines differ (sample {sample_rel}, "
+                             f"reconstruct {rec_rel})")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3352,8 +4031,15 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--batches", default="8,32",
                         help="sample batch sizes; the first one's run counts the launches")
+    parser.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--dp-port", type=int, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     batches = [int(b) for b in args.batches.split(",")]
+    if args.dp_rank is not None:   # [35b]'s second rank, started by the main run
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device is available", file=sys.stderr)
+            return 1
+        return dp_worker(args.dp_rank, args.dp_port, args.seed)
 
     run_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3501,7 +4187,8 @@ def main() -> int:
 
     phase_sdpa_routes(torch, card, gen, all_records)
     phase_cross_attention(torch, card, args.seed, gen, all_records)
-    denoise_counts = phase_denoise(torch, card, args.seed, gen, all_records)
+    train_state = phase_denoise(torch, card, args.seed, gen, all_records)
+    denoise_counts = train_state["counts"]
     phase_schedulers(torch, gen)
     with tempfile.TemporaryDirectory() as tmp:
         decode_counts = phase_decode(torch, card, args.seed, gen, all_records, Path(tmp))
@@ -3520,7 +4207,13 @@ def main() -> int:
                                           vae_cli["run"], vae_cli["latents"])
         gan_counts = phase_gan(torch, card, args.seed, gen, all_records, Path(tmp))
         int8_counts = phase_int8(torch, card, args.seed, gen, all_records, Path(tmp))
-    phase_rmsnorm(torch, card, gen)
+        phase_rmsnorm(torch, card, gen)
+        pending_counts = phase_checkpoints(torch, card, args.seed, all_records, train_state,
+                                           Path(tmp))
+        del train_state
+        dp_counts = phase_torchrun(torch, card, args.seed, all_records, Path(tmp))
+    dp_counts.update(phase_gloo_ranks(torch, card, args.seed, all_records))
+    dp_counts.update(phase_split_engines(torch, card, args.seed, all_records))
 
     k1["launches"], k2["launches"] = main_launches
     k3["launches"], k4["launches"], k5["launches"] = (train_counts[k] for k in ("K3", "K4", "K5"))
@@ -3552,7 +4245,21 @@ def main() -> int:
                 chain_counts.get(kernel, 0),
             f"GAN train step ({GAN_CONFIG.name}) x {TRAIN_STEPS}": gan_counts.get(kernel, 0),
             f"int8 decode, {INT8_STEPS} DPM++ steps at batch {DECODE_BATCH}":
-                int8_counts.get(kernel, 0)}
+                int8_counts.get(kernel, 0),
+            f"flagship train step x {TRAIN_STEPS} beside a pending async checkpoint write":
+                pending_counts.get(kernel, 0),
+            f"run_model evaluate of a DCP run dir, data-parallel sampling on, batch {DECODE_BATCH}":
+                dp_counts["evaluate"].get(kernel, 0),
+            "flagship train step over 2 gloo ranks, 2 rows per rank (rank 0)":
+                dp_counts["flagship"].get(kernel, 0),
+            "KL-VAE GAN train step over 2 gloo ranks, 1 row per rank (rank 0)":
+                dp_counts["KL-VAE GAN"].get(kernel, 0),
+            "VQ-VAE EMA train step over 2 gloo ranks, 1 row per rank (rank 0)":
+                dp_counts["VQ-VAE EMA"].get(kernel, 0),
+            "3-step DPM++ sample at batch 4 split over 2 shards on the card":
+                dp_counts["sample split"].get(kernel, 0),
+            "VAE reconstruct at batch 3 split over 2 shards on the card":
+                dp_counts["reconstruct split"].get(kernel, 0)}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_term", "library_ms", "shape", "dtype")
     extra = ("library_kernel", "variants", "per_forward", "launches_by_path")

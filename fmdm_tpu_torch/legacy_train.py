@@ -7,8 +7,10 @@ patched into a copy of the config, then the port's trainer of that name.
         [--device cuda|cpu] [--epochs N] [--batch_size N] [--img_size N] [--channels N]
 
 ``--device`` is the config's ``manual_device`` override, as in JAX, and the
-device the trainer runs on: CUDA when unset (which needs a card), the CPU
-only when asked for.
+device the trainer runs on: CUDA when unset (which needs a card;
+``cuda:LOCAL_RANK`` under ``python -m torch.distributed.run``), the CPU only
+when asked for. At exit pending checkpoint writes are flushed and the
+process group, if any, destroyed.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from pathlib import Path
 
 from fmdm_tpu_torch.data.dataset_utils import build_train_val_datasets
 from fmdm_tpu_torch.device import resolve_device
+from fmdm_tpu_torch.parallel import mesh as mesh_lib
+from fmdm_tpu_torch.utils.checkpoint import flush_checkpoint_writes
 from fmdm_tpu_torch.utils.config import load_json_config
 
 TRAINER_MODULES = {
@@ -67,7 +71,18 @@ def main(argv=None) -> None:
     parser.add_argument("--perceptual_device", type=str, default=None)
     parser.add_argument("--disc_device", type=str, default=None)
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+    joined = mesh_lib.maybe_initialize_distributed(args.device)
+    try:
+        _run(args)
+    finally:
+        flush_checkpoint_writes()
+        if joined:
+            mesh_lib.destroy_distributed()
+
+
+def _run(args) -> None:
+    device = (mesh_lib.rank_device(args.device) if mesh_lib.group_active()
+              else resolve_device(args.device))
 
     cfg = load_json_config(args.config)
     overrides = build_overrides(args)

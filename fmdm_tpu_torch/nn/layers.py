@@ -256,7 +256,12 @@ class BatchNorm(nn.Module):
     the JAX tree's names and order (weight, bias, running_mean,
     running_var), count as leaves of an optax state, and ``torch.optim``
     skips them (their ``.grad`` stays None), as Adam's zero update leaves
-    them in JAX. ``torch.nn.BatchNorm*d`` would update them."""
+    them in JAX. ``torch.nn.BatchNorm*d`` would update them.
+
+    With ``mesh`` set to a data mesh over ranks (the train steps set it), the
+    batch statistics are the global batch's, as in JAX's global mesh: the
+    per-channel sums are all-reduced, differentiably, as ``SyncBatchNorm``
+    reduces them."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1, *,
                  device: DeviceArg = None):
@@ -264,6 +269,7 @@ class BatchNorm(nn.Module):
         device = resolve_device(device)
         self.eps = eps
         self.momentum = momentum
+        self.mesh = None
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
         self.running_mean = nn.Parameter(torch.zeros(channels, device=device), requires_grad=False)
@@ -278,7 +284,15 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
         xf = x.float()
-        if train:
+        if train and self.mesh is not None:
+            from fmdm_tpu_torch.parallel.mesh import all_reduce_sum_autograd
+
+            dims = (0,) + tuple(range(2, x.dim()))
+            n = xf.numel() // xf.shape[1] * self.mesh.process_count
+            mean = all_reduce_sum_autograd(xf.sum(dim=dims), self.mesh) / n
+            var = all_reduce_sum_autograd(
+                torch.square(xf - mean.reshape(shape)).sum(dim=dims), self.mesh) / n
+        elif train:
             dims = (0,) + tuple(range(2, x.dim()))
             mean = xf.mean(dim=dims)
             var = torch.square(xf - mean.reshape(shape)).mean(dim=dims)

@@ -377,7 +377,9 @@ class VectorQuantizerEMA(nn.Module):
     ``new_state``; the caller applies it (:meth:`apply_update`). The per-code
     counts and sums are ``bincount`` and ``index_add_`` over the rows, where
     the JAX package multiplies by the one-hot matrix: the same sums, without
-    the (rows x K) matrix."""
+    the (rows x K) matrix. With ``mesh`` set to a data mesh over ranks (the
+    train step sets it), both are summed over the ranks before the update,
+    so every rank's codebook follows the global batch's codes."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int, commitment_cost: float = 0.25,
                  decay: float = 0.99, eps: float = 1e-5, *, device: DeviceArg = None):
@@ -388,6 +390,7 @@ class VectorQuantizerEMA(nn.Module):
         self.commitment_cost = commitment_cost
         self.decay = decay
         self.eps = eps
+        self.mesh = None
         self.register_buffer("embedding", torch.empty(num_embeddings, embedding_dim, device=device))
         self.register_buffer("ema_cluster_size", torch.empty(num_embeddings, device=device))
         self.register_buffer("ema_w", torch.empty(num_embeddings, embedding_dim, device=device))
@@ -415,6 +418,11 @@ class VectorQuantizerEMA(nn.Module):
             with torch.no_grad():
                 dw = torch.zeros_like(self.ema_w).index_add_(0, codes.reshape(-1),
                                                              flat_z.detach().to(self.ema_w.dtype))
+                if self.mesh is not None:
+                    from fmdm_tpu_torch.parallel.mesh import all_reduce_sum
+
+                    counts = all_reduce_sum(counts.clone(), self.mesh)
+                    dw = all_reduce_sum(dw, self.mesh)
                 ema_cluster_size = (self.ema_cluster_size * self.decay
                                     + counts.to(self.ema_cluster_size.dtype) * (1 - self.decay))
                 ema_w = self.ema_w * self.decay + dw * (1 - self.decay)

@@ -22,7 +22,8 @@ diffusion, flow-matching and VAE run dirs, KL and VQ), with
 
     python -m fmdm_tpu_torch.run_model --ckpt_dir RUN --mode evaluate --quantize int8
 
-Sampling over several cards (ROADMAP Queue 1 item 10) raises. There is no
+With several cards visible each batch is split over them (data-parallel
+sampling, one process; ``--no_dp_sampling`` keeps one card). There is no
 compile cache to enable.
 """
 
@@ -106,8 +107,7 @@ _FLAG_SPEC = [
                             "Fails loudly if the checkpoint has no EMA tree.")),
     ("--no_dp_sampling", dict(action="store_true",
                               help="Disable data-parallel sampling over the visible cards (on by "
-                                   "default; a no-op on one card; over several not ported yet, "
-                                   "which raises unless this flag is given).")),
+                                   "default; a no-op on one card).")),
 ]
 
 

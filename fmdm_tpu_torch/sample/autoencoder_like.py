@@ -10,9 +10,10 @@ sample's reconstruction, its tensors and statistics).
 Each batch is stacked on the host, moved to the device once, run there in
 one call, and copied back once; the metrics are computed in numpy, as the
 JAX package computes them. A VQ model reconstructs in eval mode: its EMA
-codebook is not updated. Data-parallel runs over several cards are not
-ported (ROADMAP Queue 1 item 10): with more than one card visible they
-raise, as the diffusion modes do, unless data-parallel sampling is off.
+codebook is not updated. With several cards visible (and data-parallel
+sampling on, as for the diffusion modes) each batch runs over them
+(:func:`_make_dp_fn`): one replica of the model per card, a ragged batch
+edge-padded to the card count, split, and cropped back.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import json
 import logging
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -28,7 +30,9 @@ import torch
 from fmdm_tpu_torch.data.dataset_utils import save_output_tensor
 from fmdm_tpu_torch.data.dataset_utils import save_tensor_cache as _write_tensor
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
-from fmdm_tpu_torch.sample.diffusion_utils import refuse_multi_card_sampling
+from fmdm_tpu_torch.parallel.mesh import DataMesh, pad_batch_to_multiple, replicate
+from fmdm_tpu_torch.sample.diffusion_utils import _sampling_mesh
+from fmdm_tpu_torch.sample.engine import on_device
 from fmdm_tpu_torch.sample.sampling_utils import (
     append_eval_metrics,
     append_per_image_eval_metrics,
@@ -59,19 +63,43 @@ def _load(ckpt_dir, device: DeviceArg):
     """(config, model in eval mode on the device, recon_type, device) of a
     VAE run dir."""
     device = resolve_device(device)
-    refuse_multi_card_sampling(device)
     cfg = load_run_config(Path(ckpt_dir))
     model = build_vae_model(cfg, device=device,
                             ckpt_path=resolve_checkpoint(Path(ckpt_dir), "vae")).eval()
     return cfg, model, cfg.get("training", {}).get("recon_type", "l1"), device
 
 
-def _runner(fn, device: torch.device):
-    """``run(batch) -> numpy output``: one device call per host batch."""
+def _make_dp_fn(core, model, batch_size: int, device: torch.device,
+                mesh: Optional[DataMesh] = None):
+    """``run(batch) -> output on device``: ``core(model, x)`` on a host
+    batch, over the cards of ``mesh`` (default: the sampling mesh of
+    ``batch_size``; one card without one) with one replica of the model
+    each, a ragged batch edge-padded to the card count, split, and cropped
+    back to its rows."""
+    mesh = mesh if mesh is not None else _sampling_mesh(batch_size, device)
+    if mesh is not None and len(mesh.devices) == 1:
+        mesh = None
+    devices = mesh.devices if mesh is not None else (device,)
+    replicas = replicate(mesh, model)
+
     @torch.no_grad()
-    def run(batch: np.ndarray) -> np.ndarray:
-        return fn(torch.from_numpy(np.asarray(batch, np.float32)).to(device)).cpu().numpy()
+    def run(batch: np.ndarray) -> torch.Tensor:
+        padded, real = pad_batch_to_multiple(np.asarray(batch, np.float32), len(devices))
+        outs = []
+        for shard, replica, dev in zip(torch.from_numpy(padded).tensor_split(len(devices)),
+                                       replicas, devices):
+            with on_device(dev):
+                outs.append(core(replica, shard.to(dev)))
+        if len(outs) == 1:
+            return outs[0]
+        return torch.cat([o.to(devices[0], non_blocking=True) for o in outs])[:real]
     return run
+
+
+def _runner(core, model, batch_size: int, device: torch.device):
+    """``run(batch) -> numpy output``: :func:`_make_dp_fn`, copied back."""
+    dp = _make_dp_fn(core, model, batch_size, device)
+    return lambda batch: dp(batch).cpu().numpy()
 
 
 def _save_outputs(dataset, indices, samples, outputs: np.ndarray, output_root: Path,
@@ -105,7 +133,7 @@ def encode(ckpt_dir, data_txt=None, save=False, output_dir=None, batch_size=4,
         seed=seed, batch_size=batch_size)
     output_root = ((experiment_dir / "samples") if (save and experiment_dir is not None)
                    else resolve_output_root(ckpt_dir, output_dir, save))
-    enc = _runner(lambda x: encode_vae_batch(model, x), device)
+    enc = _runner(encode_vae_batch, model, batch_size, device)
     for indices, samples in progress_batches(dataset, batch_size, "Autoencoder encode",
                                              indices=selected_indices):
         latents = enc(_stack_targets(samples))
@@ -127,7 +155,8 @@ def decode(ckpt_dir, data_txt=None, save=False, output_dir=None, batch_size=4,
     dataset = build_sampling_dataset(cfg, data_txt, save_tensor_cache_override=save_tensor_cache)
     selected_indices = resolve_sample_indices(dataset, num_samples, seed=seed)
     output_root = resolve_output_root(ckpt_dir, output_dir, save)
-    dec = _runner(lambda z: decode_vae_batch(model, z, recon_type=recon_type), device)
+    dec = _runner(lambda m, z: decode_vae_batch(m, z, recon_type=recon_type), model, batch_size,
+                  device)
     for indices, samples in progress_batches(dataset, batch_size, "Autoencoder decode",
                                              indices=selected_indices):
         recon = dec(_stack_targets(samples))
@@ -148,7 +177,8 @@ def sample(ckpt_dir, data_txt=None, save=False, output_dir=None, batch_size=4,
     dataset = build_sampling_dataset(cfg, data_txt, save_tensor_cache_override=save_tensor_cache)
     selected_indices = resolve_sample_indices(dataset, num_samples, seed=seed)
     output_root = resolve_output_root(ckpt_dir, output_dir, save)
-    rec_fn = _runner(lambda x: reconstruct_vae_batch(model, x, recon_type=recon_type), device)
+    rec_fn = _runner(lambda m, x: reconstruct_vae_batch(m, x, recon_type=recon_type), model,
+                     batch_size, device)
     for indices, samples in progress_batches(dataset, batch_size, "Autoencoder sample",
                                              indices=selected_indices):
         recon = rec_fn(_stack_targets(samples))
@@ -179,9 +209,8 @@ def evaluate(ckpt_dir, data_txt=None, save=False, output_dir=None, batch_size=4,
     output_root = ((experiment_dir / "samples") if (save and experiment_dir is not None)
                    else resolve_output_root(ckpt_dir, output_dir, save))
 
-    @torch.no_grad()
-    def rec_fn(x: np.ndarray) -> torch.Tensor:
-        return reconstruct_vae_batch(model, torch.from_numpy(x).to(device), recon_type=recon_type)
+    rec_fn = _make_dp_fn(lambda m, x: reconstruct_vae_batch(m, x, recon_type=recon_type), model,
+                         batch_size, device)
 
     total_mse = total_psnr = total_ssim = 0.0
     count = ssim_count = 0
@@ -193,7 +222,7 @@ def evaluate(ckpt_dir, data_txt=None, save=False, output_dir=None, batch_size=4,
         start = time.perf_counter()
         out = rec_fn(targets)
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            torch.cuda.synchronize(out.device)
         timing["model_seconds"] += time.perf_counter() - start
         timing["model_calls"] += 1
         recon = np.clip(out.cpu().numpy(), 0.0, 1.0)
@@ -283,7 +312,7 @@ def debug_compare(ckpt_dir, data_txt=None, output_dir=None, device: DeviceArg = 
     row = dataset.data[sample_idx]
 
     target = np.asarray(sample_d["target"], np.float32)[None]
-    recon = _runner(lambda x: reconstruct_vae_batch(model, x, recon_type=recon_type),
+    recon = _runner(lambda m, x: reconstruct_vae_batch(m, x, recon_type=recon_type), model, 1,
                     device)(target)
     recon_clamped = np.clip(recon, 0.0, 1.0)
 

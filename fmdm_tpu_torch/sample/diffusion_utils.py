@@ -31,8 +31,13 @@ last timestep, the conditioning as the engine builds it), quantized by
 its weights and the calibration's fingerprint. Only when the policy finds
 nothing to quantize does the decode warn and go on in float, as in JAX.
 
-Not ported yet, and refused rather than ignored: data-parallel sampling over
-several cards (``set_dp_sampling``, ROADMAP Queue 1 item 10).
+Data-parallel sampling (``set_dp_sampling``, on by default; ``run_model
+--no_dp_sampling`` turns it off): in one process with several cards visible,
+each batch is split over the largest count of them that divides it, the
+decode's card first (``parallel/mesh.py::create_mesh_for_batch``), through
+``SamplingEngine(mesh=)``; a ragged last batch takes a smaller mesh through
+the per-shape engine cache, which keys on the card count. Under a process
+group of several ranks (training visuals) it is off, as in JAX.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import torch.nn as nn
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
 from fmdm_tpu_torch.models.factories import DiffusionUNetFactory
 from fmdm_tpu_torch.nn.layers import init_weights
+from fmdm_tpu_torch.parallel import mesh as mesh_lib
 from fmdm_tpu_torch.sample.engine import (SamplingEngine, normalize_latent_conditioning,
                                           prepare_attention_context, select_timesteps)
 from fmdm_tpu_torch.schedulers import build_scheduler, resolve_conditioning_mode, resolve_scheduler_override
@@ -358,9 +364,7 @@ def _quantized_model_for(model: nn.Module, scheduler, timesteps: np.ndarray,
 
 
 # Data-parallel sampling: as in the JAX package, on by default, and a no-op
-# on one device. Over several cards it is not ported yet (ROADMAP Queue 1
-# item 10): decoding on CUDA with more than one card visible raises, unless
-# it is turned off.
+# on one card.
 _DP_SAMPLING = True
 
 
@@ -369,11 +373,19 @@ def set_dp_sampling(enabled: bool) -> None:
     _DP_SAMPLING = bool(enabled)
 
 
-def refuse_multi_card_sampling(device: torch.device) -> None:
-    """Raise where data-parallel sampling would span several cards."""
-    if _DP_SAMPLING and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError("data-parallel sampling over several cards is not ported yet "
-                                  "(ROADMAP Queue 1 item 10); call set_dp_sampling(False)")
+def _sampling_mesh(batch_size: int, device: DeviceArg = None) -> Optional[mesh_lib.DataMesh]:
+    """The one-process mesh a batch of ``batch_size`` on ``device`` is split
+    over: the largest count of visible cards that divides it, ``device``
+    first; None on one card, off CUDA, under a group of several ranks, or
+    with data-parallel sampling off."""
+    device = resolve_device(device)
+    if (not _DP_SAMPLING or device.type != "cuda" or mesh_lib.process_count() != 1
+            or torch.cuda.device_count() <= 1):
+        return None
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    cards.remove(device)
+    mesh = mesh_lib.create_mesh_for_batch(int(batch_size), [device] + cards)
+    return mesh if len(mesh.devices) > 1 else None
 
 
 # FIFO-capped: each entry pins a SamplingEngine and its model (a copy of the
@@ -443,7 +455,6 @@ def decode_diffusion_batch(
     ``step_noise`` (one tensor per selected step) replace those draws, so a
     run can replay another run's noise."""
     device = resolve_device(device)
-    refuse_multi_card_sampling(device)
     scheduler_cfg = dict(model_cfg.get("scheduler", {}))
     override_cfg = resolve_scheduler_override(scheduler_override)
     if override_cfg is not None:
@@ -472,16 +483,17 @@ def decode_diffusion_batch(
     if _QUANTIZE is not None:
         model = _quantized_model_for(model, scheduler, timesteps, batch_shape, conditioning_batch,
                                      conditioning_mode, latent_norm, device)
+    mesh = _sampling_mesh(batch_shape[0], device)
     cache_key = (
         id(model), _weights_key(model), scheduler.__class__.__name__,
         _scheduler_fingerprint(scheduler), tuple(np.asarray(timesteps).tolist()),
         conditioning_mode, str(latent_norm), tuple(batch_shape), str(device), _QUANTIZE,
-        deep_cache,
+        None if mesh is None else len(mesh.devices), deep_cache,
     )
     engine = _ENGINE_CACHE.get(cache_key)
     if engine is None:
         engine = SamplingEngine(model, scheduler, timesteps, conditioning_mode, latent_norm,
-                                deep_cache=deep_cache, device=device)
+                                deep_cache=deep_cache, device=device, mesh=mesh)
         while len(_ENGINE_CACHE) >= _ENGINE_CACHE_MAX:
             _ENGINE_CACHE.pop(next(iter(_ENGINE_CACHE)))
         _ENGINE_CACHE[cache_key] = engine

@@ -17,15 +17,26 @@ Under DeepCache (``deep_cache=(interval, depth[, schedule])``) the steps that
 entering its shallow up blocks; the others run only the shallow levels and
 splice that feature back in (``UNetDiffusersND.forward``). The cached
 feature stays in the compute dtype. Interval 1 runs every step in full and
-equals the uncached engine. Not ported: the device mesh.
+equals the uncached engine.
+
+Over a one-process mesh of several cards (``mesh``, ``parallel/mesh.py``)
+the engine keeps one replica of the model per card, copied at the first
+call and reused, and splits every model call's batch over the cards; the
+start noise and a stochastic scheduler's noise are drawn for the whole
+batch and the scheduler steps the whole batch on the first card (a few
+elementwise ops), so each sample equals the one-card sample. The shards'
+forwards are issued from one Python loop with no synchronization inside
+it: CUDA launches are asynchronous, so the cards overlap without threads.
+Under DeepCache each shard keeps its own cached feature.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 import time
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +44,7 @@ import torch.nn as nn
 
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
 from fmdm_tpu_torch.ops.kernels import build
+from fmdm_tpu_torch.parallel.mesh import DataMesh, replicate
 from fmdm_tpu_torch.schedulers.base import Scheduler
 
 
@@ -130,6 +142,11 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def on_device(device: torch.device):
+    """The block's launches on ``device`` (a no-op off CUDA)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
 class SamplingEngine:
     """Runs the reverse process of one (model, scheduler, timesteps,
     conditioning mode) configuration on one device.
@@ -137,7 +154,9 @@ class SamplingEngine:
     The model is moved to the device and cast to ``compute_dtype`` once, at
     the first call, and that copy is reused (the caller's module is left as it
     is unless it already has that device and dtype; either way the engine
-    puts it in eval mode)."""
+    puts it in eval mode). With a ``mesh`` of several cards the batch is
+    split over them (see the module's docstring); the engine's device is the
+    mesh's first."""
 
     def __init__(
         self,
@@ -150,8 +169,12 @@ class SamplingEngine:
         *,
         deep_cache: Optional[Tuple] = None,
         device: DeviceArg = None,
+        mesh: Optional[DataMesh] = None,
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and len(mesh.devices) > 1 else None
+        self.device = resolve_device(self.mesh.devices[0] if self.mesh is not None else device)
+        # one shard per device: the mesh's, else the engine's own
+        self.devices = self.mesh.devices if self.mesh is not None else (self.device,)
         self.model = model
         self.scheduler = scheduler
         self.timesteps = np.asarray(scheduler.align_sliced_timesteps(np.asarray(timesteps)))
@@ -161,6 +184,42 @@ class SamplingEngine:
         # (interval, depth[, schedule]) or None
         self.deep_cache = tuple(deep_cache) if deep_cache else None
         self._compute_model: Optional[nn.Module] = None
+        self._replicas: Optional[List[nn.Module]] = None
+
+    def _replicas_for_compute(self) -> List[nn.Module]:
+        """One compute model per shard's device, copied once."""
+        if self._replicas is None:
+            self._replicas = replicate(self.mesh, self._model_for_compute())
+        return self._replicas
+
+    def _forward(self, model_input: torch.Tensor, t_b: torch.Tensor,
+                 cond_parts: Optional[List[torch.Tensor]], i: int, refresh, depth,
+                 caches: List[Any]) -> torch.Tensor:
+        """One model call, its batch split over the shards' devices (one
+        shard without a mesh); the prediction on the engine's device."""
+        preds = []
+        parts = model_input.tensor_split(len(self.devices))
+        t_parts = t_b.tensor_split(len(self.devices))
+        for s, (device, model) in enumerate(zip(self.devices, self._replicas_for_compute())):
+            with on_device(device):
+                x = parts[s].to(device, non_blocking=True)
+                ctx = None
+                if cond_parts is not None and self.conditioning_mode == "concatenate":
+                    x = torch.cat([x, cond_parts[s]], dim=1)
+                elif cond_parts is not None and self.conditioning_mode == "attention":
+                    ctx = cond_parts[s]
+                t_s = t_parts[s].to(device, non_blocking=True)
+                if refresh is None:
+                    pred = model(x, t_s, context_ca=ctx)
+                elif refresh[i]:
+                    pred, caches[s] = model(x, t_s, context_ca=ctx, cache_depth=depth,
+                                            return_deep_feature=True)
+                else:
+                    pred = model(x, t_s, context_ca=ctx, deep_cache=caches[s], cache_depth=depth)
+            preds.append(pred)
+        if len(preds) == 1:
+            return preds[0]
+        return torch.cat([p.to(self.device, non_blocking=True) for p in preds])
 
     def _model_for_compute(self) -> nn.Module:
         if self._compute_model is None:
@@ -189,7 +248,7 @@ class SamplingEngine:
         ``timing`` receives ``model_seconds`` (device-synchronized seconds of
         the step loop; set-up, the kernel build and host-to-device copies are
         outside it) and ``model_calls``."""
-        model = self._model_for_compute()
+        replicas = self._replicas_for_compute()
         scheduler, device = self.scheduler, self.device
         if init_sample is not None:
             current = init_sample.to(device)
@@ -214,11 +273,15 @@ class SamplingEngine:
         int_t = np.issubdtype(self.timesteps.dtype, np.integer)
         t_all = torch.as_tensor(self.timesteps, device=device,
                                 dtype=torch.int32 if int_t else torch.float32)
-        refresh = depth = cache = None
+        refresh = depth = None
         if self.deep_cache is not None:
             interval, depth = int(self.deep_cache[0]), int(self.deep_cache[1])
             schedule = self.deep_cache[2] if len(self.deep_cache) > 2 else "adaptive"
             refresh = deep_cache_refresh_mask(len(self.timesteps), interval, schedule)
+        cond_parts = None
+        if cond is not None:
+            cond_parts = [c.to(d) for c, d in zip(cond.tensor_split(len(replicas)), self.devices)]
+        caches = [None] * len(replicas)
         if device.type == "cuda":
             build.library()  # first-call kernel build stays outside the timed window
         _synchronize(device)
@@ -231,27 +294,16 @@ class SamplingEngine:
                 model_input = scheduler.scale_model_input(x, i, self.timesteps)
                 if self.compute_dtype is not None:
                     model_input = model_input.to(self.compute_dtype)
-                ctx = None
-                if self.conditioning_mode == "concatenate" and cond is not None:
-                    model_input = torch.cat([model_input, cond], dim=1)
-                elif self.conditioning_mode == "attention" and cond is not None:
-                    ctx = cond
                 t_b = t_all[i].expand(x.shape[0])
-                if refresh is None:
-                    pred = model(model_input, t_b, context_ca=ctx)
-                elif refresh[i]:
-                    pred, cache = model(model_input, t_b, context_ca=ctx, cache_depth=depth,
-                                        return_deep_feature=True)
-                else:
-                    pred = model(model_input, t_b, context_ca=ctx, deep_cache=cache,
-                                 cache_depth=depth)
+                pred = self._forward(model_input, t_b, cond_parts, i, refresh, depth, caches)
                 pred = pred.float()
                 if step_noise is None:
                     state, x = scheduler.step(state, pred, i, x, self.timesteps, generator=step_gen)
                 else:
                     state, x = scheduler.step(state, pred, i, x, self.timesteps,
                                               noise=step_noise[i].to(device))
-        _synchronize(device)
+        for d in self.devices:
+            _synchronize(d)
         if timing is not None:
             timing["model_seconds"] = timing.get("model_seconds", 0.0) + (time.perf_counter() - start)
             timing["model_calls"] = timing.get("model_calls", 0) + len(self.timesteps)

@@ -11,8 +11,16 @@ on the card:
 ``--device`` unset means CUDA, and the CLI raises without a card: only
 ``--device cpu`` runs it on the CPU. There is no compile cache to enable
 (the port compiles no program; its kernels build once into
-``build/kernels/``) and no distributed rendezvous (one process on one
-device; the mesh is not ported).
+``build/kernels/``).
+
+Data parallelism, one rank per card (NCCL; gloo with ``--device cpu``):
+
+    python -m torch.distributed.run --nproc_per_node N -m fmdm_tpu_torch.train --config CFG
+
+Each rank runs on ``cuda:LOCAL_RANK`` and feeds its own rows of the global
+batch (``parallel/mesh.py``). One process with several cards visible trains
+on one card. At exit the pending checkpoint writes are flushed, then the
+process group is destroyed.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ from typing import Callable, Dict
 
 from fmdm_tpu_torch.data.dataset_utils import build_train_val_datasets
 from fmdm_tpu_torch.device import resolve_device
+from fmdm_tpu_torch.parallel import mesh as mesh_lib
+from fmdm_tpu_torch.utils.checkpoint import flush_checkpoint_writes
 from fmdm_tpu_torch.utils.config import load_json_config
 
 
@@ -82,8 +92,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    joined = mesh_lib.maybe_initialize_distributed(args.device)
+    try:
+        _run(args)
+    finally:
+        flush_checkpoint_writes()
+        if joined:
+            mesh_lib.destroy_distributed()
 
+
+def _run(args) -> None:
+    device = (mesh_lib.rank_device(args.device) if mesh_lib.group_active()
+              else resolve_device(args.device))
     if args.debug_visual_only:
         cfg = load_json_config(args.config)
         model_type = _model_type(cfg)

@@ -30,7 +30,20 @@ Noise and t are drawn from a ``torch.Generator`` on the step's device, or
 given as tensors covering the padded batch. ``remat`` recomputes the model's
 forward in the backward (``torch.utils.checkpoint``), as ``jax.checkpoint``
 does. On CUDA the UNet's forward runs K1 and K2; their backwards are the
-autograd of their plain versions, as in JAX. The mesh is not ported.
+autograd of their plain versions, as in JAX.
+
+Over P ranks (``mesh``, one rank per card under ``torchrun``) one step is
+one step of one process on the global batch, the ranks' batches
+concatenated in rank order, as JAX's global mesh makes it: the valid count
+is summed over the ranks first, each rank backpropagates its chunks' loss
+sums divided by the global count, and the gradients are summed over the
+ranks (one all-reduce per dtype of a flat buffer), so unequal valid counts
+(a ragged last batch) weigh each sample once. Each rank draws the global
+chunk's noise and t from its generator, seeded alike on every rank, and
+keeps its own rows; ``(loss_sum, count)`` are the global ones on every
+rank. Gradient accumulation chunks each rank's local batch: the summed
+gradient is the same, but the chunk boundaries (and so the draws of a
+step with several chunks) are per rank.
 """
 
 from __future__ import annotations
@@ -48,6 +61,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
+from fmdm_tpu_torch.parallel import mesh as mesh_lib
 from fmdm_tpu_torch.sample.engine import normalize_latent_conditioning, prepare_attention_context
 from fmdm_tpu_torch.schedulers.base import Scheduler
 from fmdm_tpu_torch.utils import config as config_utils
@@ -242,7 +256,8 @@ class DenoiseTrainStep:
                  lr_schedule: Callable[[int], float], *, variant: str,
                  conditioning_mode: Optional[str], latent_norm: Optional[str],
                  grad_accum: int = 1, compute_dtype: torch.dtype = torch.float32,
-                 remat: bool = False, ema_decay: float = 0.0, device: DeviceArg = None):
+                 remat: bool = False, ema_decay: float = 0.0, device: DeviceArg = None,
+                 mesh: Optional["mesh_lib.DataMesh"] = None):
         if variant not in VARIANTS:
             raise ValueError(f"variant must be one of {VARIANTS}; got '{variant}'")
         decay = float(ema_decay or 0.0)
@@ -266,6 +281,8 @@ class DenoiseTrainStep:
         # shadow weights start as a copy of the live parameters
         self.ema = [p.detach().clone() for p in params] if decay else None
         self.global_step = 0
+        # a mesh over ranks, else None (one process)
+        self.mesh = mesh if mesh_lib.spans_processes(mesh) else None
 
     def _draw_t(self, rows: int, generator: Optional[torch.Generator]) -> torch.Tensor:
         if self.variant == "diffusion":
@@ -313,6 +330,8 @@ class DenoiseTrainStep:
         matching) cover the padded batch of ``rows = n_chunks * chunk``; what
         is not given is drawn per chunk, noise first, from ``generator``."""
         loss_sum, count = self._accumulate(batch, noise, t, generator)
+        if self.mesh is not None:
+            mesh_lib.all_reduce_grads(list(self.model.parameters()), self.mesh)
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr_schedule(self.global_step)
         self.optimizer.step()
@@ -326,10 +345,15 @@ class DenoiseTrainStep:
     def trial(self, batch: Dict[str, Optional[torch.Tensor]], generator: torch.Generator) -> None:
         """The forward and backward of one step on ``batch`` at the current
         ``grad_accum``, drawing from ``generator``, then the gradients freed:
-        the optimizer, the rate's step and the EMA are left as they were."""
+        the optimizer, the rate's step and the EMA are left as they were.
+        It runs as one process's step, with no collective, so that ranks
+        whose trials fail differently cannot issue mismatched collectives;
+        the ranks agree afterwards (:func:`agree_grad_accum`)."""
+        mesh, self.mesh = self.mesh, None
         try:
             self._accumulate(batch, None, None, generator)
         finally:
+            self.mesh = mesh
             self.optimizer.zero_grad(set_to_none=True)
             if self.device.type == "cuda":
                 torch.cuda.empty_cache()
@@ -353,6 +377,8 @@ class DenoiseTrainStep:
 
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
+        if self.mesh is not None:
+            return self._accumulate_over_ranks(x0, cond, valid, noise, t, generator, chunk)
         loss_sum = torch.zeros((), device=dev)
         count = torch.zeros((), device=dev)
         for i in range(n_chunks):
@@ -374,6 +400,28 @@ class DenoiseTrainStep:
                     p.grad.div_(divisor)
         return loss_sum, count
 
+    def _accumulate_over_ranks(self, x0, cond, valid, noise, t, generator, chunk):
+        """:meth:`_accumulate` over the mesh's ranks: each chunk's loss sum
+        over the global valid count, the draws the global chunk's (this
+        rank's rows); returns the global (loss_sum, count)."""
+        mesh, dev = self.mesh, self.device
+        count = mesh_lib.all_reduce_sum(valid.sum(), mesh)
+        divisor = torch.clamp(count, min=1.0)
+        loss_sum = torch.zeros((), device=dev)
+        for i in range(x0.shape[0] // chunk):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            global_rows = (chunk * mesh.process_count,)
+            nz = noise[sl].to(dev) if noise is not None else mesh_lib.rows_of(torch.randn(
+                global_rows + tuple(x0.shape[1:]), generator=generator, device=dev,
+                dtype=torch.float32), mesh)
+            tt = t[sl].to(dev) if t is not None else mesh_lib.rows_of(
+                self._draw_t(global_rows[0], generator), mesh)
+            _, chunk_sum, _ = self.chunk_loss(
+                x0[sl], None if cond is None else cond[sl], valid[sl], nz, tt)
+            (chunk_sum / divisor).backward()
+            loss_sum = loss_sum + chunk_sum.detach()
+        return mesh_lib.all_reduce_sum(loss_sum, mesh), count
+
     def ema_state_dict(self) -> Dict[str, torch.Tensor]:
         """The shadow weights under the model's parameter names (the ``ema``
         entry of a checkpoint), or {} without EMA."""
@@ -390,14 +438,27 @@ def make_denoise_train_step(model: nn.Module, scheduler: Scheduler,
                             remat: bool = False, ema_decay: float = 0.0,
                             device: DeviceArg = None) -> DenoiseTrainStep:
     """The train step of ``model`` (its parameters on ``device``, CUDA by
-    default) with ``optimizer`` at ``lr_schedule``'s rate; see
-    :class:`DenoiseTrainStep`."""
-    if mesh is not None:
-        raise NotImplementedError("make_denoise_train_step: the device mesh is not ported yet")
+    default) with ``optimizer`` at ``lr_schedule``'s rate, over the ranks of
+    ``mesh`` when it spans them; see :class:`DenoiseTrainStep`."""
+    check_train_mesh(mesh)
     return DenoiseTrainStep(model, scheduler, optimizer, lr_schedule, variant=variant,
                             conditioning_mode=conditioning_mode, latent_norm=latent_norm,
                             grad_accum=grad_accum, compute_dtype=compute_dtype, remat=remat,
-                            ema_decay=ema_decay, device=device)
+                            ema_decay=ema_decay, device=device, mesh=mesh)
+
+
+def check_train_mesh(mesh) -> None:
+    """A train step's mesh: None, or a :class:`DataMesh` of one card per
+    process (several cards in one process are not a train mesh: run one
+    rank per card under torchrun)."""
+    if mesh is None:
+        return
+    if not isinstance(mesh, mesh_lib.DataMesh):
+        raise TypeError(f"mesh must be a fmdm_tpu_torch.parallel.DataMesh, got "
+                        f"{type(mesh).__name__}")
+    if len(mesh.devices) != 1:
+        raise ValueError(f"a train step takes one card per process, got {len(mesh.devices)}; "
+                         f"run one rank per card under torch.distributed.run")
 
 
 # ---------------------------------------------------------------------------
@@ -411,39 +472,65 @@ def run_dir_for(training_cfg: Dict[str, Any], cfg: Dict[str, Any], default: str,
                 resume) -> Path:
     """The run's output dir: a fresh ``_runN`` beside ``training.output_dir``
     unless resuming (then the dir itself); ``train_config.json`` is written
-    there once."""
+    there once. Under a process group rank 0 allocates the dir and writes,
+    and every rank adopts its name (``broadcast_string``)."""
     base_output_dir = Path(training_cfg.get("output_dir", default))
-    output_dir = config_utils.allocate_run_dir(base_output_dir) if resume is None else base_output_dir
+    main = mesh_lib.is_main_process()
+    output_dir = (config_utils.allocate_run_dir(base_output_dir)
+                  if resume is None and main else base_output_dir)
+    output_dir = Path(mesh_lib.broadcast_string(str(output_dir)))
     training_cfg["output_dir"] = str(output_dir)
-    output_dir.mkdir(parents=True, exist_ok=True)
-    cfg_path = output_dir / "train_config.json"
-    if not cfg_path.exists():
-        config_utils.save_json_config(cfg_path, cfg)
+    if main:
+        output_dir.mkdir(parents=True, exist_ok=True)
+        cfg_path = output_dir / "train_config.json"
+        if not cfg_path.exists():
+            config_utils.save_json_config(cfg_path, cfg)
     return output_dir
 
 
 def host_batches(dataset, batch_size: int, training_cfg: Dict[str, Any], *, seed: int,
                  epoch: int, device: torch.device, shuffle: bool = True):
-    """One epoch's host batches: ``training.data_loader: "grain"`` takes the
+    """This process's host batches of one epoch (:func:`epoch_order` strided
+    over the ranks): ``training.data_loader: "grain"`` takes the
     ``DataLoader`` with worker processes (pinned batches on CUDA), anything
     else the threaded ``epoch_batches`` behind a prefetch thread."""
+    ranks = {"process_index": mesh_lib.process_index(),
+             "process_count": mesh_lib.process_count()}
     if str(training_cfg.get("data_loader", "threads")).lower() == "grain":
         from fmdm_tpu_torch.data.grain_pipeline import grain_epoch_batches
 
         return grain_epoch_batches(dataset, batch_size, shuffle=shuffle, seed=seed, epoch=epoch,
                                    num_workers=cfg_num_workers(training_cfg) or 0,
-                                   pin_memory=device.type == "cuda")
+                                   pin_memory=device.type == "cuda", **ranks)
     return prefetch(epoch_batches(dataset, batch_size, shuffle=shuffle, seed=seed, epoch=epoch,
-                                  num_workers=cfg_num_workers(training_cfg)))
+                                  num_workers=cfg_num_workers(training_cfg), **ranks))
+
+
+def steps_per_epoch(num_samples: int, batch_size: int) -> int:
+    """Optimizer steps per epoch: this process's batches, over
+    ``ceil(num_samples / process_count())`` samples (every rank steps in
+    lockstep on the global batch)."""
+    return math.ceil(math.ceil(num_samples / mesh_lib.process_count()) / batch_size)
+
+
+def agree_grad_accum(accum: int, build_step: Callable[[int], Any], mesh) -> Tuple[int, Any]:
+    """The accumulation every rank takes: the largest of the ranks' tuned
+    ones (the smallest micro-batch), the step rebuilt where it grew."""
+    agreed = mesh_lib.agree_max(accum, mesh)
+    if agreed != accum:
+        logging.warning("Another rank tuned gradient_accumulation_steps=%d; taking it.", agreed)
+    return agreed, build_step(agreed)
 
 
 def with_progress(batches, total: int, desc: str):
-    """tqdm over ``batches`` where tqdm is installed (off on a non-TTY)."""
+    """tqdm over ``batches`` where tqdm is installed (off on a non-TTY and
+    on every rank but 0)."""
     try:
         from tqdm import tqdm
     except ImportError:
         return batches
-    return tqdm(batches, total=total, desc=desc, leave=False, dynamic_ncols=True, disable=None)
+    return tqdm(batches, total=total, desc=desc, leave=False, dynamic_ncols=True,
+                disable=None if mesh_lib.is_main_process() else True)
 
 
 def resume_path(resume, training_cfg: Dict[str, Any]) -> Optional[Path]:

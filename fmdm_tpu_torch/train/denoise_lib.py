@@ -30,9 +30,18 @@ a checkpoint without it starts the generator from its seed. The visuals of
 epoch ``e`` draw from a generator of their own, seeded with
 ``(seed + 17) * 100003 + e``. ``training.profile_dir`` traces the first
 epoch with ``torch.profiler`` into a Chrome trace there.
+``training.checkpoint_backend`` selects the checkpoints' backend
+(``utils/checkpoint.py``); pending async writes are flushed before a resume
+reads a checkpoint and when the run ends.
 
-FSDP, tensor and sequence parallelism, the mesh and the ``orbax`` and
-``*_async`` checkpoint backends raise ``NotImplementedError``.
+Under ``torchrun`` (one rank per card, ``parallel/mesh.py``) the ranks train
+one model on the global batch: rank 0 allocates the run dir and every rank
+adopts it; each rank reads its stride of the epoch's order; the step's loss,
+count and gradients are the global batch's, so every rank logs the same
+epoch loss and takes the same "best" decision; only rank 0 writes the
+checkpoints, ``metrics.csv``, the visuals and the progress bar. The
+optimizer takes ``epochs * ceil(ceil(N / P) / batch_size)`` steps. FSDP,
+tensor and sequence parallelism raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ import torch
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
 from fmdm_tpu_torch.models.factories import DiffusionUNetFactory
 from fmdm_tpu_torch.nn.layers import init_weights
+from fmdm_tpu_torch.parallel import mesh as mesh_lib
 from fmdm_tpu_torch.sample.diffusion_utils import (
     build_diffusion_model,
     decode_diffusion_batch,
@@ -61,6 +71,7 @@ from fmdm_tpu_torch.train.common import (
     LOG_FORMAT,
     VARIANTS,
     DenoiseTrainStep,
+    agree_grad_accum,
     autotune_grad_accum,
     batch_to_device,
     generator_state,
@@ -71,6 +82,7 @@ from fmdm_tpu_torch.train.common import (
     restore_generator,
     resume_path,
     run_dir_for,
+    steps_per_epoch,
     weights_swapped,
     with_progress,
 )
@@ -91,17 +103,20 @@ def _refuse_unported(training_cfg: Dict[str, Any]) -> None:
     }
     refused = [name for name, on in unported.items() if on]
     if refused:
-        raise NotImplementedError(f"denoise training with {', '.join(refused)} is not ported yet")
+        raise NotImplementedError(f"denoise training with {', '.join(refused)} is not ported yet "
+                                  f"(ROADMAP Queue 1 item 10)")
 
 
 def build_denoise_trainer(cfg: Dict[str, Any], *, variant: str, num_samples: int,
-                          device: DeviceArg = None
+                          device: DeviceArg = None, mesh: Optional[mesh_lib.DataMesh] = None
                           ) -> Tuple[torch.nn.Module, Scheduler, DenoiseTrainStep]:
     """(model, scheduler, train step) of a ``{training, model}`` config for
     ``variant`` ("diffusion" or "flow_matching") over a dataset of
-    ``num_samples``, on ``device`` (CUDA by default). The UNet's weights are
-    drawn from ``training.seed``; the optimizer is AdamW at the cosine-warmup
-    rate over ``epochs * ceil(num_samples / batch_size)`` steps."""
+    ``num_samples``, on ``device`` (CUDA by default), over the ranks of
+    ``mesh`` when it spans them. The UNet's weights are drawn from
+    ``training.seed`` (rank 0's on every rank); the optimizer is AdamW at the
+    cosine-warmup rate over ``epochs * ceil(num_samples / batch_size)``
+    steps, where ``num_samples`` is one rank's share."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}; got '{variant}'")
     device = resolve_device(device)
@@ -126,6 +141,7 @@ def build_denoise_trainer(cfg: Dict[str, Any], *, variant: str, num_samples: int
     channels = int(training_cfg.get("channels", unet_cfg.get("out_channels", 1)))
     model = DiffusionUNetFactory().build(unet_cfg, conditioning_mode, channels, device=device)
     init_weights(model, torch.Generator().manual_seed(int(training_cfg.get("seed") or 0)))
+    mesh_lib.replicate(mesh, model)
     scheduler, _ = build_scheduler(model_block.get("scheduler", {}), training_cfg)
 
     num_train_steps = epochs * math.ceil(num_samples / batch_size)
@@ -138,7 +154,7 @@ def build_denoise_trainer(cfg: Dict[str, Any], *, variant: str, num_samples: int
         conditioning_mode=conditioning_mode, latent_norm=training_cfg.get("latent_norm"),
         grad_accum=max(1, int(training_cfg.get("gradient_accumulation_steps", 1))),
         compute_dtype=compute_dtype, remat=bool(training_cfg.get("remat", False)),
-        ema_decay=float(training_cfg.get("ema_decay", 0.0) or 0.0), device=device)
+        ema_decay=float(training_cfg.get("ema_decay", 0.0) or 0.0), device=device, mesh=mesh)
     return model, scheduler, step
 
 
@@ -179,9 +195,12 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
     model_type = str(model_block.get("model_type", "")).lower()
     if model_type != variant:
         raise ValueError(f"Expected model_type '{variant}', got '{model_type}'.")
-    device = resolve_device(device)
     training_cfg = cfg["training"]
     _refuse_unported(training_cfg)
+    mesh_lib.maybe_initialize_distributed(device)
+    device = mesh_lib.rank_device(device) if mesh_lib.group_active() else resolve_device(device)
+    main = mesh_lib.is_main_process()
+    logging.info("%s on %s", mesh_lib.describe_group(), device)
     ckpt_utils.set_checkpoint_backend(str(training_cfg.get("checkpoint_backend", "torch")))
     config_utils.set_seed(training_cfg.get("seed"))
     seed = int(training_cfg.get("seed") or 0)
@@ -201,11 +220,14 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
     ema_decay = float(training_cfg.get("ema_decay", 0.0) or 0.0)
     output_dir = run_dir_for(training_cfg, cfg, f"checkpoints/{variant}", resume)
 
+    mesh = mesh_lib.create_data_mesh(batch_size, device) if mesh_lib.group_active() else None
     start = time.perf_counter()
-    model, _, trainer = build_denoise_trainer(cfg, variant=variant, num_samples=len(dataset),
-                                              device=device)
+    model, _, trainer = build_denoise_trainer(
+        cfg, variant=variant, num_samples=math.ceil(len(dataset) / mesh_lib.process_count()),
+        device=device, mesh=mesh)
     logging.info("Built the %s model on %s in %.3f s", variant, device, time.perf_counter() - start)
-    summarize_model(model, model_block, training_cfg, name=variant)
+    if main:
+        summarize_model(model, model_block, training_cfg, name=variant)
     conditioned = trainer.conditioning_mode in CONDITIONED
 
     probe = _probe_batch(dataset, batch_size, conditioned)
@@ -218,12 +240,13 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
         # a generator of its own: the loop's draws are untouched
         step.trial(batch_to_device(probe, device), torch.Generator(device).manual_seed(0))
 
-    _, trainer = autotune_grad_accum(
+    accum, trainer = autotune_grad_accum(
         _build_step, _trial, batch_size=batch_size, grad_accum=trainer.grad_accum,
         allow_microbatching=bool(training_cfg.get("allow_microbatching", True)),
         what=f"{variant} train step")
+    _, trainer = agree_grad_accum(accum, _build_step, mesh)
 
-    visual_enabled = bool(training_cfg.get("save_images", False))
+    visual_enabled = bool(training_cfg.get("save_images", False)) and main
     visual_every = int(training_cfg.get("save_images_every", 10))
     visual_targets = visual_cond = None
     if visual_enabled:
@@ -235,13 +258,14 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
                             "expose 'image'.", variant.capitalize())
 
     metrics_path = output_dir / "metrics.csv"
-    if not metrics_path.exists():
+    if main and not metrics_path.exists():
         metrics_path.write_text("epoch,train_loss\n")
 
     generator = torch.Generator(device).manual_seed(seed + 17)
     start_epoch, best_metric = 1, float("inf")
     resume_flag = resume_path(resume, training_cfg)
     if resume_flag:
+        ckpt_utils.flush_checkpoint_writes()
         payload = ckpt_utils.load_checkpoint(resume_flag)
         model.load_state_dict(payload["model"], strict=True)
         if payload.get("optimizer") is not None:
@@ -258,7 +282,7 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
         logging.info("Resumed from %s at epoch %d (optimizer step %d)", resume_flag, start_epoch,
                      trainer.global_step)
 
-    steps_per_epoch = math.ceil(len(dataset) / batch_size)
+    n_batches = steps_per_epoch(len(dataset), batch_size)
     for epoch in range(start_epoch, epochs + 1):
         epoch_loss, num_samples, n_steps, data_wait = 0.0, 0, 0, 0.0
         t0 = time.perf_counter()
@@ -274,7 +298,7 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
                            device):
             batch_iter = with_progress(
                 host_batches(dataset, batch_size, training_cfg, seed=seed, epoch=epoch,
-                             device=device), steps_per_epoch, f"Train {epoch}/{epochs}")
+                             device=device), n_batches, f"Train {epoch}/{epochs}")
             batches = iter(batch_iter)
             while True:
                 t_wait = time.perf_counter()
@@ -303,7 +327,7 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
                      avg_loss, num_samples / max(steps_s, 1e-9))
 
         ckpt_s = vis_s = 0.0
-        if epoch % checkpoint_every == 0 or epoch == epochs:
+        if main and (epoch % checkpoint_every == 0 or epoch == epochs):
             # "best" at checkpoint granularity: an unsaved epoch never lowers it
             improved = avg_loss < best_metric
             best_metric = min(best_metric, avg_loss)
@@ -339,11 +363,14 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
                            for kind in ("input", "output", "target")])
             vis_s = time.perf_counter() - t_vis
 
-        with metrics_path.open("a") as handle:
-            handle.write(f"{epoch},{avg_loss:.6f}\n")
+        if main:
+            with metrics_path.open("a") as handle:
+                handle.write(f"{epoch},{avg_loss:.6f}\n")
         logging.info("Epoch %03d timing | %d steps in %.3f s (%.3f s waiting for data) | "
                      "checkpoint %.3f s | visuals %.3f s | optimizer step %d", epoch, n_steps,
                      steps_s, data_wait, ckpt_s, vis_s, trainer.global_step)
+    ckpt_utils.flush_checkpoint_writes()
+    mesh_lib.agree_max(0, mesh)  # no rank returns before rank 0's writes landed
     return output_dir
 
 

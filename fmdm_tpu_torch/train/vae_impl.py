@@ -57,8 +57,24 @@ checkpoints and from the JAX package's (the flattened pytrees by leaf
 position, its ``optax.adamw`` at a constant rate with 2n + 1 leaves).
 
 On CUDA the mid attention's forward runs K3 and its backward K4 and K5; K1's
-backward recomputes its plain version. The mesh, FSDP, tensor and sequence
-parallelism raise ``NotImplementedError``.
+backward recomputes its plain version.
+
+Over P ranks (``mesh``, one rank per card under ``torchrun``) a step is one
+step of one process on the global batch, as JAX's global mesh makes it:
+every reduction over the batch axis is over the global batch. The
+reconstruction loss divides by the chunk's global valid count; the terms
+that are means over the rows (the KL, the codebook and commitment terms, the
+perceptual loss, the hinge losses) enter at 1/P of each rank's mean, so
+their sum over the ranks is the global mean; each rank backpropagates its
+part weighted by the global count, and the gradients (G's and D's) are
+summed over the ranks. The discriminators' BatchNorm takes the global
+batch's statistics, and an EMA codebook the global counts and sums. The
+posterior noise of a chunk is drawn for the global chunk from a generator
+seeded alike on every rank, each rank keeping its rows. The metrics are the
+global ones on every rank, and the GAN gate, a function of the epoch and the
+step, opens on every rank alike. Validation runs each rank's stride of the
+validation set through the same reductions. Rank 0 alone writes. FSDP,
+tensor and sequence parallelism raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -73,9 +89,11 @@ import numpy as np
 import torch
 
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
-from fmdm_tpu_torch.nn.layers import init_weights
+from fmdm_tpu_torch.nn.layers import BatchNorm, init_weights
 from fmdm_tpu_torch.nn.losses import (PerceptualLoss, _bce_with_logits, bce_focal_loss,
                                       discriminator_hinge_loss, generator_hinge_loss)
+from fmdm_tpu_torch.nn.vae_modules import VectorQuantizerEMA
+from fmdm_tpu_torch.parallel import mesh as mesh_lib
 from fmdm_tpu_torch.sample.vae_utils import build_vae_model, reconstruct_raw
 from fmdm_tpu_torch.train import common as loop
 from fmdm_tpu_torch.train.common import autotune_grad_accum, batch_to_device, epoch_batches
@@ -123,12 +141,15 @@ def kl_scale_at(kl_weight: float, kl_anneal_steps: int, global_step: int) -> flo
 
 
 def recon_loss(rec: torch.Tensor, rec_img: torch.Tensor, raw: torch.Tensor,
-               valid: torch.Tensor, recon_type: str) -> torch.Tensor:
+               valid: torch.Tensor, recon_type: str,
+               count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The reconstruction loss over the valid rows (JAX :297-310): L1 or
     squared error of the image ``rec_img``, or the bce / focal / bce-focal
-    loss of the logits ``rec``, against ``raw``."""
+    loss of the logits ``rec``, against ``raw``; divided by ``count`` (the
+    global batch's valid count) when given, else by ``valid``'s."""
     mask = valid.reshape((-1,) + (1,) * (raw.dim() - 1))
-    denom = torch.clamp(valid.sum(), min=1.0) * math.prod(raw.shape[1:])
+    denom = torch.clamp(valid.sum() if count is None else count,
+                        min=1.0) * math.prod(raw.shape[1:])
     if recon_type == "l1":
         return (torch.abs(rec_img - raw) * mask).sum() / denom
     if recon_type == "mse":
@@ -149,7 +170,8 @@ def _refuse_unported(training_cfg: Mapping[str, Any]) -> None:
     }
     refused = [name for name, on in unported.items() if on]
     if refused:
-        raise NotImplementedError(f"VAE training with {', '.join(refused)} is not ported yet")
+        raise NotImplementedError(f"VAE training with {', '.join(refused)} is not ported yet "
+                                  f"(ROADMAP Queue 1 item 10)")
 
 
 class VAETrainStep:
@@ -167,11 +189,17 @@ class VAETrainStep:
     as in the JAX package), so chunk k quantizes with chunk k - 1's
     codebook. With ``gan_weight > 0`` it holds the ``discriminator`` and its
     ``disc_optimizer``; a step or eval with ``disc_active`` adds the GAN
-    terms (see the module's docstring)."""
+    terms (see the module's docstring). A ``mesh`` over ranks makes both
+    steps the global batch's (the module's docstring; the discriminator's
+    parameters are set to rank 0's)."""
 
     def __init__(self, model: torch.nn.Module, training_cfg: Mapping[str, Any], *,
-                 steps_per_epoch: int = 1, n_chunks: Optional[int] = None):
+                 steps_per_epoch: int = 1, n_chunks: Optional[int] = None,
+                 mesh: Optional[mesh_lib.DataMesh] = None):
         _refuse_unported(training_cfg)
+        loop.check_train_mesh(mesh)
+        # a mesh over ranks, else None (one process)
+        self.mesh = mesh if mesh_lib.spans_processes(mesh) else None
         self.model = model
         self.recon_type = str(training_cfg.get("recon_type", "l1"))
         self.kl_weight = float(training_cfg.get("kl_weight", 0.0))
@@ -214,6 +242,17 @@ class VAETrainStep:
             self.disc_optimizer = torch.optim.AdamW(
                 self.discriminator.parameters(), lr=float(disc_lr) if disc_lr is not None else lr,
                 betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+            mesh_lib.replicate(self.mesh, self.discriminator)
+        modules = list(model.modules()) + (list(self.discriminator.modules())
+                                           if self.discriminator is not None else [])
+        # the modules whose reductions over the batch follow the step's mesh
+        self._mesh_modules = [m for m in modules if isinstance(m, (BatchNorm, VectorQuantizerEMA))]
+        self._use_mesh(self.mesh)
+
+    def _use_mesh(self, mesh: Optional[mesh_lib.DataMesh]) -> None:
+        self.mesh = mesh
+        for m in self._mesh_modules:
+            m.mesh = mesh
 
     def disc_is_active(self, epoch: int, global_step: int) -> bool:
         """The GAN gate (JAX :85-92): off without a discriminator or weight;
@@ -230,26 +269,43 @@ class VAETrainStep:
 
     def losses(self, raw: torch.Tensor, valid: torch.Tensor, kl_scale: float, *,
                train: bool, noise: Optional[torch.Tensor] = None,
-               generator: Optional[torch.Generator] = None, disc_active: bool = False
+               generator: Optional[torch.Generator] = None, disc_active: bool = False,
+               count: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Metrics, Optional[Dict[str, torch.Tensor]], torch.Tensor]:
         """Total loss, its parts, an EMA codebook's update (else None) and the
         reconstructed image, on one chunk of images in [0, 1]. With
         ``disc_active`` the generator's GAN term uses D's batch statistics
-        in ``train`` mode and its running statistics otherwise."""
+        in ``train`` mode and its running statistics otherwise. Over ranks
+        (``count`` the chunk's global valid count) each part is this rank's
+        share of the global batch's: the parts summed over the ranks are
+        the global losses."""
         model = self.model
         zero = raw.new_zeros(())
         inputs = model.image_to_model_range(raw)
         new_ema = None
+        share = 1.0 / self.mesh.process_count if self.mesh is not None else None
         if self.is_vq:
             rec, aux = model(inputs, train=train)
             vq_term, kl_term, new_ema = aux["vq_loss"], zero, aux["ema_update"]
+        elif self.mesh is not None and train and noise is None:
+            # the global chunk's posterior noise, this rank's rows
+            posterior = model.encode(inputs)
+            global_shape = (posterior.mu.shape[0] * self.mesh.process_count,) + tuple(
+                posterior.mu.shape[1:])
+            noise = mesh_lib.rows_of(torch.randn(global_shape, generator=generator,
+                                                 dtype=posterior.mu.dtype,
+                                                 device=posterior.mu.device), self.mesh)
+            rec = model.decode(posterior.sample(noise))
+            vq_term, kl_term = zero, posterior.kl().mean()
         else:
             rec, posterior = model(inputs, sample_posterior=train, noise=noise,
                                    generator=generator)
             vq_term, kl_term = zero, posterior.kl().mean()
         rec_img = model.raw_output_to_image(rec, self.recon_type)
-        recon = recon_loss(rec, rec_img, raw, valid, self.recon_type)
+        recon = recon_loss(rec, rec_img, raw, valid, self.recon_type, count)
         perc = self.perceptual(rec_img, raw) if self.perceptual is not None else zero
+        if share is not None:
+            vq_term, kl_term, perc = vq_term * share, kl_term * share, perc * share
         total = (recon + self.perceptual_weight * perc + kl_scale * kl_term
                  + self.codebook_weight * vq_term)
         metrics = {"loss": total, "recon": recon, "kl": kl_term, "vq": vq_term,
@@ -257,15 +313,25 @@ class VAETrainStep:
         if self.discriminator is not None:
             g_gan = (generator_hinge_loss(self.discriminator(rec_img, train=train))
                      if disc_active else zero)
+            if share is not None:
+                g_gan = g_gan * share
             total = total + self.gan_weight * g_gan
             metrics.update(loss=total, g_gan=g_gan)
         return total, metrics, new_ema, rec_img
 
     def disc_loss(self, rec_img: torch.Tensor, raw: torch.Tensor) -> torch.Tensor:
         """D's hinge loss on real images and the detached reconstruction,
-        with batch statistics."""
-        return discriminator_hinge_loss(self.discriminator(raw, train=True),
+        with batch statistics (over ranks, this rank's share)."""
+        loss = discriminator_hinge_loss(self.discriminator(raw, train=True),
                                         self.discriminator(rec_img.detach(), train=True))
+        return loss if self.mesh is None else loss / self.mesh.process_count
+
+    def _global_metrics(self, metrics: Metrics) -> Metrics:
+        """The ranks' shares of each metric summed: the global values."""
+        keys = list(metrics)
+        stacked = mesh_lib.all_reduce_sum(
+            torch.stack([metrics[k].detach().float() for k in keys]), self.mesh)
+        return dict(zip(keys, stacked.unbind()))
 
     def step(self, raw: torch.Tensor, valid: torch.Tensor, *,
              noise: Optional[torch.Tensor] = None,
@@ -282,6 +348,9 @@ class VAETrainStep:
         sums, count = self._accumulate(raw, valid, noise, generator,
                                        self.kl_scale() if kl_scale is None else kl_scale,
                                        disc_active)
+        if self.mesh is not None:
+            mesh_lib.all_reduce_grads(list(self.model.parameters()) + self._disc_trainable,
+                                      self.mesh)
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr_schedule(self.global_step)
         self.optimizer.step()
@@ -295,12 +364,16 @@ class VAETrainStep:
         (with the GAN terms when there is a discriminator), drawing from
         ``generator``, then the gradients freed and an EMA codebook
         restored: the optimizers and the rate's step are left as they
-        were."""
+        were. It runs as one process's step, with no collective (see
+        :meth:`DenoiseTrainStep.trial`)."""
         buffers = {k: b.clone() for k, b in self.model.named_buffers()}
+        mesh = self.mesh
+        self._use_mesh(None)
         try:
             self._accumulate(raw, valid, None, generator, self.kl_scale(),
                              self.discriminator is not None)
         finally:
+            self._use_mesh(mesh)
             self.optimizer.zero_grad(set_to_none=True)
             if self.disc_optimizer is not None:
                 self.disc_optimizer.zero_grad(set_to_none=True)
@@ -328,6 +401,9 @@ class VAETrainStep:
         self.optimizer.zero_grad(set_to_none=True)
         if self.disc_optimizer is not None:
             self.disc_optimizer.zero_grad(set_to_none=True)
+        if self.mesh is not None:
+            return self._accumulate_over_ranks(raw, valid, noise, generator, kl_scale,
+                                               disc_active, chunk)
         sums: Metrics = {}
         count = valid.new_zeros(())
         for i in range(n):
@@ -363,6 +439,41 @@ class VAETrainStep:
                 p.grad.div_(divisor)
         return sums, count
 
+    def _accumulate_over_ranks(self, raw, valid, noise, generator, kl_scale,
+                               disc_active: bool, chunk: int) -> Tuple[Metrics, torch.Tensor]:
+        """:meth:`_accumulate` over the mesh's ranks: each chunk's shares
+        weighted by its global valid count; returns the global metric sums
+        and count."""
+        n = self.n_chunks
+        counts = mesh_lib.all_reduce_sum(valid.reshape(n, chunk).sum(dim=1), self.mesh)
+        sums: Metrics = {}
+        for i in range(n):
+            rows = slice(i * chunk, (i + 1) * chunk)
+            c = counts[i]
+            self._set_disc_grad(False)
+            total, metrics, new_ema, rec_img = self.losses(
+                raw[rows], valid[rows], kl_scale, train=True,
+                noise=None if noise is None else noise[rows], generator=generator,
+                disc_active=disc_active, count=c)
+            self._set_disc_grad(True)
+            (total * c).backward()
+            if self.discriminator is not None:
+                d_gan = raw.new_zeros(())
+                if disc_active:
+                    d_gan = self.disc_loss(rec_img, raw[rows])
+                    (d_gan * c).backward()
+                metrics["d_gan"] = d_gan
+            if new_ema is not None:
+                self.model.codebook.apply_update(new_ema)
+            for k, v in self._global_metrics(metrics).items():
+                sums[k] = sums.get(k, 0.0) + v * c
+        count = counts.sum()
+        divisor = torch.clamp(count, min=1.0)
+        for p in list(self.model.parameters()) + self._disc_trainable:
+            if p.grad is not None:
+                p.grad.div_(divisor)
+        return sums, count
+
     def _set_disc_grad(self, on: bool) -> None:
         for p in self._disc_trainable:
             p.requires_grad_(on)
@@ -376,13 +487,18 @@ class VAETrainStep:
         count; with ``disc_active``, ``g_gan`` on D's running statistics and
         ``d_gan`` on batch statistics (JAX :441-453)."""
         self.model.eval()
+        count = valid.sum()
+        if self.mesh is not None:
+            count = mesh_lib.all_reduce_sum(count, self.mesh)
         _, metrics, _, rec_img = self.losses(raw, valid,
                                              self.kl_scale() if kl_scale is None else kl_scale,
-                                             train=False, disc_active=disc_active)
+                                             train=False, disc_active=disc_active,
+                                             count=None if self.mesh is None else count)
         if self.discriminator is not None:
             metrics["d_gan"] = (self.disc_loss(rec_img, raw) if disc_active
                                 else raw.new_zeros(()))
-        count = valid.sum()
+        if self.mesh is not None:
+            metrics = self._global_metrics(metrics)
         return {k: v * count for k, v in metrics.items()}, count
 
 
@@ -434,7 +550,10 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
     cfg = config_utils.load_json_config(json_path)
     training_cfg = cfg["training"]
     _refuse_unported(training_cfg)
-    device = resolve_device(device)
+    mesh_lib.maybe_initialize_distributed(device)
+    device = mesh_lib.rank_device(device) if mesh_lib.group_active() else resolve_device(device)
+    main = mesh_lib.is_main_process()
+    logging.info("%s on %s", mesh_lib.describe_group(), device)
     config_utils.set_seed(training_cfg.get("seed"))
     seed = int(training_cfg.get("seed") or 0)
     ckpt_utils.set_checkpoint_backend(str(training_cfg.get("checkpoint_backend", "torch")))
@@ -458,16 +577,19 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
     best_metric = float("inf")
     metrics_path = output_dir / "metrics.csv"
     metrics_keys = _metric_columns(training_cfg)
-    if not metrics_path.exists():
+    if main and not metrics_path.exists():
         metrics_path.write_text("epoch," + ",".join(metrics_keys) + "\n")
 
+    mesh = mesh_lib.create_data_mesh(batch_size, device) if mesh_lib.group_active() else None
     start = time.perf_counter()
     model = build_vae_model(cfg, device=device)
+    mesh_lib.replicate(mesh, model)
     logging.info("Built the VAE on %s in %.3f s", device, time.perf_counter() - start)
     model_cfg = cfg.get("model", {})
-    summarize_model(model, model_cfg, training_cfg, name="vae")
-    steps_per_epoch = math.ceil(len(dataset) / batch_size)
-    trainer = VAETrainStep(model, training_cfg, steps_per_epoch=steps_per_epoch)
+    if main:
+        summarize_model(model, model_cfg, training_cfg, name="vae")
+    steps_per_epoch = loop.steps_per_epoch(len(dataset), batch_size)
+    trainer = VAETrainStep(model, training_cfg, steps_per_epoch=steps_per_epoch, mesh=mesh)
 
     logging.info(
         "Data: train_samples=%d%s | batch_size=%d | grad_accum=%d | epochs=%d",
@@ -476,7 +598,7 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
     )
 
     sample_count = int(training_cfg.get("visual_samples", 20))
-    visual_enabled = bool(training_cfg.get("save_images", True))
+    visual_enabled = bool(training_cfg.get("save_images", True)) and main
     visual_every = int(training_cfg.get("save_images_every", 1))
     sample_dataset = val_dataset if val_dataset is not None else dataset
     sample_batch = prepare_eval_batch(sample_dataset, sample_count, seed=training_cfg.get("seed"))
@@ -493,14 +615,17 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
         step.trial(torch.from_numpy(probe).to(device), torch.ones(batch_size, device=device),
                    torch.Generator(device).manual_seed(0))
 
-    _, trainer = autotune_grad_accum(
+    accum, trainer = autotune_grad_accum(
         _build_step, _trial, batch_size=batch_size, grad_accum=trainer.n_chunks,
         allow_microbatching=bool(training_cfg.get("allow_microbatching", True)),
         what="vae train step")
+    _, trainer = loop.agree_grad_accum(accum, _build_step, mesh)
 
     generator = torch.Generator(device).manual_seed(seed + 23)
     start_epoch = 1
     resume_flag = loop.resume_path(resume, training_cfg)
+    if resume_flag:
+        ckpt_utils.flush_checkpoint_writes()
     if resume_flag and resume_flag.exists():
         payload = ckpt_utils.load_checkpoint(resume_flag)
         model.load_state_dict(payload["model"], strict=True)
@@ -575,7 +700,8 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
             kl_scale = kl_scale_at(kl_weight, kl_anneal_steps, global_step)
             disc_active = trainer.disc_is_active(epoch, global_step)
             for batch in epoch_batches(val_dataset, batch_size, shuffle=False, seed=seed,
-                                       epoch=epoch):
+                                       epoch=epoch, process_index=mesh_lib.process_index(),
+                                       process_count=mesh_lib.process_count()):
                 placed = batch_to_device({"target": batch["target"], "valid": batch["valid"]},
                                          device)
                 m, count = trainer.eval(placed["target"], placed["valid"], kl_scale, disc_active)
@@ -591,7 +717,7 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
 
         current_metric = val_avg["loss"] if val_avg is not None else averaged["loss"]
         ckpt_s = vis_s = 0.0
-        saved = epoch % checkpoint_every == 0 or epoch == epochs
+        saved = main and (epoch % checkpoint_every == 0 or epoch == epochs)
         should_save = saved and (epoch % save_every == 0 or epoch == epochs)
         epoch_dir = output_dir / "epochs" / f"epoch{epoch:04d}"
         if saved:
@@ -615,9 +741,10 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
             if should_save:
                 logging.info("Saved epoch checkpoint: %s", epoch_dir / "epoch.pt")
 
-        with metrics_path.open("a") as handle:
-            handle.write(",".join([f"{epoch}"] + [f"{averaged[k]:.6f}" for k in metrics_keys])
-                         + "\n")
+        if main:
+            with metrics_path.open("a") as handle:
+                handle.write(",".join([f"{epoch}"] + [f"{averaged[k]:.6f}" for k in metrics_keys])
+                             + "\n")
 
         if should_save and visual_enabled and (epoch % visual_every == 0 or epoch == epochs):
             t_vis = time.perf_counter()
@@ -639,6 +766,8 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
         logging.info("Epoch %03d timing | %d steps in %.3f s (%.3f s waiting for data) | "
                      "validation %.3f s | checkpoint %.3f s | visuals %.3f s | optimizer step %d",
                      epoch, n_steps, steps_s, data_wait, val_s, ckpt_s, vis_s, trainer.global_step)
+    ckpt_utils.flush_checkpoint_writes()
+    mesh_lib.agree_max(0, mesh)  # no rank returns before rank 0's writes landed
     return output_dir
 
 

@@ -1,7 +1,7 @@
 """
-Checkpoints in the JAX package's layout and payload (counterpart of the
-torch backend of ``fmdm_tpu/utils/checkpoint.py``), so that one file loads in
-both packages.
+Checkpoints in the JAX package's layout and payload (counterpart of
+``fmdm_tpu/utils/checkpoint.py``), so that one file loads in both packages,
+and its four backends.
 
 Layout: run dirs hold ``{vae|diff|flow}_last.pt``, ``{vae|diff|flow}_best.pt``
 and ``epochs/epochXXXX/epoch.pt``. Payload keys: ``model``, ``ema``,
@@ -22,8 +22,25 @@ for a VAE's GAN run ``extra_state`` (``{"disc_params": ...}``) and
   the port's optimizer state (it would have to read a ``torch.optim`` state
   dict); its model and EMA weights load in both packages.
 
-Not ported: the orbax backend and the ``*_async`` writers (ROADMAP Queue 1
-item 12), which raise ``NotImplementedError``.
+Backends (``training.checkpoint_backend``, :func:`set_checkpoint_backend`):
+
+- ``torch``: one ``torch.save`` file, written atomically (a unique temp
+  file, then a rename). Both packages read it.
+- ``orbax``: a directory written by ``torch.distributed.checkpoint``
+  (``utils/orbax_ckpt.py``; the JAX package's name is kept). Only the port
+  reads it; :func:`load_checkpoint` recognizes it by its ``.metadata``.
+- ``torch_async``, ``orbax_async``: the same files, serialized and written by
+  one background writer thread. The caller's thread takes the snapshot: every
+  tensor is copied into storage of its own (a CPU tensor cloned, a CUDA
+  tensor copied into pinned host memory without blocking, the copies' end
+  marked by an event the writer waits on), so an in-place optimizer step
+  after ``save_checkpoint`` returns never reaches the file.
+  :func:`flush_checkpoint_writes` waits for every pending write and raises
+  the first error a write hit; it also runs at exit.
+
+A JAX orbax directory (OCDBT and zarr) is refused with a ``ValueError``:
+reading it needs ``orbax`` and ``tensorstore``. Load it in the JAX package
+and save it with the ``torch`` backend, whose file both packages read.
 """
 
 from __future__ import annotations
@@ -32,7 +49,7 @@ import os
 import shutil
 import tempfile
 from pathlib import Path
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,112 +98,278 @@ def _to_tensor(value) -> torch.Tensor:
     return torch.from_numpy(np.array(value, copy=True))
 
 
-def _cpu_tensors(tree):
-    """A nested dict/list of an optimizer's state with its tensors on the CPU."""
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu()
-    if isinstance(tree, Mapping):
-        return {k: _cpu_tensors(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_cpu_tensors(v) for v in tree)
-    return tree
-
-
 def is_jax_tree_map(value) -> bool:
     """Whether a payload entry is the JAX package's flattened pytree."""
     return isinstance(value, Mapping) and TREEDEF in value
 
 
 # ---------------------------------------------------------------------------
-# backend
+# backend and writer
 # ---------------------------------------------------------------------------
 
-def set_checkpoint_backend(name: str) -> None:
-    """Accept the JAX package's backend names; only "torch" is ported."""
+BACKENDS = ("torch", "torch_async", "orbax", "orbax_async")
+_BACKEND = "torch"
+_WRITER = None
+_PENDING: list = []
+
+
+def _split_backend(name: str) -> Tuple[str, bool]:
     base, _, suffix = str(name).partition("_")
     if base not in ("torch", "orbax") or suffix not in ("", "async"):
         raise ValueError(f"Unknown checkpoint backend '{name}'")
-    if name != "torch":
-        raise NotImplementedError(f"checkpoint backend '{name}': only 'torch' is ported; the "
-                                  f"orbax and async backends wait (ROADMAP Queue 1 item 12)")
+    return base, suffix == "async"
 
 
-def _check_backend(backend: Optional[str]) -> None:
-    if backend is not None:
-        set_checkpoint_backend(backend)
+def set_checkpoint_backend(name: str) -> None:
+    """Select the backend of later saves: one of :data:`BACKENDS`."""
+    global _BACKEND
+    _split_backend(name)
+    _BACKEND = str(name)
+
+
+def get_checkpoint_backend() -> str:
+    return _BACKEND
+
+
+def _writer():
+    """The one background writer thread, created at the first async save;
+    :func:`flush_checkpoint_writes` runs at exit."""
+    global _WRITER
+    if _WRITER is None:
+        import atexit
+        from concurrent.futures import ThreadPoolExecutor
+
+        _WRITER = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt-write")
+        atexit.register(flush_checkpoint_writes)
+    return _WRITER
+
+
+def _submit(fn: Callable, *args) -> None:
+    _PENDING.append(_writer().submit(fn, *args))
+
+
+def flush_checkpoint_writes() -> None:
+    """Wait for every pending async write; raise the first error a write hit
+    (a dropped checkpoint must not pass for a saved one)."""
+    global _PENDING
+    pending, _PENDING = _PENDING, []
+    errors = []
+    for future in pending:
+        try:
+            future.result()
+        except BaseException as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+    if errors:
+        raise errors[0]
 
 
 # ---------------------------------------------------------------------------
-# save / load
+# snapshot: the payload's tensors on the host
 # ---------------------------------------------------------------------------
 
 def _state_dict(value) -> Mapping[str, Any]:
     return value.state_dict() if isinstance(value, torch.nn.Module) else value
 
 
-def save_checkpoint(state: Dict[str, Any], path, backend: Optional[str] = None) -> None:
-    """Write ``state`` to ``path`` atomically (a unique temp file, then a
-    rename). ``model`` and ``ema`` take a module or a (flat or nested)
-    mapping of tensors or arrays; ``optimizer`` a ``torch.optim`` optimizer,
-    its ``state_dict()`` or an entry read from a checkpoint; other keys are
-    stored as given."""
-    _check_backend(backend)
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    payload: Dict[str, Any] = {}
+class _HostCopy:
+    """Brings tensors to the host. Without ``owned`` a CPU tensor is kept as
+    it is and a CUDA tensor copied with ``.cpu()``. With ``owned`` every
+    tensor gets storage of its own: a CPU tensor is cloned, a CUDA tensor is
+    copied into pinned memory without blocking; :meth:`mark` records one
+    event per card after the copies, and :meth:`wait` blocks on them."""
+
+    def __init__(self, owned: bool):
+        self.owned = owned
+        self.devices = set()
+        self.events: List[Any] = []
+
+    def __call__(self, value):
+        if isinstance(value, np.ndarray):
+            return np.array(value, copy=True) if self.owned else value
+        if not isinstance(value, torch.Tensor):
+            return value
+        value = value.detach()
+        if value.device.type == "cpu":
+            return value.clone() if self.owned else value
+        if not self.owned or value.device.type != "cuda":
+            return value.cpu()
+        out = torch.empty(value.shape, dtype=value.dtype, pin_memory=True)
+        out.copy_(value, non_blocking=True)
+        self.devices.add(value.device)
+        return out
+
+    def mark(self) -> "_HostCopy":
+        for device in self.devices:
+            with torch.cuda.device(device):
+                event = torch.cuda.Event()
+                event.record()
+                self.events.append(event)
+        return self
+
+    def wait(self) -> None:
+        for event in self.events:
+            event.synchronize()
+
+
+def _map_leaves(tree, fn):
+    if isinstance(tree, Mapping):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    if type(tree) in (list, tuple):
+        return type(tree)(_map_leaves(v, fn) for v in tree)
+    return fn(tree)
+
+
+def _host_state(state: Mapping[str, Any], copy: _HostCopy) -> Dict[str, Any]:
+    """``state`` with its modules and optimizers as state dicts (``model``
+    and ``ema`` flattened to dotted names) and every tensor through
+    ``copy``."""
+    out: Dict[str, Any] = {}
     for key, value in state.items():
-        if key == "model" and value is not None:
-            payload[key] = {k: _to_tensor(v) for k, v in flatten_params(_state_dict(value)).items()}
-        elif key == "ema" and value is not None:
-            payload[key] = unflatten_params(
-                {k: _to_numpy(v) for k, v in flatten_params(_state_dict(value)).items()})
+        if key in ("model", "ema") and value is not None:
+            out[key] = {k: copy(v) for k, v in flatten_params(_state_dict(value)).items()}
         elif isinstance(value, torch.optim.Optimizer):
-            payload[key] = _cpu_tensors(value.state_dict())
+            out[key] = _map_leaves(value.state_dict(), copy)
+        else:
+            out[key] = _map_leaves(value, copy)
+    return out
+
+
+def _snapshot(state: Mapping[str, Any], owned: bool) -> Tuple[Dict[str, Any], _HostCopy]:
+    """(host state, its copier) of ``state``; with ``owned`` nothing in it
+    shares storage with ``state`` once the copier's ``wait`` returns."""
+    copy = _HostCopy(owned)
+    host = _host_state(state, copy)
+    return host, copy.mark()
+
+
+def _torch_payload(host: Mapping[str, Any]) -> Dict[str, Any]:
+    """The ``torch.save`` payload of a host state: ``model`` as a flat
+    state dict of tensors, ``ema`` as the JAX package's nested numpy dict,
+    the rest as it is."""
+    payload: Dict[str, Any] = {}
+    for key, value in host.items():
+        if key == "model" and value is not None:
+            payload[key] = {k: _to_tensor(v) for k, v in value.items()}
+        elif key == "ema" and value is not None:
+            payload[key] = unflatten_params({k: _to_numpy(v) for k, v in value.items()})
         else:
             payload[key] = value
+    return payload
+
+
+# ---------------------------------------------------------------------------
+# save / load
+# ---------------------------------------------------------------------------
+
+def _write_torch(host: Mapping[str, Any], path: Path) -> None:
+    path.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp_name = tempfile.mkstemp(prefix=path.name + ".", suffix=".tmp", dir=str(path.parent))
     tmp = Path(tmp_name)
     try:
         with os.fdopen(fd, "wb") as fh:
-            torch.save(payload, fh)
-        tmp.replace(path)
+            torch.save(_torch_payload(host), fh)
+        replace_path(tmp, path)
     except BaseException:
         tmp.unlink(missing_ok=True)
         raise
+
+
+def _write(host: Mapping[str, Any], copy: Optional[_HostCopy], primary, mirrors,
+           base: str) -> None:
+    """Write a host state to ``primary`` under ``base``, then clone it to
+    each mirror; nothing is cloned when the write fails."""
+    if copy is not None:
+        copy.wait()
+    if base == "orbax":
+        from fmdm_tpu_torch.utils import orbax_ckpt
+
+        orbax_ckpt.write_checkpoint(host, Path(primary))
+    else:
+        _write_torch(host, Path(primary))
+    for mirror in mirrors:
+        _clone(Path(primary), Path(mirror))
+
+
+def save_checkpoint(state: Dict[str, Any], path, backend: Optional[str] = None) -> None:
+    """Write ``state`` to ``path`` under ``backend`` (default: the selected
+    one). ``model`` and ``ema`` take a module or a (flat or nested) mapping
+    of tensors or arrays; ``optimizer`` a ``torch.optim`` optimizer, its
+    ``state_dict()`` or an entry read from a checkpoint; other keys are
+    stored as given. Under an async backend this returns once the snapshot
+    is taken, and the write is left to the writer thread."""
+    save_checkpoint_with_mirrors(state, path, (), backend)
+
+
+def _clone(src: Path, dst: Path) -> None:
+    """A file or a directory duplicated by hardlinks (copies across
+    devices) under a unique temp name, then swapped in, so a later
+    overwrite of ``src`` leaves the clone as it was."""
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix=dst.name + ".", suffix=".tmp", dir=str(dst.parent)))
+    try:
+        if src.is_dir():
+            shutil.copytree(src, tmp / "d", copy_function=_link_or_copy)
+            replace_path(tmp / "d", dst)
+        else:
+            _link_or_copy(src, tmp / "f")
+            replace_path(tmp / "f", dst)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _link_or_copy(src, dst) -> None:
+    try:
+        os.link(src, dst)
+    except OSError:
+        shutil.copyfile(src, dst)
+
+
+def replace_path(new: Path, dst: Path) -> None:
+    """Put ``new`` (a file or a directory) at ``dst``, replacing what is
+    there: a file by a rename, a directory by moving the old one aside
+    first."""
+    if not dst.is_dir() and not new.is_dir():
+        new.replace(dst)
+        return
+    old = None
+    if dst.exists():
+        old = Path(tempfile.mkdtemp(prefix=dst.name + ".", suffix=".old", dir=str(dst.parent)))
+        dst.replace(old / "x")
+    new.replace(dst)
+    if old is not None:
+        shutil.rmtree(old, ignore_errors=True)
 
 
 def clone_checkpoint(src, dst, backend: Optional[str] = None) -> None:
-    """Duplicate a written checkpoint without re-serializing it: a hardlink
-    (a copy across devices) to a unique temp name, then a rename."""
-    _check_backend(backend)
-    src, dst = Path(src), Path(dst)
-    dst.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp_name = tempfile.mkstemp(prefix=dst.name + ".", suffix=".tmp", dir=str(dst.parent))
-    os.close(fd)
-    tmp = Path(tmp_name)
-    try:
-        tmp.unlink()  # os.link needs the target path free
-        try:
-            os.link(src, tmp)
-        except OSError:
-            shutil.copyfile(src, tmp)
-        tmp.replace(dst)
-    except BaseException:
-        tmp.unlink(missing_ok=True)
-        raise
+    """Duplicate a written checkpoint (a file or a directory) without
+    re-serializing it; under an async backend the clone is queued behind
+    the writes before it."""
+    _, is_async = _split_backend(backend or _BACKEND)
+    if is_async:
+        _submit(_clone, Path(src), Path(dst))
+        return
+    _clone(Path(src), Path(dst))
 
 
 def save_checkpoint_with_mirrors(state: Dict[str, Any], primary, mirrors=(),
                                  backend: Optional[str] = None) -> None:
-    """Serialize ``state`` once to ``primary``, then hardlink-clone the file
-    to each mirror path (last -> best / epoch)."""
-    save_checkpoint(state, primary, backend)
-    for mirror in mirrors:
-        clone_checkpoint(primary, mirror, backend)
+    """Serialize ``state`` once to ``primary``, then hardlink-clone it to
+    each mirror path (last -> best / epoch). Under an async backend the
+    save and its clones are one writer task: a failed save leaves no
+    clone."""
+    base, is_async = _split_backend(backend or _BACKEND)
+    mirrors = tuple(Path(m) for m in mirrors)
+    if is_async:
+        host, copy = _snapshot(state, owned=True)
+        _submit(_write, host, copy, Path(primary), mirrors, base)
+        return
+    host, _ = _snapshot(state, owned=False)
+    _write(host, None, Path(primary), mirrors, base)
 
 
 def load_checkpoint(path) -> Dict[str, Any]:
-    """Load a checkpoint written by either package (or a bare state dict).
+    """Load a checkpoint written by either package's ``torch`` backend, the
+    port's ``orbax`` backend (a directory), or a bare state dict.
 
     ``model`` and ``ema`` come back as flat ``{dotted name: CPU tensor}``
     state dicts; a JAX flattened pytree (``optimizer``, ``lr_scheduler``, ...)
@@ -194,15 +377,17 @@ def load_checkpoint(path) -> Dict[str, Any]:
     entry as stored."""
     path = Path(path)
     if path.is_dir():
-        raise NotImplementedError(f"{path} is a directory (an orbax checkpoint); the orbax "
-                                  f"backend waits (ROADMAP Queue 1 item 12)")
-    # weights_only=False, as the JAX package loads: the JAX package's `ema`
-    # (a nested dict of numpy arrays) and its flattened pytrees under
-    # `optimizer`, `disc_optimizer`, `lr_scheduler`, `scaler` and
-    # `extra_state` (numpy arrays, the treedef as uint8 bytes) are numpy
-    # objects, which torch's weights-only unpickler refuses. `model` alone
-    # would load weights-only. Load only checkpoints you trust.
-    payload = torch.load(path, map_location="cpu", weights_only=False)
+        from fmdm_tpu_torch.utils import orbax_ckpt
+
+        payload = orbax_ckpt.read_checkpoint(path)
+    else:
+        # weights_only=False, as the JAX package loads: the JAX package's
+        # `ema` (a nested dict of numpy arrays) and its flattened pytrees
+        # under `optimizer`, `disc_optimizer`, `lr_scheduler`, `scaler` and
+        # `extra_state` (numpy arrays, the treedef as uint8 bytes) are numpy
+        # objects, which torch's weights-only unpickler refuses. `model`
+        # alone would load weights-only. Load only checkpoints you trust.
+        payload = torch.load(path, map_location="cpu", weights_only=False)
     out: Dict[str, Any] = {}
     for key, value in payload.items():
         if key in ("model", "ema") and isinstance(value, Mapping):

@@ -293,9 +293,18 @@ def test_step_checks_its_arguments():
     with pytest.raises(ValueError, match="variant"):
         make_denoise_train_step(tm, DDPMScheduler.create(), optimizer, schedule,
                                 **dict(kw, variant="score"))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # the mesh is ported: a one-card mesh builds a step, anything else refuses
+    from fmdm_tpu_torch.parallel import DataMesh
+
+    one = make_denoise_train_step(tm, DDPMScheduler.create(), optimizer, schedule,
+                                  mesh=DataMesh((torch.device("cpu"),)), **kw)
+    assert one.mesh is None   # one process: today's path
+    with pytest.raises(TypeError, match="DataMesh"):
         make_denoise_train_step(tm, DDPMScheduler.create(), optimizer, schedule, mesh=object(),
                                 **kw)
+    with pytest.raises(ValueError, match="one card per process"):
+        make_denoise_train_step(tm, DDPMScheduler.create(), optimizer, schedule,
+                                mesh=DataMesh((torch.device("cpu"),) * 2), **kw)
 
 
 def _reduced_config(name: str, **training):

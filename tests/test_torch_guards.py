@@ -1,4 +1,4 @@
-"""Guards of the port: it imports neither JAX nor the JAX package, its entry
+"""Guards of the port: it imports neither JAX, orbax nor the JAX package, its entry
 points default to CUDA and raise without it, and the CPU never launches a
 kernel."""
 
@@ -13,7 +13,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "fmdm_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "fmdm_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "fmdm_tpu", "orbax", "tensorstore"}
 
 
 def _imported_roots(path: Path):
@@ -57,6 +57,7 @@ def _entry_points():
     from fmdm_tpu_torch.nn.losses import PerceptualLoss
     from fmdm_tpu_torch.nn.vae_modules import VectorQuantizer, VectorQuantizerEMA
     from fmdm_tpu_torch.sample.diffusion_utils import build_diffusion_model, decode_diffusion_batch
+    from fmdm_tpu_torch.parallel.mesh import create_mesh, create_mesh_for_batch, rank_device
     from fmdm_tpu_torch.sample.engine import SamplingEngine
     from fmdm_tpu_torch.sample.vae_utils import build_vae_model
     from fmdm_tpu_torch.schedulers import DDPMScheduler, DPMSolverMultistepScheduler
@@ -127,6 +128,11 @@ def _entry_points():
         "magvit_discriminator": lambda **kw: MagvitDiscriminatorND(base_channels=4, **kw),
         "make_discriminator": lambda **kw: AutoencoderKL(**vae, device="cpu").make_discriminator(
             **kw),
+        "rank_device": lambda **kw: rank_device(**kw),
+        "create_mesh": lambda device=None: create_mesh(
+            devices=None if device is None else [device, device]),
+        "create_mesh_for_batch": lambda device=None: create_mesh_for_batch(
+            2, None if device is None else [device, device]),
         "quantize_model": lambda **kw: quantize_model(
             cpu_unet, [(torch.zeros(1, 2, 8, 8), torch.tensor([3]))], min_hw=4, min_channels=4,
             **kw),
@@ -229,7 +235,8 @@ def _training_loops(unet, vae):
                                   "autoencoder_modes", "rmsnorm_resblock", "rmsnorm",
                                   "batch_norm", "patch_discriminator", "magvit_discriminator",
                                   "make_discriminator", "quantize_model", "vae_gan_train",
-                                  "legacy_train"])
+                                  "legacy_train", "rank_device", "create_mesh",
+                                  "create_mesh_for_batch"])
 def test_entry_points_default_to_cuda_and_never_fall_back(name, monkeypatch):
     make = _entry_points()[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -400,12 +400,27 @@ def test_unported_options_refuse_and_defaults_pass(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
-    cfg = _cfg()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tdu.decode_diffusion_batch(None, cfg["training"], cfg["model"], SHAPE)
-    for backend in ("orbax", "torch_async"):
-        with pytest.raises(NotImplementedError, match="item 12"):
+    # data-parallel sampling is ported: with two cards visible the batch of 4
+    # splits over both
+    cuda0, cuda1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    assert tdu._sampling_mesh(SHAPE[0], cuda0).devices == (cuda0, cuda1)
+    assert tdu._sampling_mesh(SHAPE[0], cuda1).devices == (cuda1, cuda0)
+    assert tdu._sampling_mesh(3, cuda0) is None
+    assert tdu._sampling_mesh(SHAPE[0], "cpu") is None
+    tdu.set_dp_sampling(False)
+    try:
+        assert tdu._sampling_mesh(SHAPE[0], cuda0) is None
+    finally:
+        tdu.set_dp_sampling(True)
+    # the four checkpoint backends are ported: each one sets
+    try:
+        for backend in ("torch", "torch_async", "orbax", "orbax_async"):
             tckpt.set_checkpoint_backend(backend)
+            assert tckpt.get_checkpoint_backend() == backend
+        with pytest.raises(ValueError, match="Unknown checkpoint backend"):
+            tckpt.set_checkpoint_backend("orbax_sync")
+    finally:
+        tckpt.set_checkpoint_backend("torch")
 
 
 def test_encode_and_visual_batch_match_jax():
