@@ -223,7 +223,23 @@ Phases, each printing one or more lines:
     (a 3-step DPM++ bf16 sample at batch 4 against each shard's rows
     sampled alone) and the VAE engines' ``_make_dp_fn`` (a reconstruct at
     batch 3, edge-padded to 4, against batch 3 unsplit), their launches;
-36. the whole run's seconds, a ``{"kernels": [...]}`` line, then the result
+36. the rest of parallelism: (a) the flash ring in one process over two
+    shards of the card at [10]'s mid-attention shape (4, 4, 1024, 64) f32:
+    the forward's out and lse and the backward's dq, dk, dv against the
+    unsharded K3 and K4 + K5 and against the plain versions, K3 once per
+    forward hop and K4 and K5 once each per backward hop of each shard, the
+    per-chunk entry points alone against their plain versions in f32 and
+    bf16, the einsum ring once, the per-hop kernel times and the ring's
+    against the unsharded call; (b) two gloo ranks on the one card (a child
+    ``chip_smoke.py --par-rank 1``): the KL-VAE's train step under
+    ``sequence_parallel: 2`` (the mid attention's all-to-all and flash
+    ring), the flagship's under ``fsdp`` and under ``tensor_parallel: 2``,
+    each against one process on the global batch at [35b]'s tolerances,
+    with each rank's bytes of parameters and optimizer state; (c) the VAE
+    engine's reconstruct and a 3-step sample over a one-process
+    ``("data", "seq")`` mesh of two shards of the card against the unsplit
+    engines;
+37. the whole run's seconds, a ``{"kernels": [...]}`` line, then the result
     line ``{"ok": true, "device": {...}}``.
 
 The flagship is ``model.unet`` of ``configs/LDCT/LDCT_ddpm_diffusers_nd.json``
@@ -2052,7 +2068,7 @@ def phase_train(torch, card: str, seed: int, records, work: Path) -> dict:
     saves = []
 
     def checked_save(state, primary, mirrors=(), backend=None):
-        live = {k: v.detach().cpu().clone() for k, v in state["model"].state_dict().items()}
+        live = {k: v.detach().cpu().clone() for k, v in state["model"].items()}
         real_save(state, primary, mirrors, backend)
         stored = ckpt_utils.load_checkpoint(primary)["model"]
         same = stored.keys() == live.keys() and all(torch.equal(stored[k], live[k]) for k in live)
@@ -4024,6 +4040,468 @@ def phase_split_engines(torch, card: str, seed: int, records) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# [36] the rest of parallelism: ring attention, FSDP, tensor parallelism
+# ---------------------------------------------------------------------------
+
+SP_RANKS = 2                    # [36]: the ring's positions and the gloo ranks
+RING_SHAPE = (4, 4, 1024, 64)   # [10]'s KL-VAE mid attention (T = 32²), f32
+# the ring against the unsharded kernels and the plain versions: its
+# chunks are summed in another order (the logaddexp fold, dq over two hops)
+RING_TOL = (1e-4, 1e-5)         # rtol, atol as a share of the reference's largest
+SEQ_ENGINE_MIN_TOKENS = 64      # [36c]'s sample: the flagship's 256- and 64-token calls
+# [36c], each over the unsplit engine's largest. The ring's precision is
+# held in place, each mid attention of the reconstruct against the
+# unsharded K3 at RING_TOL. The whole reconstruct moves ~1e-5 for any
+# change in the mid attentions' roundings, however small (SEQ_PROBES read
+# its response), so its limit sits between that floor and the response to
+# the last probe, the control (ten times RING_TOL's share), which must
+# exceed it
+SEQ_SAMPLE_TOL = 1e-5
+SEQ_RECON_TOL = 1e-4
+SEQ_PROBES = (1e-7, 1e-6, 1e-5, 1e-4)   # each mid attention's output moved by a share
+
+
+def check_ring(what: str, got, ref) -> float:
+    """``got`` within RING_TOL of ``ref``: the error over ref's largest."""
+    import torch
+
+    err = max_err(got, ref)
+    scale = float(ref.float().abs().max())
+    ok = bool(torch.all((got.float() - ref.float()).abs()
+                        <= RING_TOL[1] * scale + RING_TOL[0] * ref.float().abs()))
+    log(f"  {what}: max_abs_err {err:.3e}, over the largest {err / scale:.3e} (tolerance "
+        f"{RING_TOL[1]:g} of the largest + {RING_TOL[0]:g}*|ref|) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the ring disagrees (max_abs_err {err})")
+    return err
+
+
+def phase_ring(torch, card: str, seed: int, records) -> dict:
+    """[36a]: the flash ring in one process over two shards of the card at
+    the KL-VAE's mid-attention shape; returns its launches and timings."""
+    from fmdm_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_reference, flash_backward, flash_backward_chunk, flash_backward_dkv,
+        flash_backward_dq, flash_backward_reference, flash_forward, flash_forward_partials)
+    from fmdm_tpu_torch.parallel import sequence as seq
+
+    n, t = SP_RANKS, RING_SHAPE[2]
+    log(f"[36a] ring attention over {n} shards of the card (one process, a hop is .to() to the "
+        f"same card): q, k, v {RING_SHAPE} f32, T = {t} cut into {t // n}-token shards, "
+        f"impl 'flash': K3 on every forward hop, K4 + K5 on every backward hop")
+    gen = torch.Generator().manual_seed(seed + 36)
+    q, k, v, dout = flash_inputs(torch, gen, RING_SHAPE, t, "float32")
+    scale = RING_SHAPE[-1] ** -0.5
+    devices = ["cuda:0"] * n
+    ring = seq.DeviceRing(devices)
+    cut = lambda x: [c.contiguous() for c in x.chunk(n, dim=-2)]
+    out_u, lse_u = flash_forward(q, k, v, scale)
+    grads_u = flash_backward(q, k, v, out_u, lse_u, dout, scale)
+    ref_out, ref_lse = flash_attention_reference(q, k, v, scale)
+    ref_grads = flash_backward_reference(q, k, v, ref_out, ref_lse, dout, scale)
+    torch.cuda.synchronize()
+
+    reset_counts(records)
+    outs, lses = seq._ring_flash_forward(ring, cut(q), cut(k), cut(v), scale)
+    torch.cuda.synchronize()
+    fwd = read_counts(records)
+    expect_counts("[36a] the ring's forward", fwd, {"K3": n * n})
+    out_r, lse_r = torch.cat(outs, dim=-2), torch.cat(lses, dim=-2)
+    worst = {"K3": max(check_ring("forward out vs unsharded K3", out_r, out_u),
+                       check_ring("forward out vs plain", out_r, ref_out),
+                       check_ring("forward lse vs unsharded K3", lse_r, lse_u),
+                       check_ring("forward lse vs plain", lse_r, ref_lse))}
+
+    leaves = [[c.requires_grad_() for c in cut(x)] for x in (q, k, v)]
+    reset_counts(records)
+    ring_out = seq.ring_attention(*leaves, devices=devices, impl="flash")
+    torch.autograd.backward(ring_out, cut(dout))
+    torch.cuda.synchronize()
+    counts = read_counts(records)
+    expect_counts("[36a] the ring's forward and backward", counts,
+                  {"K3": n * n, "K4": n * n, "K5": n * n})
+    grads_r = [torch.cat([c.grad for c in shards], dim=-2) for shards in leaves]
+    for name, got, unsharded, plain in zip(("dq", "dk", "dv"), grads_r, grads_u, ref_grads):
+        kernel = "K5" if name == "dq" else "K4"
+        worst[kernel] = max(worst.get(kernel, 0.0),
+                            check_ring(f"backward {name} vs unsharded K4 + K5", got, unsharded),
+                            check_ring(f"backward {name} vs plain", got, plain))
+    log(f"  launches per forward + backward: {counts} (per shard: K3 {n} forward hops, K4 and "
+        f"K5 {n} backward hops each) [{card}]")
+
+    hop_shape = RING_SHAPE[:2] + (t // n, RING_SHAPE[3])
+    log(f"  the chunk entry points alone at the hop shape, q and k/v {hop_shape}, against their "
+        f"plain versions; the backward against the global (out, lse)")
+    hop = [x[..., : t // n, :].contiguous() for x in (q, k, v, dout, out_u)]
+    hop_lse = lse_u[..., : t // n, :].contiguous()
+    for dtype in ("float32", "bfloat16"):
+        hq, hk, hv, hg, ho = (x.to(getattr(torch, dtype)) for x in hop)
+        o_c, lse_c = flash_forward_partials(hq, hk, hv, scale)
+        p_o, p_lse = flash_attention_reference(hq, hk, hv, scale)
+        worst["K3"] = max(worst["K3"], check_close(f"flash_forward_partials {dtype} out", o_c, p_o,
+                                                   *TOL[dtype]),
+                          check_close(f"flash_forward_partials {dtype} lse", lse_c, p_lse,
+                                      *TOL["float32"]))
+        got = flash_backward_chunk(hq, hk, hv, ho, hop_lse, hg, scale)
+        want = flash_backward_reference(hq, hk, hv, ho, hop_lse, hg, scale)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            kernel = "K5" if name == "dq" else "K4"
+            worst[kernel] = max(worst[kernel], check_close(
+                f"flash_backward_chunk {dtype} {name}", a, b, *TOL[dtype]))
+
+    reset_counts(records)
+    einsum = seq.ring_attention(cut(q), cut(k), cut(v), devices=devices, impl="einsum")
+    torch.cuda.synchronize()
+    expect_counts("[36a] the einsum ring", read_counts(records), {})
+    check_ring("the einsum ring's out vs unsharded K3", torch.cat(einsum, dim=-2), out_u)
+
+    hq, hk, hv, hg = hop[:4]
+    h_delta = (hg * hop[4]).sum(dim=-1, keepdim=True)
+    qs, ks, vs, gs = cut(q), cut(k), cut(v), cut(dout)
+    ms = {"K3 hop": time_ms(lambda: flash_forward_partials(hq, hk, hv, scale)),
+          "K4 hop": time_ms(lambda: flash_backward_dkv(hq, hk, hv, hg, hop_lse, h_delta, scale)),
+          "K5 hop": time_ms(lambda: flash_backward_dq(hq, hk, hv, hg, hop_lse, h_delta, scale)),
+          "ring forward": time_ms(lambda: seq._ring_flash_forward(ring, qs, ks, vs, scale), 10),
+          "ring backward": time_ms(lambda: seq._ring_flash_backward(ring, qs, ks, vs, outs, lses,
+                                                                    gs, scale), 10),
+          "unsharded forward": time_ms(lambda: flash_forward(q, k, v, scale), 10),
+          "unsharded backward": time_ms(lambda: flash_backward(q, k, v, out_u, lse_u, dout,
+                                                               scale), 10)}
+    bh, th, d = RING_SHAPE[0] * RING_SHAPE[1], t // n, RING_SHAPE[3]
+    reads = 4 * hq.numel() * 4 + 2 * bh * th * 4
+    hop_bounds = {
+        "K3 hop": attention_bound(4 * hq.numel() * 4 + bh * th * 4, 4 * bh * th * th * d,
+                                  bh * th * th, "float32"),
+        "K4 hop": attention_bound(reads + 2 * hq.numel() * 4, 8 * bh * th * th * d, bh * th * th,
+                                  "float32"),
+        "K5 hop": attention_bound(reads + hq.numel() * 4, 6 * bh * th * th * d, bh * th * th,
+                                  "float32")}
+    log(f"  per hop at {hop_shape} f32: " + ", ".join(
+        f"{k} {ms[k]:.4f} ms (bound {hop_bounds[k][0]:.4f}, {hop_bounds[k][2]})"
+        for k in hop_bounds) + f" [{card}]")
+    log(f"  T = {t}: ring forward {ms['ring forward']:.4f} ms against unsharded K3 "
+        f"{ms['unsharded forward']:.4f} ms; ring backward {ms['ring backward']:.4f} ms against "
+        f"unsharded K4 + K5 {ms['unsharded backward']:.4f} ms [{card}]")
+    return {"counts": counts, "ms": ms, "hop_bounds": {k: b[0] for k, b in hop_bounds.items()},
+            "max_abs_err": worst}
+
+
+def par_cases(torch, seed: int, rank: int):
+    """[36b]'s three steps on this rank, each as (what, plan, the step over
+    the ranks, a one-process copy of it (rank 0) or None, run(step, rows),
+    this rank's rows of the global batch, the rate, its expected launches,
+    the global rows)."""
+    from fmdm_tpu_torch.sample.vae_utils import build_vae_model
+    from fmdm_tpu_torch.train.common import parallel_plan
+    from fmdm_tpu_torch.train.denoise_lib import build_denoise_trainer
+    from fmdm_tpu_torch.train.vae_impl import VAETrainStep
+
+    dev = torch.device("cuda", 0)
+    vae_cfg = json.loads(VAE_CONFIG.read_text())
+    training = dict(vae_cfg["training"], sequence_parallel=SP_RANKS)
+    plan = parallel_plan(training, 1, dev, vae=True)
+    model = build_vae_model(vae_cfg, generator=torch.Generator().manual_seed(seed), device=dev)
+    random_weights(torch, model, torch.Generator().manual_seed(seed))
+    ref = VAETrainStep(copy.deepcopy(model), training) if rank == 0 else None
+    trainer = VAETrainStep(model, training, mesh=plan.batch_mesh)
+    trainer.shard(plan)
+    gen = torch.Generator().manual_seed(seed + 9)
+    raw = torch.rand((SP_RANKS, 1, 256, 256), generator=gen).to(dev)
+    m = vae_cfg["model"]
+    side = m["resolution"] // 2 ** (len(m["down_channels"]) - 1)
+    latent = torch.randn((SP_RANKS, m["embed_dim"], side, side), generator=gen).to(dev)
+
+    def vae(st, rows):
+        return st.step(raw[rows], torch.ones(raw[rows].shape[0], device=dev), noise=latent[rows])
+
+    per_call = VAE_LAUNCHES["train step"]
+    yield ("KL-VAE sequence_parallel 2", plan, trainer, ref, vae, slice(rank, rank + 1),
+           float(training["learning_rate"]),
+           {"K1": per_call["K1"], **{k: SP_RANKS * per_call[k] for k in ("K3", "K4", "K5")}},
+           SP_RANKS)
+    del model, trainer, ref
+    cfg = json.loads(CONFIG.read_text())
+    warmup = int(cfg["training"]["lr_warmup_steps"])
+    for what, flags, per_rank, rows_of in (
+            ("flagship fsdp", {"fsdp": True}, 2, lambda r: slice(2 * r, 2 * r + 2)),
+            ("flagship tensor_parallel 2", {"tensor_parallel": SP_RANKS}, 1, lambda r: slice(0, 1))):
+        training = dict(cfg["training"], **flags)
+        plan = parallel_plan(training, per_rank, dev)
+        model, _, step = build_denoise_trainer(dict(cfg, training=training), variant="diffusion",
+                                               num_samples=8, device=dev, mesh=plan.batch_mesh)
+        random_weights(torch, model, torch.Generator().manual_seed(seed))
+        step.global_step = warmup
+        ref = one_process(step) if rank == 0 else None
+        step.reduce_grads = plan.reduce_grads
+        (step.optimizer,), (step.ema,) = plan.shard([model], [step.optimizer], [step.ema])
+        rows = per_rank * plan.rows[1]
+        gen = torch.Generator().manual_seed(seed + 10)
+        data = train_batch(torch, gen, rows, "cuda")
+        noise = torch.randn((rows, 1, 256, 256), generator=gen).cuda()
+        t = torch.randint(0, 1000, (rows,), generator=gen, dtype=torch.int32).cuda()
+
+        def denoise(st, sl, data=data, noise=noise, t=t):
+            return st.step({k: v[sl] for k, v in data.items()}, noise=noise[sl], t=t[sl])
+
+        yield (what, plan, step, ref, denoise, rows_of(plan.rows[0]), step.lr_schedule(warmup),
+               DENOISE_LAUNCHES, rows)
+        del model, step, ref
+    torch.cuda.empty_cache()
+
+
+def par_run(torch, seed: int, rank: int, records=None) -> dict:
+    """[36b]'s steps on this rank, every rank in lockstep; on rank 0
+    (``records``) also each one-process reference on the global batch (no
+    collective, no ring), the launches and the state bytes."""
+    from fmdm_tpu_torch.ops import attention as attention_ops
+    from fmdm_tpu_torch.train.common import state_bytes
+
+    out = {}
+    for what, plan, step, ref, run, rows, lr, launches, global_rows in par_cases(torch, seed, rank):
+        torch.cuda.synchronize()
+        if records is not None:
+            reset_counts(records)
+        start = time.perf_counter()
+        metrics, count = run(step, rows)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+        counts = read_counts(records) if records is not None else None
+        model = step.model
+        grads = {n: plan.whole(model, n, p.grad).detach().cpu().clone()
+                 for n, p in model.named_parameters() if p.grad is not None}
+        state = {k: v.detach().cpu().clone() for k, v in plan.full_model_state(model).items()}
+        opts = [step.optimizer] + ([step.disc_optimizer] if getattr(step, "disc_optimizer", None)
+                                   else [])
+        res = {"secs": secs, "counts": counts, "grads": grads, "state": state, "lr": lr,
+               "metrics": ({k: float(v) for k, v in metrics.items()} if isinstance(metrics, dict)
+                           else {"loss_sum": float(metrics)}),
+               "count": float(count), "bytes": state_bytes(model, *opts), "kind": plan.kind,
+               "launches": launches, "rows": global_rows}
+        start = time.perf_counter()
+        run(step, rows)
+        torch.cuda.synchronize()
+        res["warm_secs"] = time.perf_counter() - start
+        if ref is not None:
+            with attention_ops.sequence_parallel_scope(None):
+                res["one"] = dp_result(torch, ref, run, slice(None), lr)
+            res["one"]["bytes"] = state_bytes(ref.model, ref.optimizer)
+        attention_ops.clear_sequence_parallel()
+        out[what] = res
+        del step, ref
+    return out
+
+
+def par_worker(rank: int, port: int, seed: int) -> int:
+    """Rank ``rank`` of [36b]'s gloo ranks on the one card (started by the
+    main run, which is rank 0)."""
+    import torch
+    import torch.distributed as dist
+
+    from fmdm_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=SP_RANKS, timeout=mesh_lib.timeout())
+    try:
+        results = par_run(torch, seed, rank)
+    finally:
+        dist.destroy_process_group()
+    print("par rank", rank, json.dumps({k: {"secs": v["secs"], "warm_secs": v["warm_secs"],
+                                            "bytes": v["bytes"]} for k, v in results.items()}))
+    return 0
+
+
+def phase_par_ranks(torch, card: str, seed: int, records) -> dict:
+    """[36b]: sequence parallelism, FSDP and tensor parallelism over two
+    gloo ranks sharing the card (this process rank 0, a child rank 1)
+    against one process on the global batch; returns rank 0's launches."""
+    import torch.distributed as dist
+
+    from fmdm_tpu_torch.parallel import mesh as mesh_lib
+
+    log(f"[36b] {SP_RANKS} gloo ranks on the one card (this process rank 0, a child rank 1): "
+        f"the KL-VAE train step ({VAE_CONFIG.name}, full width) under sequence_parallel "
+        f"{SP_RANKS} at 1 row per rank (the mid attention's all-to-all and ring), the flagship's "
+        f"train step under fsdp at 2 rows per rank and under tensor_parallel {SP_RANKS} on one "
+        f"shared row, each against one process on the global batch, f32, TF32 off")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    port = free_port()
+    child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--par-rank", "1",
+                              "--dp-port", str(port), "--seed", str(seed)], cwd=REPO_ROOT,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                                world_size=SP_RANKS, timeout=mesh_lib.timeout())
+        try:
+            ran = par_run(torch, seed, 0, records)
+        finally:
+            dist.destroy_process_group()
+        child_out = child.communicate(timeout=DP_TIMEOUT_S)[0]
+    except BaseException:
+        if child.poll() is None:
+            child.kill()
+        log(child.communicate()[0][-4000:])
+        raise
+    if child.returncode != 0:
+        log(child_out[-4000:])
+        raise AssertionError(f"rank 1 exited {child.returncode}")
+    log("  " + [line for line in child_out.splitlines() if line.startswith("par rank")][-1])
+    counts = {}
+    for what, res in ran.items():
+        expect_counts(f"[36b] {what} over the ranks", res["counts"], res["launches"])
+        counts[what] = res["counts"]
+        one = res["one"]
+        cmp = dp_compare(torch, what, res, one)
+        share = res["bytes"] / one["bytes"]
+        log(f"  {what} ({res['kind']}, global batch {res['rows']}): gradients max|ranks-one|/max "
+            f"{cmp['grad_rel']:.3e}, parameters' excess over the bound {cmp['param_excess']:.3e}, "
+            f"losses {cmp['metric_rel']:.3e} (tolerance {DP_TOL:g}), count {res['count']}; step "
+            f"over the ranks {res['secs'] * 1e3:.1f} ms (warm {res['warm_secs'] * 1e3:.1f}), one "
+            f"process {one['secs'] * 1e3:.1f} ms (warm {one['warm_secs'] * 1e3:.1f}); parameters "
+            f"and optimizer state {res['bytes'] / 1e9:.4f} GB on rank 0 against "
+            f"{one['bytes'] / 1e9:.4f} GB whole ({share:.3f}); launches {res['counts']} [{card}]")
+        if not cmp["ok"]:
+            for name in list(one["grads"])[:0] + sorted(
+                    one["grads"], key=lambda n: -float((res["state"][n] - one["state"][n]).abs()
+                                                       .max()))[:3]:
+                diff = (res["state"][name] - one["state"][name]).abs()
+                i = int(diff.argmax())
+                log(f"    {name}: |ranks-one| {float(diff.flatten()[i]):.3e} at {i}, gradients "
+                    f"{float(res['grads'][name].flatten()[i]):.3e} and "
+                    f"{float(one['grads'][name].flatten()[i]):.3e}")
+            raise AssertionError(f"[36b] {what}: the step over the ranks differs from one process")
+        if res["kind"] in ("fsdp", "tp") and not share < 0.6:
+            raise AssertionError(f"[36b] {what}: rank 0 holds {share:.3f} of the state")
+    return counts
+
+
+def phase_seq_engines(torch, card: str, seed: int, records) -> dict:
+    """[36c]: the engines over a one-process (data, seq) mesh of two shards
+    of the card; returns their launches."""
+    from fmdm_tpu_torch.models.factories import DiffusionUNetFactory
+    from fmdm_tpu_torch.ops import attention as attention_ops
+    from fmdm_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from fmdm_tpu_torch.parallel import mesh as mesh_lib
+    from fmdm_tpu_torch.sample import autoencoder_like
+    from fmdm_tpu_torch.sample.engine import SamplingEngine
+    from fmdm_tpu_torch.sample.vae_utils import build_vae_model, reconstruct_vae_batch
+    from fmdm_tpu_torch.schedulers import DPMSolverMultistepScheduler
+
+    # as from [5] on: under TF32 convolutions the reconstruct's rounding
+    # noise alone reads ~2e-3, whatever moves it
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = mesh_lib.create_dp_sp_mesh(2, SP_RANKS, devices=["cuda:0"] * SP_RANKS)
+    log(f"[36c] the engines over a one-process (data, seq) mesh {mesh.shape} of shards of the "
+        f"card: a KL-VAE reconstruct at batch 2 (its two mid attentions at 1024 tokens through "
+        f"the flash ring, min_tokens 512), and a 3-step DPM++ f32 sample of the flagship at "
+        f"batch 2 with min_tokens {SEQ_ENGINE_MIN_TOKENS} (its six attentions, 64 heads x d = 8, "
+        f"through the einsum ring), each against the unsplit engine")
+    counts = {}
+    vae = build_vae_model(json.loads(VAE_CONFIG.read_text()),
+                          generator=torch.Generator().manual_seed(seed), device="cuda").eval()
+    random_weights(torch, vae, torch.Generator().manual_seed(seed))
+    images = torch.rand((2, 1, 256, 256), generator=torch.Generator().manual_seed(seed)).numpy()
+    core = lambda m, x: reconstruct_vae_batch(m, x)
+    recon = lambda mesh=None: autoencoder_like._make_dp_fn(
+        core, vae, 2, torch.device("cuda"), mesh)(images)
+    one = recon()
+    floor = rel_err(recon(), one)   # the unsplit engine run to run
+    routed = []   # (q, k, v, out) of each attention the ring takes
+    reset_counts(records)
+    with long_attention(lambda q, k, v, out: routed.append((q, k, v, out)) or out):
+        split = recon(mesh)
+    torch.cuda.synchronize()
+    counts["reconstruct"] = read_counts(records)
+    rec_want = dict(VAE_LAUNCHES["reconstruct"])
+    rec_want["K3"] *= SP_RANKS * SP_RANKS   # per call: 2 shards x 2 hops
+    expect_counts("[36c] the reconstruct over the seq mesh", counts["reconstruct"], rec_want)
+    if len(routed) != VAE_LAUNCHES["reconstruct"]["K3"]:
+        raise AssertionError(f"[36c] the ring took {len(routed)} attention calls of the "
+                             f"reconstruct; expected {VAE_LAUNCHES['reconstruct']['K3']}")
+    rec_rel = rel_err(split, one)
+    # the ring in place: each routed call against the unsharded K3 on its own inputs
+    ring_rel = max(check_ring(f"[36c] mid attention {i} of the reconstruct over the seq mesh vs "
+                              f"the unsharded K3 on its inputs", out,
+                              flash_attention(q.contiguous(), k.contiguous(), v.contiguous()))
+                   / float(out.abs().max()) for i, (q, k, v, out) in enumerate(routed))
+    del routed
+    # the unsplit reconstruct with each mid attention's output moved by a
+    # share of its largest (uniform noise): its response to the ring's size
+    # of error and above; the last share is the control the limit must catch
+    moved = {}
+    for share in SEQ_PROBES:
+        noise = torch.Generator("cuda").manual_seed(seed + 36)
+        with long_attention(lambda q, k, v, out: out + share * out.abs().max() * (
+                2 * torch.rand(out.shape, generator=noise, device=out.device) - 1)):
+            moved[share] = rel_err(recon(), one)
+    log(f"  reconstruct {tuple(split.shape)}: max|seq-one|/max|one| {rec_rel:.3e} (limit "
+        f"{SEQ_RECON_TOL:g}), bitwise {bool(torch.equal(split, one))}; unsplit run to run "
+        f"{floor:.3e}; the ring in place {ring_rel:.3e} of the largest; each mid attention moved "
+        f"by a share of its largest moves the output "
+        f"{', '.join(f'{share:g}: {m:.3e}' for share, m in moved.items())}; launches "
+        f"{counts['reconstruct']} [{card}]")
+    if not moved[SEQ_PROBES[-1]] > SEQ_RECON_TOL:
+        raise AssertionError(f"[36c] the control ({SEQ_PROBES[-1]:g} in each mid attention) "
+                             f"moves the reconstruct {moved[SEQ_PROBES[-1]]}, within the limit "
+                             f"{SEQ_RECON_TOL}")
+
+    unet = DiffusionUNetFactory().build(json.loads(CONFIG.read_text())["model"]["unet"],
+                                        conditioning="concatenate", channels=1, device="cuda")
+    random_weights(torch, unet, torch.Generator().manual_seed(seed))
+    scheduler = DPMSolverMultistepScheduler.create(
+        num_train_timesteps=1000, algorithm_type="dpmsolver++", solver_order=2,
+        beta_start=0.0001, beta_end=0.02)
+    steps = scheduler.set_timesteps(NUM_STEPS)[:3]
+    shape = (2, 1, 256, 256)
+    cond = torch.full(shape, 0.5, device="cuda")
+    init = torch.randn(shape, generator=torch.Generator().manual_seed(seed)).cuda()
+    single = SamplingEngine(unet, scheduler, steps, conditioning_mode="concatenate",
+                            device="cuda")(shape, conditioning_batch=cond, init_sample=init)
+    attention_ops.set_sequence_parallel(mesh, "seq", min_tokens=SEQ_ENGINE_MIN_TOKENS)
+    try:
+        engine = SamplingEngine(unet, scheduler, steps, conditioning_mode="concatenate",
+                                device="cuda", mesh=mesh)
+        reset_counts(records)
+        sample = engine(shape, conditioning_batch=cond, init_sample=init)
+        torch.cuda.synchronize()
+    finally:
+        attention_ops.clear_sequence_parallel()
+    counts["sample"] = read_counts(records)
+    expect_counts("[36c] the sample over the seq mesh", counts["sample"],
+                  {"K1": K1_PER_FORWARD, "K2": 0}, 3)
+    sample_rel = rel_err(sample, single)
+    log(f"  sample: max|seq-one|/max|one| {sample_rel:.3e} (limit {SEQ_SAMPLE_TOL:g}), bitwise "
+        f"{bool(torch.equal(sample, single))}, launches per step "
+        f"{({k: v // 3 for k, v in counts['sample'].items() if v})} [{card}]")
+    if not (rec_rel <= SEQ_RECON_TOL and sample_rel <= SEQ_SAMPLE_TOL):
+        raise AssertionError(f"[36c] the engines over the seq mesh differ (reconstruct "
+                             f"{rec_rel}, sample {sample_rel})")
+    return counts
+
+
+@contextlib.contextmanager
+def long_attention(edit):
+    """Every self-attention call of ``nn.blocks`` at 512 tokens or more (the
+    ring's calls under [36c]'s routing) returns ``edit(q, k, v, out)``."""
+    from fmdm_tpu_torch.nn import blocks
+
+    real = blocks.sdpa
+
+    def sdpa(q, k, v, **kwargs):
+        out = real(q, k, v, **kwargs)
+        return edit(q, k, v, out) if q.shape[-2] >= 512 else out
+
+    blocks.sdpa = sdpa
+    try:
+        yield
+    finally:
+        blocks.sdpa = real
+
+
+
 def main() -> int:
     import torch
 
@@ -4033,12 +4511,16 @@ def main() -> int:
                         help="sample batch sizes; the first one's run counts the launches")
     parser.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--dp-port", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--par-rank", type=int, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     batches = [int(b) for b in args.batches.split(",")]
-    if args.dp_rank is not None:   # [35b]'s second rank, started by the main run
+    if args.dp_rank is not None or args.par_rank is not None:
+        # [35b]'s or [36b]'s second rank, started by the main run
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device is available", file=sys.stderr)
             return 1
+        if args.par_rank is not None:
+            return par_worker(args.par_rank, args.dp_port, args.seed)
         return dp_worker(args.dp_rank, args.dp_port, args.seed)
 
     run_start = time.perf_counter()
@@ -4214,6 +4696,9 @@ def main() -> int:
         dp_counts = phase_torchrun(torch, card, args.seed, all_records, Path(tmp))
     dp_counts.update(phase_gloo_ranks(torch, card, args.seed, all_records))
     dp_counts.update(phase_split_engines(torch, card, args.seed, all_records))
+    ring = phase_ring(torch, card, args.seed, all_records)
+    par_counts = phase_par_ranks(torch, card, args.seed, all_records)
+    seq_counts = phase_seq_engines(torch, card, args.seed, all_records)
 
     k1["launches"], k2["launches"] = main_launches
     k3["launches"], k4["launches"], k5["launches"] = (train_counts[k] for k in ("K3", "K4", "K5"))
@@ -4259,10 +4744,25 @@ def main() -> int:
             "3-step DPM++ sample at batch 4 split over 2 shards on the card":
                 dp_counts["sample split"].get(kernel, 0),
             "VAE reconstruct at batch 3 split over 2 shards on the card":
-                dp_counts["reconstruct split"].get(kernel, 0)}
+                dp_counts["reconstruct split"].get(kernel, 0),
+            f"ring attention forward + backward over {SP_RANKS} shards of the card, "
+            f"{RING_SHAPE} f32": ring["counts"].get(kernel, 0),
+            **{f"{what} train step over {SP_RANKS} gloo ranks (rank 0)": c.get(kernel, 0)
+               for what, c in par_counts.items()},
+            f"KL-VAE reconstruct at batch 2 over a (data 1, seq {SP_RANKS}) mesh of the card":
+                seq_counts["reconstruct"].get(kernel, 0),
+            f"3-step DPM++ sample at batch 2 over a (data 1, seq {SP_RANKS}) mesh, min_tokens "
+            f"{SEQ_ENGINE_MIN_TOKENS}": seq_counts["sample"].get(kernel, 0)}
+    for r in (k3, k4, k5):
+        kernel = r["name"].split()[0]
+        r["ring_hop"] = {"shape": [RING_SHAPE[0], RING_SHAPE[1], RING_SHAPE[2] // SP_RANKS,
+                                   RING_SHAPE[3]], "dtype": "float32",
+                         "ms": ring["ms"][f"{kernel} hop"],
+                         "bound_ms": ring["hop_bounds"][f"{kernel} hop"],
+                         "max_abs_err": ring["max_abs_err"][kernel]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_term", "library_ms", "shape", "dtype")
-    extra = ("library_kernel", "variants", "per_forward", "launches_by_path")
+    extra = ("library_kernel", "variants", "per_forward", "launches_by_path", "ring_hop")
     ends = [s for _, s in PHASE_STARTS[1:]] + [time.perf_counter()]
     log("seconds per phase: " + ", ".join(f"{label} {end - start:.1f}" for (label, start), end
                                           in zip(PHASE_STARTS, ends)))

@@ -16,7 +16,21 @@ launch:
   PyTorch, as JAX computes it with stock XLA where no Pallas kernel takes
   the call (:162-173). No kernel is replaced by it.
 
-The ring and sequence-parallel routing of the JAX module are not ported.
+Sequence-parallel routing (JAX :36-125): while a context is set
+(:func:`set_sequence_parallel`, or :class:`sequence_parallel_scope`), ``sdpa``
+sends a call whose token counts are >= ``min_tokens`` and divisible by the
+``seq`` axis through the ring (``parallel/sequence.py``); other calls stay
+local. JAX's dp x sp layout keeps the convolutions' batch sharded over both
+axes and lets GSPMD reshard rows to tokens at the attention; the port does
+it explicitly:
+
+- rank form (a ``Mesh2D`` over ranks): an ``all_to_all`` inside the ``seq``
+  group turns each rank's rows x T tokens into the group's rows x T / sp
+  tokens, the ring runs over the group, and the inverse ``all_to_all``
+  brings each rank its rows back, all differentiable;
+- one-process form (a ``Mesh2D`` of devices, as the sampling engines hold
+  it): the call's tokens are cut over the devices of the context's data
+  row, the ring runs over them, and the shards are concatenated back.
 """
 
 from __future__ import annotations
@@ -33,6 +47,78 @@ from fmdm_tpu_torch.ops.kernels.flash_attention import flash_attention
 from fmdm_tpu_torch.ops.kernels.small_t_attention import small_t_attention
 
 FLASH_MIN_TOKENS = 1024  # from here on the JAX package uses flash attention (K3)
+
+# (mesh, axis, min_tokens[, data row of a one-process mesh]) or None
+_SEQ_PARALLEL = None
+
+
+def set_sequence_parallel(mesh, axis: str = "seq", min_tokens: int = 512) -> None:
+    """Route ``sdpa`` through ring attention over ``mesh``'s ``axis`` for
+    token counts that are >= min_tokens and divisible by the axis size."""
+    global _SEQ_PARALLEL
+    if axis not in mesh.axis_names:
+        raise ValueError(f"mesh has no '{axis}' axis (axes: {mesh.axis_names})")
+    _SEQ_PARALLEL = (mesh, axis, int(min_tokens))
+
+
+def clear_sequence_parallel() -> None:
+    global _SEQ_PARALLEL
+    _SEQ_PARALLEL = None
+
+
+def get_sequence_parallel():
+    return _SEQ_PARALLEL
+
+
+class sequence_parallel_scope:
+    """Temporarily install ``ctx`` ((mesh, axis, min_tokens[, row]) or None)
+    as the routing, restoring the previous value on exit: the sampling
+    engines scope it to their own mesh, so that a trainer's process-global
+    routing never reaches a model call over other devices."""
+
+    def __init__(self, ctx):
+        self._ctx = ctx
+
+    def __enter__(self):
+        global _SEQ_PARALLEL
+        self._prev = _SEQ_PARALLEL
+        _SEQ_PARALLEL = self._ctx
+
+    def __exit__(self, *exc):
+        global _SEQ_PARALLEL
+        _SEQ_PARALLEL = self._prev
+        return False
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable ``all_to_all`` of a tensor whose dim 0 is the group
+    size: block i goes to the group's rank i."""
+    from torch.distributed.nn.functional import all_to_all_single
+
+    return all_to_all_single(torch.empty_like(x), x.contiguous(), group=group)
+
+
+def _maybe_ring_sdpa(q, k, v, scale):
+    """The ring over the context's ``seq`` axis when it divides the token
+    dims; None => the caller takes the local path."""
+    from fmdm_tpu_torch.parallel.sequence import ring_attention, sequence_parallel_sdpa
+
+    mesh, axis, min_tokens = _SEQ_PARALLEL[:3]
+    n = mesh.axis_size(axis)
+    if n <= 1 or q.dim() < 3:
+        return None
+    t, s = q.shape[-2], k.shape[-2]
+    if t < min_tokens or t % n != 0 or s % n != 0:
+        return None  # e.g. short cross-attention context: stay local
+    if mesh.spans_ranks:
+        group = mesh.group(axis)
+        # rows x T tokens -> the group's rows x T / n tokens
+        to_tokens = lambda x: _all_to_all(torch.stack(x.chunk(n, dim=-2)), group).flatten(0, 1)
+        out = ring_attention(to_tokens(q), to_tokens(k), to_tokens(v), group=group, scale=scale)
+        back = _all_to_all(out.unflatten(0, (n, q.shape[0])), group)
+        return torch.cat(back.unbind(0), dim=-2)
+    row = _SEQ_PARALLEL[3] if len(_SEQ_PARALLEL) > 3 else 0
+    return sequence_parallel_sdpa(q, k, v, devices=mesh.devices[row], scale=scale)
 
 
 def sdpa_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -77,6 +163,10 @@ def kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          scale: Optional[float] = None) -> torch.Tensor:
     """Scaled dot-product attention over (..., T, d) / (..., S, d) / (..., S, d_v)."""
+    if _SEQ_PARALLEL is not None:
+        out = _maybe_ring_sdpa(q, k, v, scale)
+        if out is not None:
+            return out
     if q.device.type == "cpu":
         return sdpa_xla(q, k, v, scale=scale)
     if q.device.type != "cuda":

@@ -19,7 +19,10 @@ TF32 products per f32 product, which keeps f32 accuracy). The T x T scores
 stay on chip in both directions; the backward recomputes
 p = exp(scale * q kᵀ - lse) from the saved lse, in K4 and again in K5.
 ``flash_forward`` and ``flash_backward`` have the signatures of
-``flash_forward_partials`` and ``flash_backward_chunk`` (:297, :328).
+``flash_forward_partials`` and ``flash_backward_chunk`` (:297, :328), the
+per-chunk entry points of the ring (``parallel/sequence.py``), which reshape
+to (-1, T, d) and call them: K3 on every forward hop, K4 and K5 on every
+backward hop.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain version only for CPU tensors: :func:`flash_attention_reference` (the
@@ -48,6 +51,8 @@ K5 = build.KernelRecord(name="K5 flash_backward_dq", source=_CSRC + "flash_backw
                         replaces="fmdm_tpu/ops/pallas/flash_attention.py:174")
 
 MAX_HEAD_DIM = 128
+DEFAULT_BLOCK_K = 512   # the JAX kernels' KV tile (:32), kept for their block rule
+_LANES = 128
 _DTYPES = (torch.float32, torch.bfloat16)
 
 Tensor = torch.Tensor
@@ -220,3 +225,72 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, scale: Optional[float] =
     versions on the CPU."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     return _FlashAttention.apply(q, k, v, scale)
+
+
+# ---------------------------------------------------------------------------
+# The ring's per-chunk entry points (JAX :286-371)
+# ---------------------------------------------------------------------------
+
+def pick_block_k(tk: int, cap: int = DEFAULT_BLOCK_K) -> int:
+    """Largest KV block <= cap that divides tk (JAX's block rule); tk itself
+    when tk <= cap or when nothing divides it."""
+    if tk <= cap:
+        return tk
+    for cand in (cap, 384, 256, 128):
+        if cand <= cap and tk % cand == 0:
+            return cand
+    return tk
+
+
+def _as_3d(x: Tensor, t: int, d: int) -> Tensor:
+    return x.reshape((-1, t, d)).contiguous()
+
+
+def flash_forward_partials(q: Tensor, k: Tensor, v: Tensor,
+                           scale: float) -> Tuple[Tensor, Tensor]:
+    """(out, lse) of one KV chunk over (..., T, d): out in q's dtype, lse
+    (..., Tq, 1) f32, the normalized flash partials that two chunks combine
+    exactly with lse' = logaddexp(lse_a, lse_b). Kernel K3 on CUDA (which
+    takes any Tq and Tk), the plain version on the CPU. Not differentiable:
+    the ring has its own backward."""
+    lead, (tq, d), tk = q.shape[:-2], q.shape[-2:], k.shape[-2]
+    out, lse = flash_forward(_as_3d(q, tq, d), _as_3d(k, tk, d), _as_3d(v, tk, v.shape[-1]),
+                             float(scale))
+    return out.reshape(lead + (tq, v.shape[-1])), lse.reshape(lead + (tq, 1))
+
+
+def _backward_chunk_einsum(q, k, v, out, lse, g, scale: float):
+    """JAX's XLA branch of the chunk backward (:357-366)."""
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    p = torch.exp(torch.einsum("bqd,bkd->bqk", qf * scale, kf) - lse)
+    dv = torch.einsum("bqk,bqd->bkd", p, gf).to(v.dtype)
+    dp = torch.einsum("bqd,bkd->bqk", gf, vf)
+    ds = p * (dp - _delta(out, g))
+    dq = (torch.einsum("bqk,bkd->bqd", ds, kf) * scale).to(q.dtype)
+    dk = (torch.einsum("bqk,bqd->bkd", ds, qf) * scale).to(k.dtype)
+    return dq, dk, dv
+
+
+def flash_backward_chunk(q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor,
+                         g: Tensor, scale: float) -> Tuple[Tensor, Tensor, Tensor]:
+    """(dq, dk, dv) of one KV chunk against the GLOBAL (out, lse) of the
+    whole attention: p = exp(q kᵀ · scale - lse) are the chunk's globally
+    normalized probabilities and delta = rowsum(g ∘ out) comes from the
+    global out, so the results are the chunk's exact contributions.
+
+    Branches: a CUDA tensor always takes K4 + K5 (the kernels take ragged
+    T); on the CPU a chunk with ``pick_block_k(tk) % 128 == 0`` takes their
+    plain versions and any other chunk JAX's einsum formulation, the shapes
+    JAX sends to its Pallas kernels and to XLA respectively."""
+    lead, (tq, d), tk, dv_ = q.shape[:-2], q.shape[-2:], k.shape[-2], v.shape[-1]
+    q3, k3, v3 = _as_3d(q, tq, d), _as_3d(k, tk, d), _as_3d(v, tk, dv_)
+    out3, g3 = _as_3d(out, tq, dv_), _as_3d(g, tq, dv_)
+    lse3 = _as_3d(lse.float(), tq, 1)
+    bk = pick_block_k(tk)
+    if q.device.type == "cuda" or (tk % bk == 0 and bk % _LANES == 0):
+        dq, dk, dv = flash_backward(q3, k3, v3, out3, lse3, g3, float(scale))
+    else:
+        _validate("flash_backward_chunk", q3, k3, v3, out=out3, dout=g3)
+        dq, dk, dv = _backward_chunk_einsum(q3, k3, v3, out3, lse3, g3, float(scale))
+    return (dq.reshape(lead + (tq, d)), dk.reshape(lead + (tk, d)),
+            dv.reshape(lead + (tk, dv_)))

@@ -14,6 +14,16 @@ Two forms of mesh, as in the JAX package:
   one process on the global batch, the ranks' batches concatenated in rank
   order (the JAX package's ``make_array_from_process_local_data``).
 
+Two-axis meshes (:class:`Mesh2D`), ``("data", "seq")`` for sequence
+parallelism and ``("data", "model")`` for tensor parallelism, come in the
+same two forms: a grid of devices in one process
+(:func:`create_dp_sp_mesh`, :func:`create_dp_tp_mesh`), or under a process
+group one rank per card on ``init_device_mesh``, whose named dims give the
+sub-groups the ring and the tensor-parallel collectives use
+(:func:`create_dp_sp_mesh_global`, :func:`create_dp_tp_mesh_global`). As in
+the JAX package the ``seq`` and ``model`` axes stay inside a node
+(consecutive ranks) and ``data`` spans the nodes.
+
     python -m torch.distributed.run --nproc_per_node N -m fmdm_tpu_torch.train --config CFG
 
 :func:`maybe_initialize_distributed` reads torchrun's environment
@@ -200,6 +210,153 @@ def create_data_mesh(batch_size: int, device: DeviceArg = None) -> DataMesh:
                     _dist().group.WORLD)
 
 
+# ---------------------------------------------------------------------------
+# Two-axis meshes: ("data", "seq") and ("data", "model")
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh2D:
+    """A mesh of two named axes, ``("data", axis)``.
+
+    One-process form: ``devices`` holds the grid (``shape[0]`` rows of
+    ``shape[1]`` devices). Rank form: ``device_mesh`` is the
+    ``DeviceMesh`` over the ranks (rank = data index * shape[1] + axis
+    index) and ``devices`` this rank's card, as ``((device,),)``."""
+
+    axis_names: Tuple[str, str]
+    shape: Tuple[int, int]
+    devices: Tuple[Tuple[torch.device, ...], ...]
+    device_mesh: Any = None
+
+    def axis_size(self, axis: str) -> int:
+        return self.shape[self.axis_names.index(axis)]
+
+    @property
+    def spans_ranks(self) -> bool:
+        return self.device_mesh is not None
+
+    def group(self, axis: str):
+        """The rank form's process group of this rank's line along ``axis``."""
+        return self.device_mesh.get_group(axis)
+
+    def coordinate(self, axis: str) -> int:
+        """This rank's index along ``axis`` (rank form)."""
+        return int(self.device_mesh.get_local_rank(axis))
+
+    def batch_mesh(self) -> DataMesh:
+        """The :class:`DataMesh` a train step reduces its batch over (rank
+        form): every rank under ``seq`` (rows ride data x seq), this rank's
+        ``data`` line under ``model`` (the ranks of a ``model`` line share
+        their rows)."""
+        dev = self.devices[0][0]
+        if self.axis_names[1] == "seq":
+            return DataMesh((dev,), process_count(), process_index(), _dist().group.WORLD)
+        return DataMesh((dev,), self.shape[0], self.coordinate("data"), self.group("data"))
+
+    def __deepcopy__(self, memo) -> "Mesh2D":
+        return self
+
+
+def _grid(devices: Sequence[torch.device], rows: int, cols: int):
+    return tuple(tuple(devices[r * cols:(r + 1) * cols]) for r in range(rows))
+
+
+def _local_world_size() -> int:
+    """Ranks on this node (torchrun's ``LOCAL_WORLD_SIZE``; all ranks when
+    it is not set)."""
+    return int(os.environ.get("LOCAL_WORLD_SIZE", process_count()))
+
+
+def _rank_mesh(axis: str, n_axis: int, what: str, device: DeviceArg) -> Mesh2D:
+    """The rank form over the whole group: (world / n_axis, n_axis), the
+    ``axis`` lines inside a node."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n_local = _local_world_size()
+    if n_local % n_axis != 0:
+        raise ValueError(f"{what}={n_axis} must divide the per-process device count {n_local}")
+    dev = rank_device(device)
+    shape = (process_count() // n_axis, n_axis)
+    device_mesh = init_device_mesh(dev.type, shape, mesh_dim_names=("data", axis))
+    return Mesh2D(("data", axis), shape, ((dev,),), device_mesh)
+
+
+def create_dp_sp_mesh(batch_size: int, sp: int,
+                      devices: Optional[Sequence[DeviceArg]] = None) -> Mesh2D:
+    """dp x sp mesh in one process (JAX's single-host form) over ``devices``
+    (default: the visible cards): 'seq' is the token ring axis and the batch
+    shards over (data, seq) jointly, so the batch must divide data * seq."""
+    devs = [resolve_device(d) for d in devices] if devices is not None else local_devices()
+    n_dev = len(devs)
+    if n_dev % sp != 0:
+        raise ValueError(f"sequence_parallel={sp} must divide the device count {n_dev}")
+    n_data = n_dev // sp
+    while n_data > 1 and batch_size % (n_data * sp) != 0:
+        n_data -= 1
+    if batch_size % (n_data * sp) != 0:
+        raise ValueError(
+            f"batch_size={batch_size} must be divisible by sequence_parallel={sp} "
+            "(batch shards over the data x seq mesh)"
+        )
+    return Mesh2D(("data", "seq"), (n_data, sp), _grid(devs, n_data, sp))
+
+
+def create_dp_sp_mesh_global(batch_size: int, sp: int, device: DeviceArg = None) -> Mesh2D:
+    """The trainers' dp x sp mesh: without a process group
+    :func:`create_dp_sp_mesh` over the visible cards; under one, every rank
+    (``device``, default ``cuda:LOCAL_RANK``) a point of (world / sp, sp),
+    feeding its own ``batch_size`` rows."""
+    if not group_active():
+        return create_dp_sp_mesh(batch_size, sp)
+    return _rank_mesh("seq", sp, "sequence_parallel", device)
+
+
+def create_dp_tp_mesh(n_data: int, n_model: int,
+                      devices: Optional[Sequence[DeviceArg]] = None) -> Mesh2D:
+    """dp x tp mesh in one process over the first n_data * n_model of
+    ``devices`` (default: the visible cards)."""
+    devs = [resolve_device(d) for d in devices] if devices is not None else local_devices()
+    return Mesh2D(("data", "model"), (n_data, n_model),
+                  _grid(devs[: n_data * n_model], n_data, n_model))
+
+
+def create_dp_tp_mesh_global(batch_size: int, tp: int, device: DeviceArg = None,
+                             devices: Optional[Sequence[DeviceArg]] = None) -> Mesh2D:
+    """The trainers' dp x tp mesh. Without a process group: the data axis
+    is the largest batch divisor the remaining ``devices`` (default: the
+    visible cards) allow. Under one: (world / tp, tp), the model axis inside
+    a node; the ranks of a ``model`` line share their ``batch_size`` rows,
+    so the global batch is (world / tp) * batch_size."""
+    if not group_active():
+        devs = [resolve_device(d) for d in devices] if devices is not None else local_devices()
+        n_dev = len(devs)
+        if n_dev % tp != 0:
+            raise ValueError(f"tensor_parallel={tp} must divide the device count {n_dev}")
+        n_data = n_dev // tp
+        while n_data > 1 and batch_size % n_data != 0:
+            n_data -= 1
+        return create_dp_tp_mesh(n_data, tp, devs)
+    return _rank_mesh("model", tp, "tensor_parallel", device)
+
+
+def create_fsdp_device_mesh(device: DeviceArg = None):
+    """The ``DeviceMesh`` of one ``data`` axis over the whole group, which
+    FSDP shards over."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(rank_device(device).type, (process_count(),),
+                            mesh_dim_names=("data",))
+
+
+def data_rows(mesh) -> Tuple[int, int]:
+    """(index, count) of this rank's rows among the global batch's row
+    blocks: the rank itself, but under tensor parallelism the ranks of one
+    ``model`` line read the same rows."""
+    if isinstance(mesh, Mesh2D) and mesh.spans_ranks and mesh.axis_names[1] == "model":
+        return mesh.coordinate("data"), mesh.shape[0]
+    return process_index(), process_count()
+
+
 def pad_batch_to_multiple(arrays, multiple: int):
     """Edge-pad the leading dim of an array (or a list or tuple of them) to a
     multiple of ``multiple``: (padded, real count)."""
@@ -238,7 +395,7 @@ def replicate(mesh: Optional[DataMesh], module: torch.nn.Module) -> List[torch.n
     if _has_group(mesh):
         with torch.no_grad():
             for t in list(module.parameters()) + list(module.buffers()):
-                _dist().broadcast(t.data, src=0, group=mesh.group)
+                _dist().broadcast(t.data, group=mesh.group, group_src=0)
         return [module]
     home = next(module.parameters()).device
     return [module if d == home else copy.deepcopy(module).to(d) for d in mesh.devices]
@@ -246,7 +403,9 @@ def replicate(mesh: Optional[DataMesh], module: torch.nn.Module) -> List[torch.n
 
 def to_host(tree):
     """A tree of tensors on the host. Under one rank per card every rank
-    holds the whole, replicated value: nothing is gathered."""
+    holds the whole, replicated value: nothing is gathered (a model cut by
+    FSDP or tensor parallelism is gathered by the trainers'
+    ``ParallelPlan.full_model_state``)."""
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu()
     if isinstance(tree, dict):

@@ -13,7 +13,9 @@ JAX package computes them. A VQ model reconstructs in eval mode: its EMA
 codebook is not updated. With several cards visible (and data-parallel
 sampling on, as for the diffusion modes) each batch runs over them
 (:func:`_make_dp_fn`): one replica of the model per card, a ragged batch
-edge-padded to the card count, split, and cropped back.
+edge-padded to the card count, split, and cropped back. Over a one-process
+``("data", "seq")`` mesh the batch splits over the data rows and each row's
+long attention runs the ring over its devices (``sample/engine.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,6 @@ import json
 import logging
 import time
 from pathlib import Path
-from typing import Optional
 
 import numpy as np
 import torch
@@ -32,7 +33,8 @@ from fmdm_tpu_torch.data.dataset_utils import save_tensor_cache as _write_tensor
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
 from fmdm_tpu_torch.parallel.mesh import DataMesh, pad_batch_to_multiple, replicate
 from fmdm_tpu_torch.sample.diffusion_utils import _sampling_mesh
-from fmdm_tpu_torch.sample.engine import on_device
+from fmdm_tpu_torch.ops.attention import sequence_parallel_scope
+from fmdm_tpu_torch.sample.engine import on_device, shard_plan
 from fmdm_tpu_torch.sample.sampling_utils import (
     append_eval_metrics,
     append_per_image_eval_metrics,
@@ -69,26 +71,27 @@ def _load(ckpt_dir, device: DeviceArg):
     return cfg, model, cfg.get("training", {}).get("recon_type", "l1"), device
 
 
-def _make_dp_fn(core, model, batch_size: int, device: torch.device,
-                mesh: Optional[DataMesh] = None):
+def _make_dp_fn(core, model, batch_size: int, device: torch.device, mesh=None):
     """``run(batch) -> output on device``: ``core(model, x)`` on a host
     batch, over the cards of ``mesh`` (default: the sampling mesh of
     ``batch_size``; one card without one) with one replica of the model
     each, a ragged batch edge-padded to the card count, split, and cropped
-    back to its rows."""
+    back to its rows; over a one-process ``("data", "seq")`` mesh, over its
+    data rows with the ring in each row's long attention."""
     mesh = mesh if mesh is not None else _sampling_mesh(batch_size, device)
-    if mesh is not None and len(mesh.devices) == 1:
+    if isinstance(mesh, DataMesh) and len(mesh.devices) == 1:
         mesh = None
-    devices = mesh.devices if mesh is not None else (device,)
-    replicas = replicate(mesh, model)
+    devices, _ = shard_plan(mesh, device)
+    replicas = replicate(DataMesh(tuple(devices)) if len(devices) > 1 else None, model)
 
     @torch.no_grad()
     def run(batch: np.ndarray) -> torch.Tensor:
+        contexts = shard_plan(mesh, device)[1]
         padded, real = pad_batch_to_multiple(np.asarray(batch, np.float32), len(devices))
         outs = []
-        for shard, replica, dev in zip(torch.from_numpy(padded).tensor_split(len(devices)),
-                                       replicas, devices):
-            with on_device(dev):
+        for shard, replica, dev, ctx in zip(torch.from_numpy(padded).tensor_split(len(devices)),
+                                            replicas, devices, contexts):
+            with on_device(dev), sequence_parallel_scope(ctx):
                 outs.append(core(replica, shard.to(dev)))
         if len(outs) == 1:
             return outs[0]

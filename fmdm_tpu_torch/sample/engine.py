@@ -28,6 +28,14 @@ elementwise ops), so each sample equals the one-card sample. The shards'
 forwards are issued from one Python loop with no synchronization inside
 it: CUDA launches are asynchronous, so the cards overlap without threads.
 Under DeepCache each shard keeps its own cached feature.
+
+The engine scopes ``sdpa``'s sequence-parallel routing to its own mesh for
+the whole call (JAX :283-301): over a one-process ``("data", "seq")`` mesh
+(``parallel/mesh.py::create_dp_sp_mesh``) the batch is split over the data
+rows and each row's attention at >= 512 tokens (or a caller's ``min_tokens``
+set for this very mesh) runs the ring over that row's devices; over any
+other mesh, or none, no routing is in force, so a trainer's process-global
+context never reaches the engine's model calls.
 """
 
 from __future__ import annotations
@@ -44,7 +52,8 @@ import torch.nn as nn
 
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
 from fmdm_tpu_torch.ops.kernels import build
-from fmdm_tpu_torch.parallel.mesh import DataMesh, replicate
+from fmdm_tpu_torch.ops import attention as attention_ops
+from fmdm_tpu_torch.parallel.mesh import DataMesh, Mesh2D, replicate
 from fmdm_tpu_torch.schedulers.base import Scheduler
 
 
@@ -137,6 +146,25 @@ def step_generator(generator: Optional[torch.Generator], device: torch.device) -
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
+def shard_plan(mesh, device: torch.device):
+    """(the shards' devices, each shard's sequence-parallel context) of an
+    engine over ``mesh``: a ``("data", "seq")`` mesh splits over its data
+    rows, each with the ring over its row (``min_tokens`` 512, or the
+    current context's when it was set for this mesh); a data mesh splits
+    over its devices, and no mesh is one shard on ``device``; neither has a
+    context."""
+    if isinstance(mesh, Mesh2D):
+        if mesh.axis_names != ("data", "seq") or mesh.spans_ranks:
+            raise ValueError(f"an engine splits over a one-process data or (data, seq) mesh; "
+                             f"got {mesh.axis_names}")
+        current = attention_ops.get_sequence_parallel()
+        min_tokens = current[2] if current is not None and current[0] is mesh else 512
+        return ([row[0] for row in mesh.devices],
+                [(mesh, "seq", min_tokens, r) for r in range(mesh.shape[0])])
+    devices = tuple(mesh.devices) if mesh is not None else (device,)
+    return list(devices), [None] * len(devices)
+
+
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -171,10 +199,12 @@ class SamplingEngine:
         device: DeviceArg = None,
         mesh: Optional[DataMesh] = None,
     ):
-        self.mesh = mesh if mesh is not None and len(mesh.devices) > 1 else None
-        self.device = resolve_device(self.mesh.devices[0] if self.mesh is not None else device)
+        self.mesh = mesh if isinstance(mesh, Mesh2D) or (
+            mesh is not None and len(mesh.devices) > 1) else None
+        devices, self._contexts = shard_plan(self.mesh, None)   # refreshed per call
+        self.device = resolve_device(devices[0] if self.mesh is not None else device)
         # one shard per device: the mesh's, else the engine's own
-        self.devices = self.mesh.devices if self.mesh is not None else (self.device,)
+        self.devices = tuple(devices) if self.mesh is not None else (self.device,)
         self.model = model
         self.scheduler = scheduler
         self.timesteps = np.asarray(scheduler.align_sliced_timesteps(np.asarray(timesteps)))
@@ -189,7 +219,8 @@ class SamplingEngine:
     def _replicas_for_compute(self) -> List[nn.Module]:
         """One compute model per shard's device, copied once."""
         if self._replicas is None:
-            self._replicas = replicate(self.mesh, self._model_for_compute())
+            mesh = DataMesh(self.devices) if len(self.devices) > 1 else None
+            self._replicas = replicate(mesh, self._model_for_compute())
         return self._replicas
 
     def _forward(self, model_input: torch.Tensor, t_b: torch.Tensor,
@@ -201,7 +232,7 @@ class SamplingEngine:
         parts = model_input.tensor_split(len(self.devices))
         t_parts = t_b.tensor_split(len(self.devices))
         for s, (device, model) in enumerate(zip(self.devices, self._replicas_for_compute())):
-            with on_device(device):
+            with on_device(device), attention_ops.sequence_parallel_scope(self._contexts[s]):
                 x = parts[s].to(device, non_blocking=True)
                 ctx = None
                 if cond_parts is not None and self.conditioning_mode == "concatenate":
@@ -250,6 +281,7 @@ class SamplingEngine:
         outside it) and ``model_calls``."""
         replicas = self._replicas_for_compute()
         scheduler, device = self.scheduler, self.device
+        _, self._contexts = shard_plan(self.mesh, device)
         if init_sample is not None:
             current = init_sample.to(device)
         else:

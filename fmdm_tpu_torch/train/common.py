@@ -44,6 +44,18 @@ keeps its own rows; ``(loss_sum, count)`` are the global ones on every
 rank. Gradient accumulation chunks each rank's local batch: the summed
 gradient is the same, but the chunk boundaries (and so the draws of a
 step with several chunks) are per rank.
+
+The trainers choose among JAX's parallel strategies in one place
+(:func:`parallel_plan`, JAX ``train/denoise_lib.py:132-188`` and
+``train/vae_impl.py:232-283``): sequence parallelism (the ring at the
+attention, the batch over every rank), tensor parallelism with or without
+FSDP, FSDP, or plain data parallelism. A :class:`ParallelPlan` cuts the
+model, its optimizer's moments and the EMA after the run has loaded what it
+resumes from (:meth:`ParallelPlan.shard`), and gathers them whole for a
+checkpoint (:meth:`ParallelPlan.full_model_state`): one checkpoint file
+loads in both packages, whatever the strategy. The start-up trial runs on
+the whole model, before it is cut, with no collective and no ring, and only
+where the plan does not cut the model (:func:`tune_grad_accum`).
 """
 
 from __future__ import annotations
@@ -279,10 +291,12 @@ class DenoiseTrainStep:
         self.remat = remat
         self.ema_decay = decay
         # shadow weights start as a copy of the live parameters
-        self.ema = [p.detach().clone() for p in params] if decay else None
+        self.ema = [local_tensor(p).detach().clone() for p in params] if decay else None
         self.global_step = 0
         # a mesh over ranks, else None (one process)
         self.mesh = mesh if mesh_lib.spans_processes(mesh) else None
+        # False where FSDP reduce-scatters the gradients itself
+        self.reduce_grads = True
 
     def _draw_t(self, rows: int, generator: Optional[torch.Generator]) -> torch.Tensor:
         if self.variant == "diffusion":
@@ -330,14 +344,15 @@ class DenoiseTrainStep:
         matching) cover the padded batch of ``rows = n_chunks * chunk``; what
         is not given is drawn per chunk, noise first, from ``generator``."""
         loss_sum, count = self._accumulate(batch, noise, t, generator)
-        if self.mesh is not None:
+        if self.mesh is not None and self.reduce_grads:
             mesh_lib.all_reduce_grads(list(self.model.parameters()), self.mesh)
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr_schedule(self.global_step)
         self.optimizer.step()
         if self.ema is not None:
             with torch.no_grad():
-                torch._foreach_lerp_(self.ema, [p.detach() for p in self.model.parameters()],
+                torch._foreach_lerp_(self.ema,
+                                     [local_tensor(p).detach() for p in self.model.parameters()],
                                      1.0 - self.ema_decay)
         self.global_step += 1
         return loss_sum, count
@@ -462,6 +477,180 @@ def check_train_mesh(mesh) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The parallel strategies of the trainers
+# ---------------------------------------------------------------------------
+
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of an FSDP ``DTensor``, a plain tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+class ParallelPlan:
+    """How a trainer spreads one model over the ranks (see the module's
+    docstring): ``kind`` is "dp", "sp", "tp", "fsdp" or "tp_fsdp";
+    ``batch_mesh`` the :class:`DataMesh` a step reduces its batch over (None
+    in one process); ``world`` the mesh of every rank; ``rows`` this rank's
+    (index, count) among the global batch's row blocks."""
+
+    def __init__(self, kind: str, world, batch_mesh, mesh2d=None):
+        self.kind = kind
+        self.world = world
+        self.batch_mesh = batch_mesh
+        self.mesh2d = mesh2d
+        self.rows = mesh_lib.data_rows(mesh2d)
+        self._tp = {}   # id(model) -> its TensorParallel
+        self.sharded = False
+
+    @property
+    def reduce_grads(self) -> bool:
+        return self.kind not in ("fsdp", "tp_fsdp")
+
+    @property
+    def cuts_model(self) -> bool:
+        """Whether :meth:`shard` cuts the parameters over the ranks (FSDP,
+        tensor parallelism, both)."""
+        return self.batch_mesh is not None and self.kind not in ("dp", "sp")
+
+    def shard(self, models: Sequence[nn.Module], optimizers: Sequence[Optional[torch.optim.Optimizer]],
+              emas: Sequence[Optional[List[torch.Tensor]]] = ()):
+        """Cut each model (in place) and map its optimizer's moments and EMA
+        (whole tensors, as a resume loaded them) onto its shards. Returns
+        (optimizers, emas): FSDP's parameters are new objects, so its
+        optimizers are rebuilt over them with the state moved across."""
+        emas = list(emas) + [None] * (len(models) - len(emas))
+        if not self.cuts_model:
+            return list(optimizers), emas
+        from fmdm_tpu_torch.parallel import fsdp as fsdp_lib
+        from fmdm_tpu_torch.parallel import tp as tp_lib
+
+        out_opt, out_ema = [], []
+        for model, optimizer, ema in zip(models, optimizers, emas):
+            names = [n for n, _ in model.named_parameters()]
+            state = ({name: optimizer.state.get(p, {}) for name, p in model.named_parameters()}
+                     if optimizer is not None else {})
+            full = dict(zip(names, ema)) if ema is not None else {}
+            tp = None
+            if self.kind in ("tp", "tp_fsdp"):
+                specs = fsdp_lib.fsdp_tp_param_specs(model, *self.mesh2d.shape)
+                tp = tp_lib.TensorParallel(model, self.mesh2d)
+                if self.kind == "tp_fsdp":
+                    fsdp_lib.shard_params_fsdp(model, self.mesh2d.device_mesh, specs)
+            else:
+                specs = fsdp_lib.fsdp_param_specs(model, self.batch_mesh.process_count)
+                fsdp_lib.shard_params_fsdp(model, mesh_lib.create_fsdp_device_mesh(
+                    self.batch_mesh.devices[0]), specs)
+            self._tp[id(model)] = tp
+            params = dict(model.named_parameters())
+
+            def place(name, whole):
+                cut = tp.local(name, whole) if tp is not None else whole
+                return fsdp_lib.local(params[name], cut)
+
+            if optimizer is not None:
+                rebuilt = type(optimizer)(params.values())
+                for group, old in zip(rebuilt.param_groups, optimizer.param_groups):
+                    group.update({k: v for k, v in old.items() if k != "params"})
+                for name, st in state.items():
+                    rebuilt.state[params[name]] = {
+                        k: place(name, v) if torch.is_tensor(v) and v.dim() > 0 else v
+                        for k, v in st.items()}
+                optimizer = rebuilt
+            out_opt.append(optimizer)
+            out_ema.append([local_tensor(place(name, full[name])).clone() for name in names]
+                           if ema is not None else None)
+        self.sharded = True
+        return out_opt, out_ema
+
+    def whole(self, model: nn.Module, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A tensor placed as ``model``'s parameter ``name`` gathered whole
+        (a collective when the model is cut)."""
+        from fmdm_tpu_torch.parallel import fsdp as fsdp_lib
+
+        t = fsdp_lib.full(t)
+        tp = self._tp.get(id(model))
+        return tp.full(name, t) if tp is not None else t
+
+    def full_model_state(self, model: nn.Module) -> Dict[str, torch.Tensor]:
+        """The whole state dict (a collective every rank runs when the
+        model is cut, gathered to the host; the model's own otherwise)."""
+        if not self.sharded:
+            return model.state_dict()
+        return {name: self.whole(model, name, t).detach().cpu()
+                for name, t in model.state_dict().items()}
+
+    def full_optimizer_state(self, model: nn.Module, optimizer):
+        """The optimizer's ``state_dict`` with whole moments (a collective
+        every rank runs when the model is cut), None without an optimizer."""
+        if optimizer is None:
+            return None
+        if not self.sharded:
+            return optimizer.state_dict()
+        names = [n for n, _ in model.named_parameters()]
+        sd = optimizer.state_dict()
+        sd["state"] = {i: {k: self.whole(model, names[i], v).detach().cpu()
+                           if torch.is_tensor(v) and v.dim() > 0 else v for k, v in st.items()}
+                       for i, st in sd["state"].items()}
+        return sd
+
+    def full_ema(self, model: nn.Module, ema: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The EMA shadow weights whole, by parameter name."""
+        from torch.distributed.tensor import DTensor
+
+        out = {}
+        for (name, p), e in zip(model.named_parameters(), ema):
+            if isinstance(p, DTensor):
+                e = DTensor.from_local(e, p.device_mesh, p.placements, shape=p.shape,
+                                       stride=p.stride())
+            out[name] = self.whole(model, name, e).detach().cpu() if self.sharded else e
+        return out
+
+
+def state_bytes(model: nn.Module, *optimizers) -> int:
+    """Bytes of this rank's parameters and optimizer state (its shards
+    under FSDP and tensor parallelism)."""
+    tensors = [local_tensor(p) for p in model.parameters()]
+    for optimizer in optimizers:
+        if optimizer is not None:
+            tensors += [local_tensor(v) for st in optimizer.state.values() for v in st.values()
+                        if torch.is_tensor(v)]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def parallel_plan(training_cfg: Dict[str, Any], batch_size: int, device: torch.device, *,
+                  vae: bool = False) -> ParallelPlan:
+    """The strategy of a config's ``training`` section (JAX's branches, its
+    two ValueErrors kept): ``sequence_parallel`` > 1 (installs the
+    ring's routing, with ``sequence_parallel_min_tokens``),
+    ``tensor_parallel`` > 1 with ``fsdp`` (the denoise trainer only; the
+    VAE's takes tensor parallelism alone, as JAX's does), ``tensor_parallel``
+    > 1, ``fsdp``, else data parallelism. Without a process group a ``seq``
+    or ``model`` axis over the one device raises, as JAX's meshes do."""
+    from fmdm_tpu_torch.ops import attention as attention_ops
+
+    tp = int(training_cfg.get("tensor_parallel", 1) or 1)
+    sp = int(training_cfg.get("sequence_parallel", 1) or 1)
+    fsdp = bool(training_cfg.get("fsdp", False))
+    if vae and sp > 1 and tp > 1:
+        raise ValueError("sequence_parallel composes with plain DP only (set tensor_parallel=1)")
+    if not vae and sp > 1 and (tp > 1 or fsdp):
+        raise ValueError("sequence_parallel composes with plain DP only "
+                         "(set tensor_parallel=1, fsdp=false)")
+    group = mesh_lib.group_active()
+    world = mesh_lib.create_data_mesh(batch_size, device) if group else None
+    if sp > 1:
+        mesh = (mesh_lib.create_dp_sp_mesh_global(batch_size, sp, device) if group
+                else mesh_lib.create_dp_sp_mesh(batch_size, sp, devices=[device]))
+        attention_ops.set_sequence_parallel(
+            mesh, "seq", min_tokens=int(training_cfg.get("sequence_parallel_min_tokens", 512)))
+        return ParallelPlan("sp", world, mesh.batch_mesh(), mesh)
+    if tp > 1:
+        mesh = mesh_lib.create_dp_tp_mesh_global(batch_size, tp, device, devices=[device])
+        return ParallelPlan("tp_fsdp" if fsdp and not vae else "tp", world, mesh.batch_mesh(),
+                            mesh)
+    return ParallelPlan("fsdp" if fsdp and group else "dp", world, world)
+
+
+# ---------------------------------------------------------------------------
 # Run-loop helpers of the denoise and VAE loops
 # ---------------------------------------------------------------------------
 
@@ -489,13 +678,16 @@ def run_dir_for(training_cfg: Dict[str, Any], cfg: Dict[str, Any], default: str,
 
 
 def host_batches(dataset, batch_size: int, training_cfg: Dict[str, Any], *, seed: int,
-                 epoch: int, device: torch.device, shuffle: bool = True):
+                 epoch: int, device: torch.device, shuffle: bool = True,
+                 rows: Optional[Tuple[int, int]] = None):
     """This process's host batches of one epoch (:func:`epoch_order` strided
-    over the ranks): ``training.data_loader: "grain"`` takes the
-    ``DataLoader`` with worker processes (pinned batches on CUDA), anything
-    else the threaded ``epoch_batches`` behind a prefetch thread."""
-    ranks = {"process_index": mesh_lib.process_index(),
-             "process_count": mesh_lib.process_count()}
+    over the ranks, or over ``rows`` = (index, count) of the row blocks):
+    ``training.data_loader: "grain"`` takes the ``DataLoader`` with worker
+    processes (pinned batches on CUDA), anything else the threaded
+    ``epoch_batches`` behind a prefetch thread."""
+    index, count = rows if rows is not None else (mesh_lib.process_index(),
+                                                 mesh_lib.process_count())
+    ranks = {"process_index": index, "process_count": count}
     if str(training_cfg.get("data_loader", "threads")).lower() == "grain":
         from fmdm_tpu_torch.data.grain_pipeline import grain_epoch_batches
 
@@ -506,11 +698,31 @@ def host_batches(dataset, batch_size: int, training_cfg: Dict[str, Any], *, seed
                                   num_workers=cfg_num_workers(training_cfg), **ranks))
 
 
-def steps_per_epoch(num_samples: int, batch_size: int) -> int:
+def steps_per_epoch(num_samples: int, batch_size: int, row_blocks: Optional[int] = None) -> int:
     """Optimizer steps per epoch: this process's batches, over
-    ``ceil(num_samples / process_count())`` samples (every rank steps in
-    lockstep on the global batch)."""
-    return math.ceil(math.ceil(num_samples / mesh_lib.process_count()) / batch_size)
+    ``ceil(num_samples / row_blocks)`` samples (default: one block per rank;
+    every rank steps in lockstep on the global batch)."""
+    blocks = mesh_lib.process_count() if row_blocks is None else row_blocks
+    return math.ceil(math.ceil(num_samples / blocks) / batch_size)
+
+
+def tune_grad_accum(plan: ParallelPlan, build_step: Callable[[int], Any],
+                    trial_step: Callable[[Any, int], None], *, batch_size: int,
+                    grad_accum: int, allow_microbatching: bool, what: str) -> Any:
+    """The step at the accumulation every rank takes. Where ``plan`` cuts
+    the model the configured accumulation is kept: a trial of the uncut
+    model would refuse a model that fits the card only when cut, and a
+    trial of the cut one issues collectives that one rank's out-of-memory
+    error would leave unmatched. Elsewhere :func:`autotune_grad_accum`, the
+    ranks then taking the largest (:func:`agree_grad_accum`)."""
+    if plan.cuts_model:
+        logging.info("Parallel strategy %s: keeping gradient_accumulation_steps=%d (no start-up "
+                     "trial of a model cut over the ranks)", plan.kind, grad_accum)
+        return build_step(max(1, int(grad_accum)))
+    accum, _ = autotune_grad_accum(build_step, trial_step, batch_size=batch_size,
+                                   grad_accum=grad_accum,
+                                   allow_microbatching=allow_microbatching, what=what)
+    return agree_grad_accum(accum, build_step, plan.world)[1]
 
 
 def agree_grad_accum(accum: int, build_step: Callable[[int], Any], mesh) -> Tuple[int, Any]:

@@ -40,8 +40,17 @@ adopts it; each rank reads its stride of the epoch's order; the step's loss,
 count and gradients are the global batch's, so every rank logs the same
 epoch loss and takes the same "best" decision; only rank 0 writes the
 checkpoints, ``metrics.csv``, the visuals and the progress bar. The
-optimizer takes ``epochs * ceil(ceil(N / P) / batch_size)`` steps. FSDP,
-tensor and sequence parallelism raise ``NotImplementedError``.
+optimizer takes ``epochs * ceil(ceil(N / P) / batch_size)`` steps.
+
+``training.sequence_parallel``, ``tensor_parallel`` (with or without
+``fsdp``) and ``fsdp`` choose the strategy (``train/common.py``'s
+:func:`parallel_plan`, JAX :132-188): the step is the same global-batch
+step under each. Under tensor parallelism the P / tp ranks of a ``model``
+line share their rows, so the global batch is (P / tp) * batch_size and N
+is strided over P / tp. With the model cut (tensor parallelism, FSDP) every
+rank gathers the checkpoint's state whole and rank 0 writes it, and the
+visuals decode on rank 0 from a whole copy. The routing that
+``sequence_parallel`` installs is cleared when :func:`train` returns.
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ import torch
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
 from fmdm_tpu_torch.models.factories import DiffusionUNetFactory
 from fmdm_tpu_torch.nn.layers import init_weights
+from fmdm_tpu_torch.ops import attention as attention_ops
 from fmdm_tpu_torch.parallel import mesh as mesh_lib
 from fmdm_tpu_torch.sample.diffusion_utils import (
     build_diffusion_model,
@@ -71,18 +81,19 @@ from fmdm_tpu_torch.train.common import (
     LOG_FORMAT,
     VARIANTS,
     DenoiseTrainStep,
-    agree_grad_accum,
-    autotune_grad_accum,
     batch_to_device,
     generator_state,
     host_batches,
     make_adamw,
     make_denoise_train_step,
+    parallel_plan,
     profile_epoch,
     restore_generator,
     resume_path,
     run_dir_for,
+    state_bytes,
     steps_per_epoch,
+    tune_grad_accum,
     weights_swapped,
     with_progress,
 )
@@ -93,18 +104,6 @@ from fmdm_tpu_torch.utils.summary import summarize_model
 
 PREFIXES = {"diffusion": "diff", "flow_matching": "flow"}
 CONDITIONED = ("concatenate", "attention")
-
-
-def _refuse_unported(training_cfg: Dict[str, Any]) -> None:
-    unported = {
-        "fsdp": bool(training_cfg.get("fsdp", False)),
-        "tensor_parallel > 1": int(training_cfg.get("tensor_parallel", 1) or 1) > 1,
-        "sequence_parallel > 1": int(training_cfg.get("sequence_parallel", 1) or 1) > 1,
-    }
-    refused = [name for name, on in unported.items() if on]
-    if refused:
-        raise NotImplementedError(f"denoise training with {', '.join(refused)} is not ported yet "
-                                  f"(ROADMAP Queue 1 item 10)")
 
 
 def build_denoise_trainer(cfg: Dict[str, Any], *, variant: str, num_samples: int,
@@ -127,7 +126,6 @@ def build_denoise_trainer(cfg: Dict[str, Any], *, variant: str, num_samples: int
     if model_type != variant:
         raise ValueError(f"Expected model_type '{variant}', got '{model_type}'.")
     training_cfg = cfg["training"]
-    _refuse_unported(training_cfg)
 
     batch_size = training_cfg.get("train_batch_size")
     batch_size = int(training_cfg.get("batch_size", 4) if batch_size is None else batch_size)
@@ -186,6 +184,16 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
     """Train ``variant`` from the config at ``json_path`` on ``dataset``
     (visuals from ``val_dataset`` when given) on ``device`` (CUDA by
     default); returns the run dir."""
+    try:
+        return _train(dataset, json_path, val_dataset, resume, variant=variant,
+                      max_steps_per_epoch=max_steps_per_epoch, device=device)
+    finally:
+        # sequence_parallel's routing is bound to the training mesh
+        attention_ops.clear_sequence_parallel()
+
+
+def _train(dataset, json_path, val_dataset, resume, *, variant: str,
+           max_steps_per_epoch: Optional[int], device: DeviceArg) -> Path:
     prefix = PREFIXES[variant]
     logging.basicConfig(level=logging.INFO, format=LOG_FORMAT, force=True)
     cfg = config_utils.load_json_config(json_path)
@@ -196,7 +204,6 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
     if model_type != variant:
         raise ValueError(f"Expected model_type '{variant}', got '{model_type}'.")
     training_cfg = cfg["training"]
-    _refuse_unported(training_cfg)
     mesh_lib.maybe_initialize_distributed(device)
     device = mesh_lib.rank_device(device) if mesh_lib.group_active() else resolve_device(device)
     main = mesh_lib.is_main_process()
@@ -220,11 +227,13 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
     ema_decay = float(training_cfg.get("ema_decay", 0.0) or 0.0)
     output_dir = run_dir_for(training_cfg, cfg, f"checkpoints/{variant}", resume)
 
-    mesh = mesh_lib.create_data_mesh(batch_size, device) if mesh_lib.group_active() else None
+    plan = parallel_plan(training_cfg, batch_size, device)
+    mesh = plan.world
     start = time.perf_counter()
     model, _, trainer = build_denoise_trainer(
-        cfg, variant=variant, num_samples=math.ceil(len(dataset) / mesh_lib.process_count()),
-        device=device, mesh=mesh)
+        cfg, variant=variant, num_samples=math.ceil(len(dataset) / plan.rows[1]),
+        device=device, mesh=plan.batch_mesh)
+    trainer.reduce_grads = plan.reduce_grads
     logging.info("Built the %s model on %s in %.3f s", variant, device, time.perf_counter() - start)
     if main:
         summarize_model(model, model_block, training_cfg, name=variant)
@@ -237,14 +246,15 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
         return trainer
 
     def _trial(step: DenoiseTrainStep, _accum: int) -> None:
-        # a generator of its own: the loop's draws are untouched
-        step.trial(batch_to_device(probe, device), torch.Generator(device).manual_seed(0))
+        # a generator of its own: the loop's draws are untouched; the whole
+        # model, no ring
+        with attention_ops.sequence_parallel_scope(None):
+            step.trial(batch_to_device(probe, device), torch.Generator(device).manual_seed(0))
 
-    accum, trainer = autotune_grad_accum(
-        _build_step, _trial, batch_size=batch_size, grad_accum=trainer.grad_accum,
+    trainer = tune_grad_accum(
+        plan, _build_step, _trial, batch_size=batch_size, grad_accum=trainer.grad_accum,
         allow_microbatching=bool(training_cfg.get("allow_microbatching", True)),
         what=f"{variant} train step")
-    _, trainer = agree_grad_accum(accum, _build_step, mesh)
 
     visual_enabled = bool(training_cfg.get("save_images", False)) and main
     visual_every = int(training_cfg.get("save_images_every", 10))
@@ -281,8 +291,12 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
         best_metric = float(payload.get("best_metric", float("inf")))
         logging.info("Resumed from %s at epoch %d (optimizer step %d)", resume_flag, start_epoch,
                      trainer.global_step)
+    (trainer.optimizer,), (trainer.ema,) = plan.shard([model], [trainer.optimizer], [trainer.ema])
+    if plan.sharded:
+        logging.info("Parallel strategy %s: %d bytes of parameters and optimizer state on this "
+                     "rank", plan.kind, state_bytes(model, trainer.optimizer))
 
-    n_batches = steps_per_epoch(len(dataset), batch_size)
+    n_batches = steps_per_epoch(len(dataset), batch_size, plan.rows[1])
     for epoch in range(start_epoch, epochs + 1):
         epoch_loss, num_samples, n_steps, data_wait = 0.0, 0, 0, 0.0
         t0 = time.perf_counter()
@@ -298,7 +312,7 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
                            device):
             batch_iter = with_progress(
                 host_batches(dataset, batch_size, training_cfg, seed=seed, epoch=epoch,
-                             device=device), n_batches, f"Train {epoch}/{epochs}")
+                             device=device, rows=plan.rows), n_batches, f"Train {epoch}/{epochs}")
             batches = iter(batch_iter)
             while True:
                 t_wait = time.perf_counter()
@@ -327,15 +341,20 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
                      avg_loss, num_samples / max(steps_s, 1e-9))
 
         ckpt_s = vis_s = 0.0
-        if main and (epoch % checkpoint_every == 0 or epoch == epochs):
+        saving = epoch % checkpoint_every == 0 or epoch == epochs
+        # with the model cut, every rank gathers its part of the state
+        model_state = plan.full_model_state(model) if saving else None
+        optimizer_state = plan.full_optimizer_state(model, trainer.optimizer) if saving else None
+        ema_state = plan.full_ema(model, trainer.ema) if saving and ema_decay else None
+        if main and saving:
             # "best" at checkpoint granularity: an unsaved epoch never lowers it
             improved = avg_loss < best_metric
             best_metric = min(best_metric, avg_loss)
-            state = {"model": model, "optimizer": trainer.optimizer,
+            state = {"model": model_state, "optimizer": optimizer_state,
                      "lr_scheduler": {"last_epoch": epoch}, "scaler": None, "epoch": epoch,
                      "best_metric": best_metric, "rng_state": generator_state(generator)}
             if ema_decay:
-                state["ema"] = trainer.ema_state_dict()
+                state["ema"] = ema_state
             mirrors = []
             if improved:
                 mirrors.append(output_dir / f"{prefix}_best.pt")
@@ -348,12 +367,23 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
                 logging.info("New best %s loss %.6f -> %s", variant, best_metric,
                              output_dir / f"{prefix}_best.pt")
 
-        if visual_targets is not None and (epoch % visual_every == 0 or epoch == epochs):
+        visual_epoch = epoch % visual_every == 0 or epoch == epochs
+        vis_model, vis_ema = model, trainer.ema
+        if plan.sharded and bool(training_cfg.get("save_images", False)) and visual_epoch:
+            # rank 0 decodes alone, from a whole copy every rank gathers
+            whole, whole_ema = plan.full_model_state(model), (
+                plan.full_ema(model, trainer.ema) if ema_decay else None)
+            if main:
+                vis_model = build_diffusion_model(cfg, device=device)
+                vis_model.load_state_dict(whole)
+                vis_ema = [whole_ema[n].to(device) for n, _ in vis_model.named_parameters()] \
+                    if ema_decay else None
+        if visual_targets is not None and visual_epoch:
             t_vis = time.perf_counter()
             vis_gen = torch.Generator(device).manual_seed((seed + 17) * 100003 + epoch)
-            with weights_swapped(model, trainer.ema) if ema_decay else contextlib.nullcontext():
+            with weights_swapped(vis_model, vis_ema) if ema_decay else contextlib.nullcontext():
                 outputs = decode_diffusion_batch(
-                    model, training_cfg, model_block, tuple(visual_targets.shape),
+                    vis_model, training_cfg, model_block, tuple(visual_targets.shape),
                     visual_cond if conditioned else None, generator=vis_gen, device=device)
             vis = np.clip(outputs.cpu().numpy(), 0.0, 1.0)
             targets = visual_targets.numpy()

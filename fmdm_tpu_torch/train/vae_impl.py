@@ -73,8 +73,18 @@ posterior noise of a chunk is drawn for the global chunk from a generator
 seeded alike on every rank, each rank keeping its rows. The metrics are the
 global ones on every rank, and the GAN gate, a function of the epoch and the
 step, opens on every rank alike. Validation runs each rank's stride of the
-validation set through the same reductions. Rank 0 alone writes. FSDP,
-tensor and sequence parallelism raise ``NotImplementedError``.
+validation set through the same reductions. Rank 0 alone writes.
+
+``training.sequence_parallel``, ``tensor_parallel`` and ``fsdp`` choose the
+strategy for the generator and the discriminator alike (``train/common.py``'s
+:func:`parallel_plan`, JAX :232-283; the VAE composes neither
+``sequence_parallel`` with ``fsdp``, which it ignores as JAX does, nor
+``tensor_parallel`` with ``fsdp``, where tensor parallelism wins). An EMA
+codebook's statistics and BatchNorm's statistics stay whole on every rank.
+With the model cut every rank gathers the checkpoint's state whole, rank 0
+writes it and draws the visuals from a whole copy; the routing that
+``sequence_parallel`` installs is off for the visuals and cleared when
+:func:`train` returns.
 """
 
 from __future__ import annotations
@@ -93,10 +103,11 @@ from fmdm_tpu_torch.nn.layers import BatchNorm, init_weights
 from fmdm_tpu_torch.nn.losses import (PerceptualLoss, _bce_with_logits, bce_focal_loss,
                                       discriminator_hinge_loss, generator_hinge_loss)
 from fmdm_tpu_torch.nn.vae_modules import VectorQuantizerEMA
+from fmdm_tpu_torch.ops import attention as attention_ops
 from fmdm_tpu_torch.parallel import mesh as mesh_lib
 from fmdm_tpu_torch.sample.vae_utils import build_vae_model, reconstruct_raw
 from fmdm_tpu_torch.train import common as loop
-from fmdm_tpu_torch.train.common import autotune_grad_accum, batch_to_device, epoch_batches
+from fmdm_tpu_torch.train.common import batch_to_device, epoch_batches
 from fmdm_tpu_torch.utils import checkpoint as ckpt_utils
 from fmdm_tpu_torch.utils import config as config_utils
 from fmdm_tpu_torch.utils.evaluation import (latent_shape, make_grid, prepare_eval_batch,
@@ -162,18 +173,6 @@ def recon_loss(rec: torch.Tensor, rec_img: torch.Tensor, raw: torch.Tensor,
     raise ValueError(f"Unsupported recon_type '{recon_type}'.")
 
 
-def _refuse_unported(training_cfg: Mapping[str, Any]) -> None:
-    unported = {
-        "fsdp": bool(training_cfg.get("fsdp", False)),
-        "tensor_parallel > 1": int(training_cfg.get("tensor_parallel", 1) or 1) > 1,
-        "sequence_parallel > 1": int(training_cfg.get("sequence_parallel", 1) or 1) > 1,
-    }
-    refused = [name for name, on in unported.items() if on]
-    if refused:
-        raise NotImplementedError(f"VAE training with {', '.join(refused)} is not ported yet "
-                                  f"(ROADMAP Queue 1 item 10)")
-
-
 class VAETrainStep:
     """Train and eval steps of an ``AutoencoderKL`` or a ``VQVAE`` under a
     config's ``training`` section (learning_rate, weight_decay, kl_weight,
@@ -196,10 +195,11 @@ class VAETrainStep:
     def __init__(self, model: torch.nn.Module, training_cfg: Mapping[str, Any], *,
                  steps_per_epoch: int = 1, n_chunks: Optional[int] = None,
                  mesh: Optional[mesh_lib.DataMesh] = None):
-        _refuse_unported(training_cfg)
         loop.check_train_mesh(mesh)
         # a mesh over ranks, else None (one process)
         self.mesh = mesh if mesh_lib.spans_processes(mesh) else None
+        # False where FSDP reduce-scatters the gradients itself
+        self.reduce_grads = True
         self.model = model
         self.recon_type = str(training_cfg.get("recon_type", "l1"))
         self.kl_weight = float(training_cfg.get("kl_weight", 0.0))
@@ -248,6 +248,17 @@ class VAETrainStep:
         # the modules whose reductions over the batch follow the step's mesh
         self._mesh_modules = [m for m in modules if isinstance(m, (BatchNorm, VectorQuantizerEMA))]
         self._use_mesh(self.mesh)
+
+    def shard(self, plan: "loop.ParallelPlan") -> None:
+        """Cut the generator and the discriminator with ``plan``, their
+        optimizers' moments with them (after a resume has loaded them)."""
+        models = [self.model] + ([self.discriminator] if self.discriminator is not None else [])
+        optimizers, _ = plan.shard(models, [self.optimizer, self.disc_optimizer][:len(models)])
+        self.optimizer = optimizers[0]
+        if self.discriminator is not None:
+            self.disc_optimizer = optimizers[1]
+            self._disc_trainable = [p for p in self.discriminator.parameters() if p.requires_grad]
+        self.reduce_grads = plan.reduce_grads
 
     def _use_mesh(self, mesh: Optional[mesh_lib.DataMesh]) -> None:
         self.mesh = mesh
@@ -348,7 +359,7 @@ class VAETrainStep:
         sums, count = self._accumulate(raw, valid, noise, generator,
                                        self.kl_scale() if kl_scale is None else kl_scale,
                                        disc_active)
-        if self.mesh is not None:
+        if self.mesh is not None and self.reduce_grads:
             mesh_lib.all_reduce_grads(list(self.model.parameters()) + self._disc_trainable,
                                       self.mesh)
         for group in self.optimizer.param_groups:
@@ -546,10 +557,19 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
     """Train the VAE of the config at ``json_path`` on ``dataset``,
     validating on ``val_dataset`` when given, on ``device`` (CUDA by
     default); returns the run dir."""
+    try:
+        return _train(dataset, json_path, val_dataset, resume,
+                      max_steps_per_epoch=max_steps_per_epoch, device=device)
+    finally:
+        # sequence_parallel's routing is bound to the training mesh
+        attention_ops.clear_sequence_parallel()
+
+
+def _train(dataset, json_path, val_dataset, resume, *, max_steps_per_epoch: Optional[int],
+           device: DeviceArg) -> Path:
     logging.basicConfig(level=logging.INFO, format=loop.LOG_FORMAT, force=True)
     cfg = config_utils.load_json_config(json_path)
     training_cfg = cfg["training"]
-    _refuse_unported(training_cfg)
     mesh_lib.maybe_initialize_distributed(device)
     device = mesh_lib.rank_device(device) if mesh_lib.group_active() else resolve_device(device)
     main = mesh_lib.is_main_process()
@@ -580,7 +600,8 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
     if main and not metrics_path.exists():
         metrics_path.write_text("epoch," + ",".join(metrics_keys) + "\n")
 
-    mesh = mesh_lib.create_data_mesh(batch_size, device) if mesh_lib.group_active() else None
+    plan = loop.parallel_plan(training_cfg, batch_size, device, vae=True)
+    mesh = plan.world
     start = time.perf_counter()
     model = build_vae_model(cfg, device=device)
     mesh_lib.replicate(mesh, model)
@@ -588,8 +609,9 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
     model_cfg = cfg.get("model", {})
     if main:
         summarize_model(model, model_cfg, training_cfg, name="vae")
-    steps_per_epoch = loop.steps_per_epoch(len(dataset), batch_size)
-    trainer = VAETrainStep(model, training_cfg, steps_per_epoch=steps_per_epoch, mesh=mesh)
+    steps_per_epoch = loop.steps_per_epoch(len(dataset), batch_size, plan.rows[1])
+    trainer = VAETrainStep(model, training_cfg, steps_per_epoch=steps_per_epoch,
+                           mesh=plan.batch_mesh)
 
     logging.info(
         "Data: train_samples=%d%s | batch_size=%d | grad_accum=%d | epochs=%d",
@@ -611,15 +633,16 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
         return trainer
 
     def _trial(step: VAETrainStep, _accum: int) -> None:
-        # a generator of its own: the loop's draws are untouched
-        step.trial(torch.from_numpy(probe).to(device), torch.ones(batch_size, device=device),
-                   torch.Generator(device).manual_seed(0))
+        # a generator of its own: the loop's draws are untouched; the whole
+        # model, no ring
+        with attention_ops.sequence_parallel_scope(None):
+            step.trial(torch.from_numpy(probe).to(device), torch.ones(batch_size, device=device),
+                       torch.Generator(device).manual_seed(0))
 
-    accum, trainer = autotune_grad_accum(
-        _build_step, _trial, batch_size=batch_size, grad_accum=trainer.n_chunks,
+    trainer = loop.tune_grad_accum(
+        plan, _build_step, _trial, batch_size=batch_size, grad_accum=trainer.n_chunks,
         allow_microbatching=bool(training_cfg.get("allow_microbatching", True)),
         what="vae train step")
-    _, trainer = loop.agree_grad_accum(accum, _build_step, mesh)
 
     generator = torch.Generator(device).manual_seed(seed + 23)
     start_epoch = 1
@@ -645,6 +668,12 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
         start_epoch = int(payload.get("epoch", 0)) + 1
         logging.info("Resumed from %s (epoch %d, optimizer step %d)", resume_flag,
                      start_epoch - 1, trainer.global_step)
+    trainer.shard(plan)
+    if plan.sharded:
+        logging.info("Parallel strategy %s: %d bytes of parameters and optimizer state on this "
+                     "rank", plan.kind, loop.state_bytes(model, trainer.optimizer) + (
+                         loop.state_bytes(trainer.discriminator, trainer.disc_optimizer)
+                         if trainer.discriminator is not None else 0))
 
     # the KL anneal's counter: the loop's steps in this run
     global_step = 0
@@ -655,7 +684,8 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
         t_epoch = time.perf_counter()
         batch_iter = loop.with_progress(
             loop.host_batches(dataset, batch_size, training_cfg, seed=seed, epoch=epoch,
-                              device=device), steps_per_epoch, f"VAE {epoch}/{epochs}")
+                              device=device, rows=plan.rows), steps_per_epoch,
+            f"VAE {epoch}/{epochs}")
         batches = iter(batch_iter)
         while True:
             t_wait = time.perf_counter()
@@ -700,8 +730,8 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
             kl_scale = kl_scale_at(kl_weight, kl_anneal_steps, global_step)
             disc_active = trainer.disc_is_active(epoch, global_step)
             for batch in epoch_batches(val_dataset, batch_size, shuffle=False, seed=seed,
-                                       epoch=epoch, process_index=mesh_lib.process_index(),
-                                       process_count=mesh_lib.process_count()):
+                                       epoch=epoch, process_index=plan.rows[0],
+                                       process_count=plan.rows[1]):
                 placed = batch_to_device({"target": batch["target"], "valid": batch["valid"]},
                                          device)
                 m, count = trainer.eval(placed["target"], placed["valid"], kl_scale, disc_active)
@@ -717,20 +747,31 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
 
         current_metric = val_avg["loss"] if val_avg is not None else averaged["loss"]
         ckpt_s = vis_s = 0.0
-        saved = main and (epoch % checkpoint_every == 0 or epoch == epochs)
+        saving = epoch % checkpoint_every == 0 or epoch == epochs
+        saved = main and saving
         should_save = saved and (epoch % save_every == 0 or epoch == epochs)
         epoch_dir = output_dir / "epochs" / f"epoch{epoch:04d}"
+        disc = trainer.discriminator
+        # with the model cut, every rank gathers its part of the state
+        model_state = plan.full_model_state(model) if saving else None
         if saved:
             # "best" at checkpoint granularity: an unsaved epoch never lowers it
             improved = current_metric < best_metric
             best_metric = min(best_metric, current_metric)
-            state = {"model": model, "optimizer": trainer.optimizer,
-                     "disc_optimizer": trainer.disc_optimizer,
+        gathered = {}
+        if saving:
+            gathered["optimizer"] = plan.full_optimizer_state(model, trainer.optimizer)
+            if disc is not None:
+                gathered["disc_optimizer"] = plan.full_optimizer_state(disc, trainer.disc_optimizer)
+                gathered["disc_params"] = {k: v.detach().cpu()
+                                           for k, v in plan.full_model_state(disc).items()}
+        if saved:
+            state = {"model": model_state, "optimizer": gathered["optimizer"],
+                     "disc_optimizer": gathered.get("disc_optimizer"),
                      "scheduler": {"last_epoch": epoch}, "scaler": None, "epoch": epoch,
                      "best_metric": best_metric, "rng_state": loop.generator_state(generator)}
-            if trainer.discriminator is not None:
-                state["extra_state"] = {"disc_params": {
-                    k: v.detach().cpu() for k, v in trainer.discriminator.state_dict().items()}}
+            if disc is not None:
+                state["extra_state"] = {"disc_params": gathered["disc_params"]}
             mirrors = ([output_dir / "vae_best.pt"] if improved else []) + (
                 [epoch_dir / "epoch.pt"] if should_save else [])
             t_ckpt = time.perf_counter()
@@ -746,16 +787,27 @@ def train(dataset, json_path, val_dataset=None, resume: Optional[str] = None, *,
                 handle.write(",".join([f"{epoch}"] + [f"{averaged[k]:.6f}" for k in metrics_keys])
                              + "\n")
 
-        if should_save and visual_enabled and (epoch % visual_every == 0 or epoch == epochs):
+        visual_epoch = (saving and (epoch % save_every == 0 or epoch == epochs)
+                        and bool(training_cfg.get("save_images", True))
+                        and (epoch % visual_every == 0 or epoch == epochs))
+        vis_model = model
+        if plan.sharded and visual_epoch:
+            # rank 0 draws alone, from a whole copy every rank gathers
+            whole = model_state if model_state is not None else plan.full_model_state(model)
+            if main:
+                vis_model = build_vae_model(cfg, device=device)
+                vis_model.load_state_dict(whole)
+        if should_save and visual_enabled and visual_epoch:
             t_vis = time.perf_counter()
             vis_gen = torch.Generator(device).manual_seed((seed + 23) * 100003 + epoch)
-            model.eval()
-            with torch.no_grad():
+            vis_model.eval()
+            with torch.no_grad(), attention_ops.sequence_parallel_scope(None):
                 rec, _ = reconstruct_raw(
-                    model, model.image_to_model_range(torch.from_numpy(sample_batch).to(device)))
-                rec_vis = model.raw_output_to_image(rec, recon_type=recon_type).cpu().numpy()
+                    vis_model,
+                    vis_model.image_to_model_range(torch.from_numpy(sample_batch).to(device)))
+                rec_vis = vis_model.raw_output_to_image(rec, recon_type=recon_type).cpu().numpy()
                 noise = torch.randn((sample_count, *latent), generator=vis_gen, device=device)
-                gen = model.raw_output_to_image(model.decode(noise), recon_type=recon_type)
+                gen = vis_model.raw_output_to_image(vis_model.decode(noise), recon_type=recon_type)
                 gen_vis = np.clip(gen.cpu().numpy(), 0, 1)
             rows, cols = _grid_shape(sample_count)
             save_image(make_grid(np.clip(sample_batch, 0.0, 1.0), rows, cols),

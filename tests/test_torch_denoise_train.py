@@ -340,7 +340,20 @@ def test_build_denoise_trainer_refuses_what_is_not_ported():
     cfg = _reduced_config("LDCT_ddpm_diffusers_nd.json")
     with pytest.raises(ValueError, match="model_type"):
         build_denoise_trainer(cfg, variant="flow_matching", num_samples=4, device="cpu")
+    # the parallel flags are taken: the run loop's plan applies them over the
+    # ranks, and raises JAX's errors for what JAX refuses
+    from fmdm_tpu_torch.train.common import parallel_plan
+
     for key, value in (("fsdp", True), ("tensor_parallel", 2), ("sequence_parallel", 2)):
-        bad = _reduced_config("LDCT_ddpm_diffusers_nd.json", **{key: value})
-        with pytest.raises(NotImplementedError, match=key):
-            build_denoise_trainer(bad, variant="diffusion", num_samples=4, device="cpu")
+        cfg = _reduced_config("LDCT_ddpm_diffusers_nd.json", **{key: value})
+        _, _, step = build_denoise_trainer(cfg, variant="diffusion", num_samples=4, device="cpu")
+        assert step.mesh is None
+    cpu = torch.device("cpu")
+    assert parallel_plan({"fsdp": True}, 4, cpu).kind == "dp"   # one process: nothing to cut
+    with pytest.raises(ValueError, match="composes with plain DP only"):
+        parallel_plan({"sequence_parallel": 2, "tensor_parallel": 2}, 4, cpu)
+    with pytest.raises(ValueError, match="composes with plain DP only"):
+        parallel_plan({"sequence_parallel": 2, "fsdp": True}, 4, cpu)
+    for key in ("tensor_parallel", "sequence_parallel"):
+        with pytest.raises(ValueError, match="must divide the device count 1"):
+            parallel_plan({key: 2}, 4, cpu)

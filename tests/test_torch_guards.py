@@ -58,6 +58,8 @@ def _entry_points():
     from fmdm_tpu_torch.nn.vae_modules import VectorQuantizer, VectorQuantizerEMA
     from fmdm_tpu_torch.sample.diffusion_utils import build_diffusion_model, decode_diffusion_batch
     from fmdm_tpu_torch.parallel.mesh import create_mesh, create_mesh_for_batch, rank_device
+    from fmdm_tpu_torch.parallel.mesh import create_dp_sp_mesh, create_dp_tp_mesh_global
+    from fmdm_tpu_torch.parallel import sequence
     from fmdm_tpu_torch.sample.engine import SamplingEngine
     from fmdm_tpu_torch.sample.vae_utils import build_vae_model
     from fmdm_tpu_torch.schedulers import DDPMScheduler, DPMSolverMultistepScheduler
@@ -133,6 +135,16 @@ def _entry_points():
             devices=None if device is None else [device, device]),
         "create_mesh_for_batch": lambda device=None: create_mesh_for_batch(
             2, None if device is None else [device, device]),
+        "ring_attention": lambda device=None: sequence.ring_attention(
+            *([torch.ones(1, 2, 4, 4)] * 2,) * 3,
+            devices=None if device is None else [device, device]),
+        "sequence_parallel_sdpa": lambda device=None: sequence.sequence_parallel_sdpa(
+            *(torch.ones(1, 2, 8, 4),) * 3, devices=None if device is None else [device, device]),
+        "sequence_self_tests": lambda **kw: sequence.run_self_tests(**kw),
+        "create_dp_sp_mesh": lambda device=None: create_dp_sp_mesh(
+            2, 2, None if device is None else [device, device]),
+        "create_dp_tp_mesh_global": lambda device=None: create_dp_tp_mesh_global(
+            2, 2, devices=None if device is None else [device, device]),
         "quantize_model": lambda **kw: quantize_model(
             cpu_unet, [(torch.zeros(1, 2, 8, 8), torch.tensor([3]))], min_hw=4, min_channels=4,
             **kw),
@@ -236,7 +248,9 @@ def _training_loops(unet, vae):
                                   "batch_norm", "patch_discriminator", "magvit_discriminator",
                                   "make_discriminator", "quantize_model", "vae_gan_train",
                                   "legacy_train", "rank_device", "create_mesh",
-                                  "create_mesh_for_batch"])
+                                  "create_mesh_for_batch", "ring_attention",
+                                  "sequence_parallel_sdpa", "sequence_self_tests",
+                                  "create_dp_sp_mesh", "create_dp_tp_mesh_global"])
 def test_entry_points_default_to_cuda_and_never_fall_back(name, monkeypatch):
     make = _entry_points()[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -168,16 +168,21 @@ def test_vae_factory_full_width_names_and_shapes_equal_jax():
 def test_vq_and_unported_training_options_raise():
     """VQ builds, and the perceptual, VQ, bce and GAN recipes, a VQ model's
     discriminator and rmsnorm are ported; fsdp, tensor and sequence
-    parallelism still raise."""
+    parallelism are taken by the step (the run loop's plan applies them),
+    and the combination JAX's VAE trainer refuses raises its ValueError."""
     vq = VAEFactory().build(dict(REDUCED_MODEL, latent_type="vq"), device="cpu")
     assert isinstance(vq, VQVAE)
     assert type(vq.make_discriminator(device="cpu")).__name__ == "PatchDiscriminator"
     block = blocks.ResBlockND(8, None, 0.0, norm_type="rmsnorm", device="cpu")
     assert type(block.norm1).__name__ == "RMSNormND"
     model = _port_kl()
+    from fmdm_tpu_torch.train.common import parallel_plan
+
     for option in ({"fsdp": True}, {"tensor_parallel": 2}, {"sequence_parallel": 2}):
-        with pytest.raises(NotImplementedError):
-            KLTrainStep(model, option)
+        assert KLTrainStep(model, option).mesh is None
+    with pytest.raises(ValueError, match="composes with plain DP only"):
+        parallel_plan({"sequence_parallel": 2, "tensor_parallel": 2}, 4, torch.device("cpu"),
+                      vae=True)
     for option in ({"perceptual_weight": 0.1}, {"reg_type": "vq"}, {"recon_type": "bce"},
                    {"recon_type": "focal"}, {"gan_weight": 0.5}):
         KLTrainStep(model, option)
