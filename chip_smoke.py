@@ -186,7 +186,7 @@ Phases, each printing one or more lines:
     ``int8+linear`` against the float decode (PSNR, K1 and K2 per model
     call), ``linear_qdq`` at (2, 1024, 512) card vs CPU, ``run_model
     evaluate --quantize int8`` on [21]'s root alone and with ``--deep_cache
-    3:1:adaptive``, and the int8 forward's time at batch 4 and 8 beside bf16
+    3:1:adaptive``, and the int8 forward's time at batch 4 beside bf16
     and f32, its convs split into quantize, im2col, ``_int_mm`` and
     dequantize;
 33. ``ResBlockND(norm_type="rmsnorm")`` with FiLM at 256 channels, 256²,
@@ -239,7 +239,17 @@ Phases, each printing one or more lines:
     engine's reconstruct and a 3-step sample over a one-process
     ``("data", "seq")`` mesh of two shards of the card against the unsplit
     engines;
-37. the whole run's seconds, a ``{"kernels": [...]}`` line, then the result
+37. the quality workflow (``fmdm_tpu_torch/scripts/``) on the card at the
+    flagship's width: ``python -m fmdm_tpu_torch.scripts.flagship_quality_sweep``
+    in a subprocess over a phantom set of 2 train and 1 test case of 4
+    slices, both variants trained 1 epoch through the training CLI and
+    ``flowmatch`` and ``ddpm`` evaluated at 4 steps on 4 samples, two
+    subprocesses at a time (``--jobs 2``); then, on
+    its flow run dir at 4 steps, ``int8_quality_eval.evaluate`` with
+    ``("flowmatch", "int8", None)`` and ``deepcache_quality_frontier`` under
+    ``2:1:adaptive``, side by side; every row of each table a finite PSNR
+    and SSIM with its 95% CI;
+38. the whole run's seconds, a ``{"kernels": [...]}`` line, then the result
     line ``{"ok": true, "device": {...}}``.
 
 The flagship is ``model.unet`` of ``configs/LDCT/LDCT_ddpm_diffusers_nd.json``
@@ -315,7 +325,7 @@ SDPA_PLAIN_CASES = (
     ((2, 4, 256, 96), 256, "float32", "self-attention, d = 96 at T = 256"),
     ((1, 2, 1024, 160), 1024, "float32", "self-attention, d = 160 at T = 1024"),
 )
-TRAIN_STEPS = 5   # cut from 10 to make room for [31]-[33]
+TRAIN_STEPS = 3   # cut from 10 to make room for [31]-[33], from 5 for [37]
 DECODE_BATCH = 4     # run_model's default --batch_size
 SCHEDULER_STEPS = 25  # [19]: a whole schedule per scheduler
 # [20]: inference steps per decode, cut from 25 (and from 8 to make room for
@@ -423,7 +433,7 @@ GAN_SLICE_COUNT = 3
 # at INT8_TIMED_BATCHES; int8 tensor-core peak of the data sheet (dense)
 INT8_STEPS = 3
 INT8_FLOOR_DB = 20.0
-INT8_TIMED_BATCHES = (4, 8)
+INT8_TIMED_BATCHES = (4,)   # batch 8 cut for [37]
 INT8_OPS_PER_S = 1979e12
 # [33]: the rmsnorm ResBlock's (batch, channels, side)
 RMSNORM_SHAPE = (4, 256, 256)
@@ -3333,7 +3343,7 @@ def phase_int8(torch, card: str, seed: int, gen, records, work: Path) -> dict:
         log(f"  {label}: eval mse {float(row['mse']):.6f}, psnr {float(row['psnr']):.3f}, ssim "
             f"{float(row['ssim']):.5f}, model seconds {float(row['model_seconds']):.3f} [{card}]")
 
-    # the int8 forward's time at batch 4 and 8 beside bf16 and f32, and its split
+    # the int8 forward's time at INT8_TIMED_BATCHES beside bf16 and f32, and its split
     bf16 = copy.deepcopy(model).to(torch.bfloat16)
     timed = {}
     for batch in INT8_TIMED_BATCHES:
@@ -4482,6 +4492,83 @@ def phase_seq_engines(torch, card: str, seed: int, records) -> dict:
     return counts
 
 
+QUALITY_CASES = (2, 1, 4)   # [37]: train cases, test cases, slices per case
+QUALITY_STEPS = 4
+QUALITY_SAMPLES = 4
+QUALITY_DEEP_CACHE = "2:1:adaptive"
+
+
+def table_rows(text: str, header: str) -> dict:
+    """``{first cell: [other cells]}`` of the markdown table under the line
+    that starts with ``header`` in ``text``."""
+    lines = text.splitlines()
+    start = next(i for i, line in enumerate(lines) if line.startswith(header))
+    rows = {}
+    for line in lines[start + 2:]:
+        if not line.startswith("| "):
+            break
+        cells = [c.strip() for c in line.strip("|").split("|")]
+        rows[cells[0]] = cells[1:]
+    return rows
+
+
+def check_quality_rows(what: str, rows: dict, want: list) -> None:
+    """Every row of a tool's table: a finite PSNR with its 95% CI and a
+    finite SSIM."""
+    if sorted(rows) != sorted(want):
+        raise AssertionError(f"{what}: table rows {sorted(rows)}, expected {sorted(want)}")
+    for name, cells in rows.items():
+        psnr, sep, ci = cells[0].partition(" ± ")
+        values = [float(psnr), float(ci or "nan"), float(cells[1])]
+        if not sep or not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"{what}: row {name} {cells} lacks a finite PSNR, CI or SSIM")
+
+
+def phase_quality_tools(card: str, work: Path) -> None:
+    """[37]: the quality tools on the card, in subprocesses, at the
+    flagship's width and a cut depth."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fmdm_tpu_torch.scripts import deepcache_quality_frontier as frontier
+    from fmdm_tpu_torch.scripts import flagship_quality_sweep as sweep
+    from fmdm_tpu_torch.scripts import int8_quality_eval
+
+    train_cases, test_cases, depth = QUALITY_CASES
+    log(f"[37] the quality workflow: flagship_quality_sweep over {train_cases} train and "
+        f"{test_cases} test phantom cases of {depth} slices, both variants 1 epoch, flowmatch "
+        f"and ddpm at {QUALITY_STEPS} steps on {QUALITY_SAMPLES} samples; then int8 and "
+        f"DeepCache {QUALITY_DEEP_CACHE} on its flow run dir")
+    root = work / "quality"
+    start = time.perf_counter()
+    text, secs = in_subprocess(
+        "fmdm_tpu_torch.scripts.flagship_quality_sweep",
+        ["--root", str(root), "--epochs", "1", "--train-cases", str(train_cases),
+         "--test-cases", str(test_cases), "--depth", str(depth), "--aliases", "flowmatch,ddpm",
+         "--num-samples", str(QUALITY_SAMPLES), "--steps", str(QUALITY_STEPS), "--jobs", "2"],
+        "the quality sweep")
+    sweep_rows = table_rows(text, "| sampler |")
+    check_quality_rows("flagship_quality_sweep", sweep_rows, ["flowmatch", "ddpm"])
+    log(f"  flagship_quality_sweep: exit 0, wall {secs:.2f} s; " + "; ".join(
+        f"{name} PSNR {cells[0]} SSIM {cells[1]} samples/s {cells[2]}"
+        for name, cells in sweep_rows.items()) + f" [{card}]")
+    (flow_run,) = root.glob("run_flow_matching_run*")
+    kw = dict(num_samples=QUALITY_SAMPLES, steps=QUALITY_STEPS)
+    with contextlib.redirect_stdout(sys.stderr), ThreadPoolExecutor(2) as pool:
+        int8 = pool.submit(int8_quality_eval.evaluate, flow_run, [("flowmatch", "int8", None)],
+                           root=root, **kw)
+        cached = pool.submit(frontier.frontier, flow_run, root / "deepcache",
+                             scheduler="flowmatch", variants=[QUALITY_DEEP_CACHE], **kw)
+        int8_rows, cached_rows = int8.result(), cached.result()
+    int8_table = table_rows(sweep.format_table(int8_rows), "| sampler |")
+    cached_table = table_rows(frontier.format_frontier(cached_rows), "| deep_cache |")
+    check_quality_rows("int8_quality_eval", int8_table, ["flowmatch_int8"])
+    check_quality_rows("deepcache_quality_frontier", cached_table,
+                       [QUALITY_DEEP_CACHE.replace(":", "_")])
+    for name, cells in {**int8_table, **cached_table}.items():
+        log(f"  {name}: PSNR {cells[0]} SSIM {cells[1]} model samples/s {cells[2]}")
+    log(f"  [37] wall {time.perf_counter() - start:.2f} s (the sweep {secs:.2f} s) [{card}]")
+
+
 @contextlib.contextmanager
 def long_attention(edit):
     """Every self-attention call of ``nn.blocks`` at 512 tokens or more (the
@@ -4694,6 +4781,7 @@ def main() -> int:
                                            Path(tmp))
         del train_state
         dp_counts = phase_torchrun(torch, card, args.seed, all_records, Path(tmp))
+        phase_quality_tools(card, Path(tmp))
     dp_counts.update(phase_gloo_ranks(torch, card, args.seed, all_records))
     dp_counts.update(phase_split_engines(torch, card, args.seed, all_records))
     ring = phase_ring(torch, card, args.seed, all_records)

@@ -2,8 +2,10 @@
 BaseDataset (counterpart of ``fmdm_tpu/data/base.py``): a dataset of rows
 read from a tab-separated split file (``train.txt``/``test.txt`` or
 ``split_file``), samples in the canonical [0, 1] range (``to_image`` /
-``from_image``), a mirrored tensor cache, windowed volume entries and an
-output writer (PNG through Pillow, else a tensor file).
+``from_image``), a mirrored tensor cache (written by one background
+thread per dataset and process; ``flush_tensor_cache_writes`` waits for
+it), windowed volume entries and an output writer (PNG through Pillow, else
+a tensor file).
 
 The split file is read with the ``csv`` module into rows whose cells are
 typed as pandas' ``read_csv`` types them in the JAX package, where that can
@@ -22,7 +24,10 @@ from __future__ import annotations
 
 import csv
 import logging
+import os
 import re
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
@@ -48,6 +53,17 @@ _MISSING = frozenset({"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-Na
 _BOOLS = {"True": True, "TRUE": True, "true": True, "False": False, "FALSE": False, "false": False}
 _INT = re.compile(r"\s*[+-]?\d+\s*")
 _FLOAT = re.compile(r"\s*[+-]?((\d+\.?\d*|\.\d+)([eE][+-]?\d+)?|inf|infinity)\s*", re.IGNORECASE)
+# guards the start of a dataset's cache writer; a forked child takes a new
+# one, since a thread of the parent may have held it at the fork
+_CACHE_WRITER_LOCK = threading.Lock()
+
+
+def _new_cache_writer_lock() -> None:
+    global _CACHE_WRITER_LOCK
+    _CACHE_WRITER_LOCK = threading.Lock()
+
+
+os.register_at_fork(after_in_child=_new_cache_writer_lock)
 
 
 def _typed_column(cells: Sequence[Optional[str]]) -> list:
@@ -251,8 +267,29 @@ class BaseDataset:
             tensor = payload.get("Image") if isinstance(payload, dict) else payload
         tensor = np.ascontiguousarray(np.asarray(tensor, dtype=np.float32))
         if self.save_tensor_cache and cache_path is not None and not cache_path.exists():
-            save_tensor_cache(tensor, cache_path)
+            # off the fetch path: serializing holds the GIL for tens of ms per
+            # sample, which would serialize the threaded cold-cache fetches; a
+            # dropped write only means the entry is preprocessed again
+            self._cache_writer().submit(save_tensor_cache, tensor, cache_path)
         return tensor
+
+    def _cache_writer(self) -> ThreadPoolExecutor:
+        """The dataset's one cache-writer thread in this process, started on
+        first use (under a lock: the threaded fetches of a cold cache reach
+        here together). A forked ``DataLoader`` worker inherits the parent's
+        pool without its thread, so it starts its own (joined at its exit)."""
+        with _CACHE_WRITER_LOCK:
+            pid, writer = getattr(self, "_cache_writer_pool", (None, None))
+            if pid != os.getpid():
+                writer = ThreadPoolExecutor(max_workers=1, thread_name_prefix="cache-write")
+                object.__setattr__(self, "_cache_writer_pool", (os.getpid(), writer))
+            return writer
+
+    def flush_tensor_cache_writes(self) -> None:
+        """Block until every pending cache write of this process has landed."""
+        pid, writer = getattr(self, "_cache_writer_pool", (None, None))
+        if pid == os.getpid():
+            writer.submit(lambda: None).result()
 
     @staticmethod
     def _resolve_img_path(entry):

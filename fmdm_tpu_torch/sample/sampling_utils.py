@@ -208,12 +208,16 @@ def build_tensor_cache_from_config(cfg: dict, data_txt: Optional[str], batch_siz
                                    desc: str = "build_tensor_cache", evaluate: bool = True) -> int:
     """Read every selected sample of the evaluation dataset, which writes
     its entries' tensor cache where the run's config (or its dataset.json)
-    turns ``save_tensor_cache`` on; returns the number of samples."""
+    turns ``save_tensor_cache`` on; returns the number of samples once the
+    dataset's background writes have landed."""
     dataset = build_sampling_dataset(cfg, data_txt, evaluate=evaluate)
     indices = resolve_sample_indices(dataset, num_samples, seed=seed)
     total = 0
     for _, samples in progress_batches(dataset, batch_size, desc, indices=indices):
         total += len(samples)
+    flush = getattr(dataset, "flush_tensor_cache_writes", None)
+    if flush is not None:
+        flush()
     return total
 
 

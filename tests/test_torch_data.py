@@ -243,8 +243,7 @@ def test_tensor_cache_reads_bitwise_in_the_other_package(tmp_path, writer):
     first = got if writer == "port" else want
     other = want if writer == "port" else got
     samples = [first[i] for i in range(len(first))]
-    if writer == "jax":
-        first.flush_tensor_cache_writes()
+    first.flush_tensor_cache_writes()
     files = sorted((tmp_path / "root" / "cache").rglob("*.pt"))
     assert len(files) == 2 * len(first)
     for path in files:
@@ -262,6 +261,69 @@ def test_tensor_cache_reads_bitwise_in_the_other_package(tmp_path, writer):
         save(arr, tmp_path / "x" / "a.pt")
         back = load(tmp_path / "x" / "a.pt")
         assert back.dtype == np.float32 and np.array_equal(back, arr)
+
+
+def test_tensor_cache_writes_land_from_a_forked_worker(tmp_path):
+    """A ``DataLoader`` worker forks after the parent started its writer
+    thread: its writes still land (on a writer of its own), bitwise the
+    parent's arrays."""
+    import multiprocessing
+
+    rows = [("001", 4, 4), ("002", 4, 4)]
+    got, _ = _build_both(tmp_path, "cache", False, rows, 3, 6, save_tensor_cache=True,
+                         tensor_cache_subdir="cache")
+    first = got[0]  # the parent's writer thread starts here
+    got.flush_tensor_cache_writes()
+    child = multiprocessing.get_context("fork").Process(target=got.__getitem__, args=(1,))
+    child.start()
+    child.join(timeout=60)
+    assert not child.is_alive() and child.exitcode == 0
+    paths = [p for row in got.data[:2] for p in _cache_paths(got, row)]
+    assert all(p.exists() for p in paths), paths
+    assert np.array_equal(tdu.load_tensor_cache(paths[0]), first["target"])
+    assert np.array_equal(tdu.load_tensor_cache(paths[2]), got[1]["target"])
+
+
+def test_threaded_cold_fetches_share_one_cache_writer(tmp_path, monkeypatch):
+    """Fetches on several threads of a cold cache start one writer thread
+    between them (a slow pool start widens the race), and one flush waits
+    for every write they queued."""
+    import threading
+    import time
+
+    from fmdm_tpu_torch.data import base as tbase
+
+    rows = [(f"{i:03d}", 4, 4) for i in range(1, 5)]
+    got, _ = _build_both(tmp_path, "cache", False, rows, 3, 6, save_tensor_cache=True,
+                         tensor_cache_subdir="cache")
+    started = []
+
+    def slow_pool(*args, **kwargs):
+        time.sleep(0.05)
+        started.append(tbase_pool(*args, **kwargs))
+        return started[-1]
+
+    tbase_pool = tbase.ThreadPoolExecutor
+    monkeypatch.setattr(tbase, "ThreadPoolExecutor", slow_pool)
+    barrier = threading.Barrier(len(got))
+    errors = []
+
+    def fetch(i):
+        try:
+            barrier.wait()
+            got[i]
+        except Exception as exc:  # surfaced below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=fetch, args=(i,)) for i in range(len(got))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not errors and len(started) == 1
+    got.flush_tensor_cache_writes()
+    paths = [p for row in got.data for p in _cache_paths(got, row)]
+    assert len(paths) == 2 * len(got) and all(p.exists() for p in paths)
 
 
 SPLIT_CELLS = [

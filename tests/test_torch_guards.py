@@ -1,6 +1,8 @@
 """Guards of the port: it imports neither JAX, orbax nor the JAX package, its entry
 points default to CUDA and raise without it, and the CPU never launches a
-kernel."""
+kernel. The quality tools (``fmdm_tpu_torch/scripts/``) import nothing of the
+JAX package's ``scripts/`` either, and pass no device to the CLIs unless
+given one (so the CLIs take the card)."""
 
 import ast
 import os
@@ -28,6 +30,47 @@ def _imported_roots(path: Path):
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_port_sources_import_no_jax(path):
     assert not FORBIDDEN & set(_imported_roots(path))
+
+
+SCRIPT_FILES = sorted((REPO / "fmdm_tpu_torch" / "scripts").glob("*.py"))
+TOOL_FILES = [p for p in SCRIPT_FILES if p.name != "__init__.py"]
+
+
+@pytest.mark.parametrize("path", SCRIPT_FILES, ids=lambda p: p.name)
+def test_quality_tools_import_nothing_of_the_jax_scripts(path):
+    assert not (FORBIDDEN | {"scripts"}) & set(_imported_roots(path))
+    assert "sys.path" not in path.read_text()
+
+
+def _keyword(call: ast.Call, name: str):
+    return next((k.value for k in call.keywords if k.arg == name), None)
+
+
+@pytest.mark.parametrize("path", TOOL_FILES, ids=lambda p: p.name)
+def test_quality_tools_default_to_the_card(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    device_flags = [node for node in ast.walk(tree) if isinstance(node, ast.Call)
+                    and getattr(node.func, "attr", "") == "add_argument"
+                    and node.args and getattr(node.args[0], "value", None) == "--device"]
+    assert len(device_flags) == 1
+    default = _keyword(device_flags[0], "default")
+    assert default is None or (isinstance(default, ast.Constant) and default.value is None)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            for name in ("default", "device"):
+                value = _keyword(node, name)
+                assert not (isinstance(value, ast.Constant) and value.value == "cpu"), (
+                    path.name, node.lineno)
+
+
+def test_quality_tools_pass_no_device_unless_given_one():
+    from fmdm_tpu_torch.scripts import flagship_quality_sweep as sweep
+
+    cmd = sweep.evaluate_cmd(Path("run"), "flowmatch", Path("out"), num_samples=4)
+    assert "--device" not in cmd and cmd[1:3] == ["-m", "fmdm_tpu_torch.run_model"]
+    assert sweep.module_cmd("fmdm_tpu_torch.train", "--config", "c")[-2:] == ["--config", "c"]
+    assert sweep.module_cmd("fmdm_tpu_torch.train", device="cuda")[-2:] == ["--device", "cuda"]
+    assert sweep.build_parser().parse_args([]).device is None
 
 
 def test_importing_the_port_loads_no_jax():

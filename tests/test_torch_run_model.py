@@ -19,8 +19,10 @@ import copy
 import csv
 import json
 import os
+import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -38,6 +40,7 @@ from fmdm_tpu.sample import engine as jengine
 from fmdm_tpu.sample import handlers as jhandlers
 from fmdm_tpu.utils import checkpoint as jckpt
 from fmdm_tpu_torch import run_model as trm
+from fmdm_tpu_torch.data import base as tbase
 from fmdm_tpu_torch.data.io import load_image
 from fmdm_tpu_torch.sample import diffusion_like as tdl
 from fmdm_tpu_torch.sample import diffusion_utils as tdu
@@ -314,6 +317,30 @@ def test_cli_runs_evaluate_and_build_tensor_cache_on_the_cpu(runs, tmp_path):
     data_root = Path(cfg["training"]["data_root"])
     written = sorted((data_root / "cache_eval").rglob("*.pt"))
     assert len(written) == 12   # 6 samples x (SDCT, LDCT)
+
+
+def test_build_tensor_cache_in_process_returns_after_the_writes(runs, tmp_path, monkeypatch):
+    """The mode's files exist when ``main`` returns, though a background
+    thread writes them (a caller in the same process reads them next)."""
+    from fmdm_tpu_torch.data import dataset_utils
+
+    real = dataset_utils.save_tensor_cache
+
+    def slow_save(array, path):
+        time.sleep(0.05)
+        real(array, path)
+
+    cfg = json.loads((runs["flow_matching"] / "train_config.json").read_text())
+    root = tmp_path / "root"
+    shutil.copytree(cfg["training"]["data_root"], root,
+                    ignore=shutil.ignore_patterns("cache*"))
+    cfg["training"].update(data_root=str(root), save_tensor_cache=True)
+    cache_run = tmp_path / "cache_run"
+    cache_run.mkdir()
+    (cache_run / "train_config.json").write_text(json.dumps(cfg))
+    monkeypatch.setattr(tbase, "save_tensor_cache", slow_save)
+    trm.main(["--ckpt_dir", str(cache_run), "--mode", "build_tensor_cache", "--device", "cpu"])
+    assert len(sorted((root / "cache_eval").rglob("*.pt"))) == 12
 
 
 def test_cli_without_device_raises_without_a_card(runs, monkeypatch):
