@@ -26,7 +26,7 @@ Phases, each printing one or more lines:
 5. the full-width flagship forward (batch 1, f32, TF32 off) on the card
    through K1 and K2, against the same module on the CPU's plain path, and
    the kernels' launch counts per forward;
-6. the first 3 steps of that sample in f32 at batch 1 through
+6. the first 2 steps of that sample in f32 at batch 1 through
    ``SamplingEngine``, on the card against the CPU plain path;
 7. the 50-step DPM-Solver++ (order 2) sample at 256² in bf16 through
    ``SamplingEngine``: finite output, launch counts, seconds and denoise
@@ -44,7 +44,7 @@ Phases, each printing one or more lines:
     CPU's plain path, and the launch counts per reconstruct;
 11. its train step (L1 + KL, AdamW) at batch 1 on the card against the CPU
     plain path with the same posterior noise: loss, every gradient, the
-    parameters after the update; then 10 timed steps at the config's batch 4
+    parameters after the update; then 2 timed steps at the config's batch 4
     with launches per step (K1, K3, K4, K5) and peak memory;
 12. encode, decode and reconstruct at batch 4: images/s, launches per call;
 13. K1 over the calls recorded in [5] and [10], replayed at the sample's
@@ -63,10 +63,19 @@ Phases, each printing one or more lines:
     rate) through ``build_denoise_trainer``, f32, TF32 off, at batch 1 on the
     card against the CPU plain path with the same noise and t: loss, every
     gradient, the card's update against AdamW replayed on the CPU, launches;
-17. 10 timed train steps at the config's batch 8 (ms per step, images/s,
+16b. the quality recipe's train step: flow matching in bf16 (the flow
+    config under ``mixed_precision: bf16``, AdamW past the warm-up) through
+    ``build_denoise_trainer`` at batch 2, on the card and on the CPU plain
+    path, each held against the same step in f32 on the CPU with the same
+    noise and t: the loss, the whole gradient and the whole AdamW update,
+    each as one vector relative to the f32 one's norm; the card's distance
+    at most twice the CPU's on each; the same step on the card with a
+    flow target planted without its ``(1 - t)`` factor must fail that check;
+    launches per step;
+17. 2 timed train steps at the config's batch 8 (ms per step, images/s,
     peak memory, launches per step) and one flow-matching step of
-    ``configs/LDCT/LDCT_flow_matching_diffusers_nd.json``;
-18. the first 3 DDPM steps of the config's schedule through
+    ``configs/LDCT/LDCT_flow_matching_diffusers_nd.json`` in its own f32;
+18. the first 2 DDPM steps of the config's schedule through
     ``SamplingEngine``, f32, batch 1, card against CPU with the same noise
     per step; then 5 bf16 DDPM steps at batch 8 drawing from a CUDA generator;
 19. each scheduler ported for the decode path (DDIM at eta 0 and 1, UniPC
@@ -80,7 +89,7 @@ Phases, each printing one or more lines:
     EMA, the optimizer's state), read back through ``load_run_config``,
     ``resolve_checkpoint`` and ``build_diffusion_model`` bitwise (``model``
     and, under ``set_use_ema``, ``ema``); ``decode_diffusion_batch`` in f32
-    at batch 4, 4 inference steps, under the config's DDPM and seven
+    at batch 4, 2 inference steps, under the config's DDPM and seven
     scheduler overrides, a partial decode from ``start_step`` 700 with
     ``init_from_reference``, and a flow-matching run dir: model calls, K1
     and K2 launches per call, denoise steps/s, peak memory; then two decodes
@@ -96,7 +105,7 @@ Phases, each printing one or more lines:
     --start_step 700``, and on the flow run dir ``encode --save`` and
     ``debug_compare``; the same DDPM ``evaluate`` in this process (launches
     per model call, peak memory); then ``evaluate`` of one sample at batch 1
-    with 3 DDPM calls on the card and on the CPU with the card's draws
+    with 2 DDPM calls on the card and on the CPU with the card's draws
     replayed: per-image MSE, the decoded batch and the saved predictions;
 22. training from a config: ``python -m fmdm_tpu_torch.train`` in
     subprocesses over a synthetic LDCT root (a train split of 3 cases and a
@@ -117,12 +126,12 @@ Phases, each printing one or more lines:
     path; launches per forward (K1 64, 32 of them with FiLM; K2 1);
 24. the compvis config's denoise train step through
     ``build_denoise_trainer`` at batch 1, card vs CPU (loss, every gradient,
-    the FiLM projections' named, the update); 10 timed steps at its batch 8;
+    the FiLM projections' named, the update); 2 timed steps at its batch 8;
     its 50-step DPM++ sample in bf16 at each ``--batches`` (steps/s, peak,
     launches);
 25. DeepCache on the flagship: the splice at depths 1 and 3 against the full
     forward (f32, batch 1), bitwise, and the shallow forward's launches;
-    interval 1 against the uncached engine over 5 bf16 steps, bitwise; 3
+    interval 1 against the uncached engine over 5 bf16 steps, bitwise; 2
     steps under '2:1' in f32 at batch 1, card vs CPU; the 50-step DPM++ bf16
     sample at each ``--batches`` exactly and under '3:1:adaptive' and
     '3:1:uniform', and at the first also under '5:1:adaptive': steps/s,
@@ -149,7 +158,7 @@ Phases, each printing one or more lines:
     ``LDCT_fmboost_autoencoder_kl.json`` recipes, the perceptual loss on a
     surrogate VGG16 ``.npz`` drawn from ``--seed`` (``FMDM_VGG16_WEIGHTS``
     set for this phase only): the train step at batch 1 card against the
-    CPU with the perceptual term non-zero, 10 timed steps at batch 4, the
+    CPU with the perceptual term non-zero, 2 timed steps at batch 4, the
     VGG's share of the step, launches K1, K3, K4, K5 per step;
 29. ``run_model``'s VAE modes on [22]'s KL-VAE run dir: ``evaluate``,
     ``sample --save``, ``encode --save`` and ``debug_compare`` in
@@ -172,7 +181,7 @@ Phases, each printing one or more lines:
     one step at batch 1 card against the CPU (the losses ``g_gan``,
     ``d_gan``, recon, perceptual and kl, both models' gradients and their
     parameters after AdamW), a step with the gate off leaving D as it was,
-    10 timed steps at batch 4 with the gate on and off (launches K1, K3, K4,
+    2 timed steps at batch 4 with the gate on and off (launches K1, K3, K4,
     K5 per step), ``python -m fmdm_tpu_torch.train`` for 1 epoch over
     [22]'s root (3-slice windows as the channels) and ``--resume`` for a
     second (D's parameters and AdamW in the checkpoint, its step
@@ -182,7 +191,7 @@ Phases, each printing one or more lines:
     1 on the card and on the CPU (the same quantized paths and int8
     weights, the activation scales), the int8 forward card vs CPU on the
     card's scales, one conv's int32 accumulators for the same int8 operands
-    bitwise, 3-step DPM++ decodes at batch 4 under ``int8`` and
+    bitwise, 2-step DPM++ decodes at batch 4 under ``int8`` and
     ``int8+linear`` against the float decode (PSNR, K1 and K2 per model
     call), ``linear_qdq`` at (2, 1024, 512) card vs CPU, ``run_model
     evaluate --quantize int8`` on [21]'s root alone and with ``--deep_cache
@@ -315,7 +324,9 @@ DENOISE_LAUNCHES = {"K1": K1_PER_FORWARD, "K2": K2_PER_FORWARD}
 # the attention-conditioned flagship: its mid block cross-attends (sdpa_xla)
 # instead of self-attending, so K2 serves the other five calls
 CROSS_ATTENTION_LAUNCHES = {"K1": K1_PER_FORWARD, "K2": K2_PER_FORWARD - 1}
-DDPM_STEPS = 3       # card vs CPU
+DDPM_STEPS = 2       # card vs CPU (cut from 3 for [16b])
+FLOW_BF16_BATCH = 2  # [16b]: the bf16 flow step, card and CPU against the CPU's f32 step
+FLOW_BF16_RATIO = 2.0  # [16b]: the card's distance to f32 at most this times the CPU's
 DDPM_BF16_STEPS = 5  # at the config's batch
 REL_TOL = 1e-3  # card vs CPU plain path: conv algorithms and sum orders differ
 # sdpa at shapes no kernel takes (q shape, Tk, dtype, what)
@@ -325,14 +336,15 @@ SDPA_PLAIN_CASES = (
     ((2, 4, 256, 96), 256, "float32", "self-attention, d = 96 at T = 256"),
     ((1, 2, 1024, 160), 1024, "float32", "self-attention, d = 160 at T = 1024"),
 )
-TRAIN_STEPS = 3   # cut from 10 to make room for [31]-[33], from 5 for [37]
+TRAIN_STEPS = 2   # cut from 10 to make room for [31]-[33], from 5 for [37], from 3 for [16b]
 DECODE_BATCH = 4     # run_model's default --batch_size
 SCHEDULER_STEPS = 25  # [19]: a whole schedule per scheduler
 # [20]: inference steps per decode, cut from 25 (and from 8 to make room for
-# [21], and from 4 for [31]-[33]): at batch 4 in f32 a flagship forward
+# [21], from 4 for [31]-[33], from 3 for [16b]; [19] holds the schedulers'
+# higher orders over 25 steps): at batch 4 in f32 a flagship forward
 # takes 0.6-1.1 s on the H100, where cuDNN runs one convolution as an
 # FFT-tiled GEMM of 66,048 launches (python -m fmdm_tpu_torch.sample.decode_report)
-DECODE_STEPS = 3
+DECODE_STEPS = 2
 # [19]: the schedulers of the decode path, as (registry name, create params)
 NEW_SCHEDULERS = (
     ("ddim", {}), ("ddim", {"eta": 1.0}),
@@ -364,8 +376,8 @@ DECODE_PARITY = ((2, "dpmsolversde"), (3, "unipc?solver_order=3,use_karras_sigma
 # default batch in CLI_STEPS inference steps
 CLI_CASES, CLI_SLICES = 2, 4
 CLI_STEPS = 4
-CLI_PARITY_STEPS = 3   # card vs CPU: evaluate of one sample at batch 1, the config's DDPM
-SERVE_CALLS = 5
+CLI_PARITY_STEPS = 2   # card vs CPU: evaluate of one sample at batch 1, the config's DDPM (3 until [16b])
+SERVE_CALLS = 3   # cut from 5 for [16b]
 # [22]: training from a config over a synthetic LDCT root. Cuts: 1 + 1
 # epochs of the DDPM config and 1 of the flow config (the configs say 500),
 # 2 of the VAE config (100); a train split of TRAIN_CASES[0] cases and a test
@@ -397,7 +409,7 @@ EFFICIENT_FILM = 32   # of the 64 K1 calls
 # ResBlocks each, no attention): K1 10 at depth 1, 30 at depth 3, no K2
 SHALLOW_K1 = {1: 10, 3: 30}
 DEEP_CACHE_STEPS = 5          # interval 1 vs the uncached engine, bf16
-DEEP_CACHE_PARITY_STEPS = 3   # '2:1', card vs CPU, f32
+DEEP_CACHE_PARITY_STEPS = 2   # '2:1' (a full step, then a shallow one), card vs CPU, f32 (3 until [16b])
 # the cached samples' settings at the first --batches; the later batches take
 # the first one only (a cut of depth for the script's time: their launches
 # are checked at the first)
@@ -431,7 +443,7 @@ GAN_SLICE_COUNT = 3
 # an int8 decode at least INT8_FLOOR_DB from the float one, and the
 # card's int8 forward from the CPU's on the same scales; the forward timed
 # at INT8_TIMED_BATCHES; int8 tensor-core peak of the data sheet (dense)
-INT8_STEPS = 3
+INT8_STEPS = 2   # cut from 3 for [16b]
 INT8_FLOOR_DB = 20.0
 INT8_TIMED_BATCHES = (4,)   # batch 8 cut for [37]
 INT8_OPS_PER_S = 1979e12
@@ -1313,6 +1325,115 @@ def train_step_parity(torch, card: str, cfg: dict, seed: int, gen, records, laun
     return model, scheduler, step, cpu_model
 
 
+def vector_distance(got, ref) -> float:
+    """||got - ref|| / ||ref|| of two lists of f32 tensors, each taken as one
+    vector (each tensor's sum of squares in f32, their total in Python)."""
+    num = sum(float((g - r).square().sum()) for g, r in zip(got, ref))
+    return math.sqrt(num / sum(float(r.square().sum()) for r in ref))
+
+
+def flow_bf16_parity(torch, card: str, cfg: dict, seed: int, cpu_model, records):
+    """[16b]: the bf16 flow-matching train step of ``cfg`` (the quality
+    recipe) through ``build_denoise_trainer``, every weight from ``seed``,
+    past the warm-up, at batch FLOW_BF16_BATCH: on the card and on the CPU
+    plain path (``cpu_model``, the same UNet, weights loaded), each against
+    the same step in f32 on the CPU, with the same noise and t. Both bf16
+    steps round; neither is the other's yardstick, so each is measured
+    against f32, by its loss, its whole gradient and its whole update, and
+    the card's distance may be at most FLOW_BF16_RATIO times the CPU's. The
+    same card step on a flow target planted without its (1 - t) factor must
+    fail that check. Returns the card's model, scheduler and step."""
+    from fmdm_tpu_torch.train.common import make_adamw, make_denoise_train_step
+    from fmdm_tpu_torch.train.denoise_lib import build_denoise_trainer
+
+    training = cfg["training"]
+    warmup = int(training["lr_warmup_steps"])
+    model, scheduler, step = build_denoise_trainer(
+        cfg, variant="flow_matching", num_samples=int(training["train_batch_size"]),
+        device="cuda")
+    if step.compute_dtype != torch.bfloat16:
+        raise AssertionError(f"the recipe's step computes in {step.compute_dtype}")
+    random_weights(torch, model, torch.Generator().manual_seed(seed))
+    start = {name: p.detach().cpu().clone() for name, p in model.named_parameters()}
+    optimizer, _ = make_adamw(cpu_model.parameters(), float(training["learning_rate"]),
+                              float(training["weight_decay"]), warmup, 1)
+    cpu_step = make_denoise_train_step(
+        cpu_model, scheduler, optimizer, step.lr_schedule, variant="flow_matching",
+        conditioning_mode=step.conditioning_mode, latent_norm=step.latent_norm,
+        compute_dtype=torch.bfloat16, device="cpu")
+    gen = torch.Generator().manual_seed(seed + 16)   # the later phases' draws stay as they were
+    batch = FLOW_BF16_BATCH
+    data = train_batch(torch, gen, batch, "cpu")
+    noise = torch.randn((batch, 1, 256, 256), generator=gen)
+    t = torch.rand((batch,), generator=gen)
+
+    def planted_chunk_loss(x0, cond, valid, noise, t):
+        """``DenoiseTrainStep.chunk_loss`` of a concatenated flow step, with
+        the noisy input planted without its (1 - t) factor."""
+        tb = t.reshape((-1,) + (1,) * (x0.dim() - 1))
+        noisy = x0 + tb * noise
+        model_t = (t * (step.scheduler.num_train_timesteps - 1)).to(torch.int32)
+        model_input = torch.cat([noisy, cond], dim=1).to(step.compute_dtype)
+        pred = step.model(model_input, model_t).float()
+        per_sample = torch.square(pred - (noise - x0)).mean(dim=tuple(range(1, x0.dim())))
+        loss_sum = (per_sample * valid).sum()
+        count = valid.sum()
+        return loss_sum / torch.clamp(count, min=1.0), loss_sum, count
+
+    def run(what, trainer, dtype, planted=False):
+        """One step from ``start`` in ``dtype``: (loss, gradients, update)."""
+        module, device = trainer.model, trainer.device
+        module.load_state_dict(start, strict=False)
+        trainer.optimizer.state.clear()
+        trainer.compute_dtype, trainer.global_step = dtype, warmup
+        if planted:
+            trainer.chunk_loss = planted_chunk_loss
+        reset_counts(records)
+        begin = time.perf_counter()
+        try:
+            loss_sum, count = trainer.step({k: v.to(device) for k, v in data.items()},
+                                           noise=noise.to(device), t=t.to(device))
+            loss = float(loss_sum) / float(count)
+        finally:
+            trainer.__dict__.pop("chunk_loss", None)
+        secs = time.perf_counter() - begin
+        if device.type == "cuda":
+            expect_counts(f"[16b] {what}", read_counts(records), DENOISE_LAUNCHES)
+        grads = [p.grad.detach().cpu() for p in module.parameters()]
+        update = [p.detach().cpu() - start[name] for name, p in module.named_parameters()]
+        return {"loss": loss, "grads": grads, "update": update, "seconds": secs}
+
+    lr = step.lr_schedule(warmup)
+    runs = {"card bf16": run("card bf16", step, torch.bfloat16),
+            "CPU bf16": run("CPU bf16", cpu_step, torch.bfloat16),
+            "CPU f32": run("CPU f32", cpu_step, torch.float32),
+            "card bf16, planted fault": run("planted", step, torch.bfloat16, planted=True)}
+    ref = runs["CPU f32"]
+    dist = {what: {"loss": abs(r["loss"] - ref["loss"]) / abs(ref["loss"]),
+                   "gradient": vector_distance(r["grads"], ref["grads"]),
+                   "update": vector_distance(r["update"], ref["update"])}
+            for what, r in runs.items() if what != "CPU f32"}
+
+    def holds(d):
+        return all(math.isfinite(d[k]) and d[k] <= FLOW_BF16_RATIO * dist["CPU bf16"][k] for k in d)
+
+    log(f"  t = {[round(float(v), 4) for v in t]}, rate {lr:g}; mean loss: "
+        + ", ".join(f"{what} {r['loss']:.6f} ({r['seconds']:.2f} s)" for what, r in runs.items()))
+    for what, d in dist.items():
+        log(f"  {what} vs CPU f32: loss {d['loss']:.3e}, gradient {d['gradient']:.3e}, update "
+            f"{d['update']:.3e} (||x - f32|| / ||f32||); within {FLOW_BF16_RATIO:g}x the CPU's: "
+            f"{holds(d)} [{card}]")
+    log(f"  launches per card step {DENOISE_LAUNCHES}")
+    if not holds(dist["CPU bf16"]):
+        raise AssertionError(f"[16b] the CPU's bf16 step is not finite: {dist['CPU bf16']}")
+    if not holds(dist["card bf16"]):
+        raise AssertionError(f"[16b] the card's bf16 flow step is farther from f32 than "
+                             f"{FLOW_BF16_RATIO:g}x the CPU's: {dist}")
+    if holds(dist["card bf16, planted fault"]):
+        raise AssertionError(f"[16b] the check passed a planted flow-target fault: {dist}")
+    return model, scheduler, step
+
+
 def timed_train_steps(torch, card: str, step, data: dict, noise_gen, records, launches: dict,
                       what: str) -> dict:
     """TRAIN_STEPS timed train steps after a warm-up: ms per step, images/s,
@@ -1343,7 +1464,6 @@ def phase_denoise(torch, card: str, seed: int, gen, records):
     returns the launch counts of the timed train steps."""
     from fmdm_tpu_torch.sample.engine import SamplingEngine
     from fmdm_tpu_torch.schedulers import build_scheduler
-    from fmdm_tpu_torch.train.denoise_lib import build_denoise_trainer
 
     log("[16] flagship denoise train step (DDPM, AdamW at the cosine-warmup rate), f32, TF32 off: "
         "batch 1 card vs CPU plain path, same noise and t")
@@ -1354,15 +1474,22 @@ def phase_denoise(torch, card: str, seed: int, gen, records):
     model, scheduler, step, cpu_model = train_step_parity(torch, card, cfg, seed, gen, records,
                                                           DENOISE_LAUNCHES)
 
+    log(f"[16b] the quality recipe's flow-matching train step in bf16 (AdamW past the warm-up): "
+        f"batch {FLOW_BF16_BATCH}, card bf16 and CPU bf16 each against the CPU f32 step, same "
+        f"noise and t; the same card step on a planted flow-target fault")
+    flow_cfg = json.loads(FLOW_CONFIG.read_text())
+    # flagship_quality_sweep.write_config's recipe trains the flow flagship in bf16
+    flow_cfg["training"]["mixed_precision"] = "bf16"
+    _, flow_sched, flow_step = flow_bf16_parity(torch, card, flow_cfg, seed, cpu_model, records)
+
     log(f"[17] flagship denoise train step, {TRAIN_STEPS} timed steps at the config's batch "
         f"{batch}, f32, TF32 off; one flow-matching step")
     data = train_batch(torch, gen, batch, "cuda")
     noise_gen = torch.Generator("cuda").manual_seed(seed)
     train_counts = timed_train_steps(torch, card, step, data, noise_gen, records,
                                      DENOISE_LAUNCHES, "flagship")
-    flow_cfg = json.loads(FLOW_CONFIG.read_text())
-    _, flow_sched, flow_step = build_denoise_trainer(flow_cfg, variant="flow_matching",
-                                                     num_samples=batch, device="cuda")
+    # [16b]'s trainer in the flow config's own f32 (mixed_precision "no")
+    flow_step.compute_dtype = torch.float32
     flow_step.global_step = warmup
     reset_counts(records)
     flow_loss, _ = flow_step.step(data, generator=noise_gen)
@@ -4694,11 +4821,12 @@ def main() -> int:
         beta_start=0.0001, beta_end=0.02)
     timesteps = scheduler.set_timesteps(NUM_STEPS)
 
-    log("[6] the sampling loop: first 3 DPM++ steps, f32, batch 1, card vs CPU plain path")
+    # 2 steps (3 until [16b]): the second is DPM++'s second-order update
+    log("[6] the sampling loop: first 2 DPM++ steps, f32, batch 1, card vs CPU plain path")
     shape = (1, 1, 256, 256)
     init = torch.randn(shape, generator=gen)
     cond = torch.full(shape, 0.5)
-    short = [SamplingEngine(m, scheduler, timesteps[:3], conditioning_mode="concatenate",
+    short = [SamplingEngine(m, scheduler, timesteps[:2], conditioning_mode="concatenate",
                             device=d)(shape, conditioning_batch=cond, init_sample=init).cpu()
              for m, d in ((model, "cuda"), (cpu_model, "cpu"))]
     rel = max_err(*short) / float(short[1].abs().max())
