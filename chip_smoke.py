@@ -127,14 +127,14 @@ Phases, each printing one or more lines:
 24. the compvis config's denoise train step through
     ``build_denoise_trainer`` at batch 1, card vs CPU (loss, every gradient,
     the FiLM projections' named, the update); 2 timed steps at its batch 8;
-    its 50-step DPM++ sample in bf16 at each ``--batches`` (steps/s, peak,
-    launches);
+    its 50-step DPM++ sample in bf16 at the first ``--batches`` (steps/s,
+    peak, launches);
 25. DeepCache on the flagship: the splice at depths 1 and 3 against the full
     forward (f32, batch 1), bitwise, and the shallow forward's launches;
     interval 1 against the uncached engine over 5 bf16 steps, bitwise; 2
     steps under '2:1' in f32 at batch 1, card vs CPU; the 50-step DPM++ bf16
-    sample at each ``--batches`` exactly and under '3:1:adaptive' and
-    '3:1:uniform', and at the first also under '5:1:adaptive': steps/s,
+    sample at the first ``--batches`` exactly and under '3:1:adaptive',
+    '3:1:uniform' and '5:1:adaptive': steps/s,
     launches per sample against the refresh mask (K1 64 per full and 10 per
     shallow step, K2 6 per full step), PSNR against the exact sample from
     the same noise;
@@ -144,6 +144,25 @@ Phases, each printing one or more lines:
     and per-image metrics equal to the exact run); on [20]'s flagship run dir
     ``evaluate --deep_cache 3:1:adaptive`` and ``--deep_cache auto:0.5``
     (the resolved setting from the log);
+26b. the 3D volume path of BASELINE configs[4] at ``scripts/bench_3d.py``'s
+    widths (EfficientUNetND in 3-D, 64 channels x (1, 2, 4), two res blocks
+    per level, FiLM, linear attention at ds 4, the middle block's softmax
+    self-attention at 2048 tokens, 8 heads x 32; 8x128² volumes,
+    concatenate conditioning; 42,017,537 parameters, every weight from
+    ``--seed``): the forward (batch 1, f32, TF32 off) card vs CPU with its
+    launches (K1 two per ResBlock, K3 once, no K2) and the middle
+    attention's route ("flash", no call on ``sdpa_xla``); the first 2
+    DPM++ steps through ``SamplingEngine``, card vs CPU; a DDPM train step
+    at batch 1 card vs CPU as [16] holds it (K4 and K5 once each); the same
+    card step under ``remat`` (K1 and K3 twice), its gradients within 1e-5
+    of each tensor's largest of the step without it; K1 at the path's
+    largest group (192 channels in 32 groups at 8x128²) with and without
+    FiLM in f32 and bf16, each twice bitwise equal, its plan and ms against
+    its bound; K3, K4 and K5 at the middle attention's bf16 shape in the
+    timed step, twice bitwise equal, against their plain versions; then in
+    bf16 2 timed train steps at batch 4 (ms, volumes/s, peak memory) and the
+    50-step DPM++ sample at batch 8 (denoise steps/s, seconds per volume,
+    peak memory);
 27. the VQ-VAE at full width, f32, TF32 off: ``LDCT_vqvae.json`` (EMA
     codebook) and ``LDCT_vqvae_original.json`` (classic), each a reconstruct
     at batch 1 card against the CPU (at least 99.9% of the codes equal, a
@@ -276,6 +295,7 @@ device.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import copy
 import csv
@@ -404,15 +424,37 @@ EFFICIENT_CONFIGS = {
 EFFICIENT_CONFIG = next(iter(EFFICIENT_CONFIGS))
 EFFICIENT_LAUNCHES = {"K1": 64, "K2": 1}
 EFFICIENT_FILM = 32   # of the 64 K1 calls
+# [26b]: the 3D volume path of BASELINE configs[4] at scripts/bench_3d.py's
+# widths (its UNET_3D and SHAPE_SP, copied): windows of 8 slices of 128²
+# as one-channel volumes, concatenate conditioning. Its middle block's
+# softmax self-attention runs at (2, 32, 32) = 2048 tokens, 8 heads x 32,
+# on K3 (K4 and K5 in training); its linear attentions at ds 4 and the
+# attentions' own GroupNorms launch no kernel; K1 runs every ResBlock's two
+# GroupNorm+SiLU (norm2 with FiLM)
+UNET_3D = {"unet_impl": "efficient_nd", "spatial_dims": 3, "in_channels": 1, "out_channels": 1,
+           "model_channels": 64, "num_res_blocks": 2, "channel_mult": [1, 2, 4],
+           "attention_resolutions": [4], "num_heads": 8, "dim_head": 32,
+           "use_scale_shift_norm": True}
+SHAPE_SP = (8, 128, 128)
+VOLUME_PARAMS = 42_017_537
+# scripts/bench_3d.py's training: DDPM over 1000 steps, AdamW at 1e-4 with
+# 100 warm-up steps and no weight decay, bf16 at batch 4; its sample: 50
+# DPM++ steps in bf16 at batch 8
+VOLUME_TRAINING = {"train_batch_size": 4, "learning_rate": 1e-4, "weight_decay": 0.0,
+                   "lr_warmup_steps": 100, "num_epochs": 1, "conditioning": "concatenate",
+                   "channels": 1, "scheduler": "ddpm", "num_train_timesteps": 1000}
+VOLUME_SAMPLE_BATCH = 8
+VOLUME_DPM_STEPS = 2     # card vs CPU: the second is DPM++'s second-order update
+VOLUME_REMAT_TOL = 1e-5  # remat against not, per tensor over its largest gradient
 # [25]: DeepCache on the flagship. A shallow forward at depth D runs
 # conv_in, down blocks 0..D-1 (2 ResBlocks each) and up blocks 6-D..5 (3
 # ResBlocks each, no attention): K1 10 at depth 1, 30 at depth 3, no K2
 SHALLOW_K1 = {1: 10, 3: 30}
 DEEP_CACHE_STEPS = 5          # interval 1 vs the uncached engine, bf16
 DEEP_CACHE_PARITY_STEPS = 2   # '2:1' (a full step, then a shallow one), card vs CPU, f32 (3 until [16b])
-# the cached samples' settings at the first --batches; the later batches take
-# the first one only (a cut of depth for the script's time: their launches
-# are checked at the first)
+# the cached samples' settings, at the first --batches only (a cut of depth
+# for the script's time, which the 3D phase [26b] needed; [7] samples the
+# later batches exactly)
 DEEP_CACHE_SETTINGS = ((3, 1, "adaptive"), (3, 1, "uniform"), (5, 1, "adaptive"))
 # [27]-[30]: the rest of the VAE family. The VQ-VAE configs have the
 # KL-VAE's stages and ResBlocks and no attention: K1 50 per reconstruct and
@@ -594,16 +636,18 @@ TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2.0 ** -7, 2e-3)}
 
 def k1_inputs(torch, gen, shape, dtype, w_dtype=None, film=False, offset=0):
     """x (``offset`` elements into its buffer, so a non-zero offset leaves it
-    unaligned), weight, bias, and FiLM's scale and shift or None, on the card."""
-    import math
-
+    unaligned), weight, bias, and FiLM's scale and shift or None, on the
+    card, drawn from ``gen`` on its device."""
     n, c = shape[:2]
-    flat = torch.randn(offset + math.prod(shape), generator=gen).to("cuda", dtype)
-    x = flat[offset:].view(shape)
-    w = (1 + 0.1 * torch.randn(c, generator=gen)).to("cuda", w_dtype or dtype)
-    b = (0.1 * torch.randn(c, generator=gen)).to("cuda", w_dtype or dtype)
-    s = (0.2 * torch.randn(n, c, generator=gen)).to("cuda", dtype) if film else None
-    t = (0.2 * torch.randn(n, c, generator=gen)).to("cuda", dtype) if film else None
+
+    def randn(*size):
+        return torch.randn(size, generator=gen, device=gen.device)
+
+    x = randn(offset + math.prod(shape)).to("cuda", dtype)[offset:].view(shape)
+    w = (1 + 0.1 * randn(c)).to("cuda", w_dtype or dtype)
+    b = (0.1 * randn(c)).to("cuda", w_dtype or dtype)
+    s = (0.2 * randn(n, c)).to("cuda", dtype) if film else None
+    t = (0.2 * randn(n, c)).to("cuda", dtype) if film else None
     return x, w, b, s, t
 
 
@@ -885,9 +929,9 @@ BACKWARD_CASES = K3_CASES + (((1, 2, 100, 18), 50, "float32"), ((1, 2, 100, 18),
 
 
 def flash_inputs(torch, gen, q_shape, tk, dtype):
-    """q, k, v, dout on the card."""
+    """q, k, v, dout on the card, drawn from ``gen`` on its device."""
     kv_shape = q_shape[:-2] + (tk, q_shape[-1])
-    return [torch.randn(s, generator=gen).to("cuda", getattr(torch, dtype))
+    return [torch.randn(s, generator=gen, device=gen.device).to("cuda", getattr(torch, dtype))
             for s in (q_shape, kv_shape, kv_shape, q_shape)]
 
 
@@ -1257,21 +1301,24 @@ def grad_errors(model, cpu_model):
     return worst
 
 
-def train_batch(torch, gen, batch: int, device: str) -> dict:
-    """A synthetic batch of 256² slices in [-1, 1] (targets and conditioning)."""
-    shape = (batch, 1, 256, 256)
+def train_batch(torch, gen, batch: int, device: str, spatial=(256, 256)) -> dict:
+    """A synthetic batch of 256² slices (or ``spatial`` volumes) in [-1, 1]
+    (targets and conditioning)."""
+    shape = (batch, 1) + tuple(spatial)
     return {"target": (torch.rand(shape, generator=gen) * 2 - 1).to(device),
             "image": (torch.rand(shape, generator=gen) * 2 - 1).to(device),
             "valid": torch.ones(batch, device=device)}
 
 
-def train_step_parity(torch, card: str, cfg: dict, seed: int, gen, records, launches: dict):
+def train_step_parity(torch, card: str, cfg: dict, seed: int, gen, records, launches: dict,
+                      spatial=(256, 256)):
     """One denoise train step (DDPM, AdamW at the cosine-warmup rate, past the
     warmup) through ``build_denoise_trainer``, f32, TF32 off, every weight
-    from ``seed``, at batch 1 on the card against the CPU plain path with the
-    same noise and t: the loss, every gradient, the card's update against
-    AdamW replayed on the CPU, the launches. Returns the card's model,
-    scheduler and step, and the CPU model (gradients kept)."""
+    from ``seed``, at batch 1 of ``spatial`` samples on the card against the
+    CPU plain path with the same noise and t: the loss, every gradient, the
+    card's update against AdamW replayed on the CPU, the launches. Returns
+    the card's model, scheduler and step, the CPU model (gradients kept) and
+    the step's (batch, noise, t) on the CPU."""
     from fmdm_tpu_torch.train.denoise_lib import build_denoise_trainer
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1290,8 +1337,8 @@ def train_step_parity(torch, card: str, cfg: dict, seed: int, gen, records, laun
     step.global_step = cpu_step.global_step = warmup
     lr = step.lr_schedule(warmup)
     n_params = sum(p.numel() for p in model.parameters())
-    data = train_batch(torch, gen, 1, "cpu")
-    noise = torch.randn((1, 1, 256, 256), generator=gen)
+    data = train_batch(torch, gen, 1, "cpu", spatial)
+    noise = torch.randn((1, 1) + tuple(spatial), generator=gen)
     t = torch.randint(0, scheduler.num_train_timesteps, (1,), generator=gen)
     before = [p.detach().cpu().clone() for p in model.parameters()]
     reset_counts(records)
@@ -1322,7 +1369,7 @@ def train_step_parity(torch, card: str, cfg: dict, seed: int, gen, records, laun
     if not (loss_rel <= REL_TOL and worst_grad <= REL_TOL and update_err <= 1e-6 and moved > 0):
         raise AssertionError(f"card train step disagrees with the CPU plain path (loss {loss_rel}, "
                              f"gradient {worst_grad} at {worst_name}, update {update_err})")
-    return model, scheduler, step, cpu_model
+    return model, scheduler, step, cpu_model, (data, noise, t)
 
 
 def vector_distance(got, ref) -> float:
@@ -1342,7 +1389,9 @@ def flow_bf16_parity(torch, card: str, cfg: dict, seed: int, cpu_model, records)
     against f32, by its loss, its whole gradient and its whole update, and
     the card's distance may be at most FLOW_BF16_RATIO times the CPU's. The
     same card step on a flow target planted without its (1 - t) factor must
-    fail that check. Returns the card's model, scheduler and step."""
+    fail that check. The CPU's two steps run side by side in two threads,
+    the f32 one on a copy of ``cpu_model``. Returns the card's model,
+    scheduler and step."""
     from fmdm_tpu_torch.train.common import make_adamw, make_denoise_train_step
     from fmdm_tpu_torch.train.denoise_lib import build_denoise_trainer
 
@@ -1355,12 +1404,15 @@ def flow_bf16_parity(torch, card: str, cfg: dict, seed: int, cpu_model, records)
         raise AssertionError(f"the recipe's step computes in {step.compute_dtype}")
     random_weights(torch, model, torch.Generator().manual_seed(seed))
     start = {name: p.detach().cpu().clone() for name, p in model.named_parameters()}
-    optimizer, _ = make_adamw(cpu_model.parameters(), float(training["learning_rate"]),
-                              float(training["weight_decay"]), warmup, 1)
-    cpu_step = make_denoise_train_step(
-        cpu_model, scheduler, optimizer, step.lr_schedule, variant="flow_matching",
-        conditioning_mode=step.conditioning_mode, latent_norm=step.latent_norm,
-        compute_dtype=torch.bfloat16, device="cpu")
+    cpu_steps = {}
+    for what, dtype, module in (("CPU bf16", torch.bfloat16, cpu_model),
+                                ("CPU f32", torch.float32, copy.deepcopy(cpu_model))):
+        optimizer, _ = make_adamw(module.parameters(), float(training["learning_rate"]),
+                                  float(training["weight_decay"]), warmup, 1)
+        cpu_steps[what] = (dtype, make_denoise_train_step(
+            module, scheduler, optimizer, step.lr_schedule, variant="flow_matching",
+            conditioning_mode=step.conditioning_mode, latent_norm=step.latent_norm,
+            compute_dtype=dtype, device="cpu"))
     gen = torch.Generator().manual_seed(seed + 16)   # the later phases' draws stay as they were
     batch = FLOW_BF16_BATCH
     data = train_batch(torch, gen, batch, "cpu")
@@ -1388,7 +1440,8 @@ def flow_bf16_parity(torch, card: str, cfg: dict, seed: int, cpu_model, records)
         trainer.compute_dtype, trainer.global_step = dtype, warmup
         if planted:
             trainer.chunk_loss = planted_chunk_loss
-        reset_counts(records)
+        if device.type == "cuda":
+            reset_counts(records)
         begin = time.perf_counter()
         try:
             loss_sum, count = trainer.step({k: v.to(device) for k, v in data.items()},
@@ -1404,10 +1457,16 @@ def flow_bf16_parity(torch, card: str, cfg: dict, seed: int, cpu_model, records)
         return {"loss": loss, "grads": grads, "update": update, "seconds": secs}
 
     lr = step.lr_schedule(warmup)
-    runs = {"card bf16": run("card bf16", step, torch.bfloat16),
-            "CPU bf16": run("CPU bf16", cpu_step, torch.bfloat16),
-            "CPU f32": run("CPU f32", cpu_step, torch.float32),
-            "card bf16, planted fault": run("planted", step, torch.bfloat16, planted=True)}
+    card_runs = {"card bf16": run("card bf16", step, torch.bfloat16),
+                 "card bf16, planted fault": run("planted", step, torch.bfloat16, planted=True)}
+    begin = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        cpu_runs = {what: pool.submit(run, what, trainer, dtype)
+                    for what, (dtype, trainer) in cpu_steps.items()}
+        cpu_runs = {what: f.result() for what, f in cpu_runs.items()}
+    cpu_s = time.perf_counter() - begin
+    runs = {"card bf16": card_runs["card bf16"], **cpu_runs,
+            "card bf16, planted fault": card_runs["card bf16, planted fault"]}
     ref = runs["CPU f32"]
     dist = {what: {"loss": abs(r["loss"] - ref["loss"]) / abs(ref["loss"]),
                    "gradient": vector_distance(r["grads"], ref["grads"]),
@@ -1418,7 +1477,8 @@ def flow_bf16_parity(torch, card: str, cfg: dict, seed: int, cpu_model, records)
         return all(math.isfinite(d[k]) and d[k] <= FLOW_BF16_RATIO * dist["CPU bf16"][k] for k in d)
 
     log(f"  t = {[round(float(v), 4) for v in t]}, rate {lr:g}; mean loss: "
-        + ", ".join(f"{what} {r['loss']:.6f} ({r['seconds']:.2f} s)" for what, r in runs.items()))
+        + ", ".join(f"{what} {r['loss']:.6f} ({r['seconds']:.2f} s)" for what, r in runs.items())
+        + f"; the CPU's two steps side by side in {cpu_s:.2f} s")
     for what, d in dist.items():
         log(f"  {what} vs CPU f32: loss {d['loss']:.3e}, gradient {d['gradient']:.3e}, update "
             f"{d['update']:.3e} (||x - f32|| / ||f32||); within {FLOW_BF16_RATIO:g}x the CPU's: "
@@ -1471,8 +1531,8 @@ def phase_denoise(torch, card: str, seed: int, gen, records):
     training = cfg["training"]
     batch = int(training["train_batch_size"])
     warmup = int(training["lr_warmup_steps"])
-    model, scheduler, step, cpu_model = train_step_parity(torch, card, cfg, seed, gen, records,
-                                                          DENOISE_LAUNCHES)
+    model, scheduler, step, cpu_model, _ = train_step_parity(torch, card, cfg, seed, gen, records,
+                                                             DENOISE_LAUNCHES)
 
     log(f"[16b] the quality recipe's flow-matching train step in bf16 (AdamW past the warm-up): "
         f"batch {FLOW_BF16_BATCH}, card bf16 and CPU bf16 each against the CPU f32 step, same "
@@ -2288,12 +2348,12 @@ def phase_train(torch, card: str, seed: int, records, work: Path) -> dict:
     return totals
 
 
-def sample_once(torch, engine, batch: int, seed: int, records):
-    """One sample of ``engine``'s steps at (batch, 1, 256, 256) from a CUDA
-    generator seeded ``seed``, the concatenated conditioning 0.5 everywhere:
-    the output, the seconds of the step loop, the launches and the peak
-    memory."""
-    shape = (batch, 1, 256, 256)
+def sample_once(torch, engine, batch: int, seed: int, records, spatial=(256, 256)):
+    """One sample of ``engine``'s steps at (batch, 1, 256, 256) (or
+    ``spatial`` volumes) from a CUDA generator seeded ``seed``, the
+    concatenated conditioning 0.5 everywhere: the output, the seconds of the
+    step loop, the launches and the peak memory."""
+    shape = (batch, 1) + tuple(spatial)
     cond = torch.full(shape, 0.5, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2364,11 +2424,12 @@ def phase_efficient_forward(torch, card: str, seed: int, gen, records) -> None:
         del model, cpu_model
 
 
-def phase_efficient_train(torch, card: str, seed: int, gen, records, batches, scheduler,
-                          timesteps) -> dict:
+def phase_efficient_train(torch, card: str, seed: int, gen, records, sample_batch: int,
+                          scheduler, timesteps) -> dict:
     """[24]: the compvis config's train step (card vs CPU at batch 1, then
-    timed at its batch) and its 50-step bf16 sample; returns the launches of
-    the timed train steps and of the first batch's sample."""
+    timed at its batch) and its 50-step bf16 sample at ``sample_batch`` (the
+    first --batches; the later ones cut for [26b]); returns the launches of
+    the timed train steps and of the sample."""
     from fmdm_tpu_torch.sample.engine import SamplingEngine
 
     cfg = json.loads(EFFICIENT_CONFIG.read_text())
@@ -2376,8 +2437,8 @@ def phase_efficient_train(torch, card: str, seed: int, gen, records, batches, sc
     log(f"[24] {EFFICIENT_CONFIG.name}: denoise train step at batch 1, card vs CPU plain path; "
         f"{TRAIN_STEPS} timed steps at batch {batch}, f32, TF32 off; the {NUM_STEPS}-step DPM++ "
         f"sample in bf16")
-    model, _, step, cpu_model = train_step_parity(torch, card, cfg, seed, gen, records,
-                                                  EFFICIENT_LAUNCHES)
+    model, _, step, cpu_model, _ = train_step_parity(torch, card, cfg, seed, gen, records,
+                                                     EFFICIENT_LAUNCHES)
     cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()}
     film = [(max_err(p.grad.cpu(), cpu_grads[n]) / float(cpu_grads[n].abs().max()), n)
             for n, p in model.named_parameters() if "emb_layers" in n]
@@ -2396,24 +2457,24 @@ def phase_efficient_train(torch, card: str, seed: int, gen, records, batches, sc
     model.eval()
     engine = SamplingEngine(model, scheduler, timesteps, conditioning_mode="concatenate",
                             compute_dtype=torch.bfloat16, device="cuda")
-    sample_counts = None
-    for b in batches:
-        sample_once(torch, engine, b, seed + b, records)  # warm-up
-        out, secs, counts, peak = sample_once(torch, engine, b, seed + b, records)
-        expect_counts(f"compvis sample batch {b}", counts, EFFICIENT_LAUNCHES, NUM_STEPS)
-        sample_counts = sample_counts or counts
-        log(f"  sample batch {b}: {secs:.4f} s, {b * NUM_STEPS / secs:.2f} denoise steps/s, peak "
-            f"{peak / 2**30:.2f} GiB, launches K1 {counts['K1']} K2 {counts['K2']}, output mean "
-            f"{float(out.mean()):.4f} std {float(out.std()):.4f} [{card}]")
+    b = sample_batch
+    sample_once(torch, engine, b, seed + b, records)  # warm-up
+    out, secs, sample_counts, peak = sample_once(torch, engine, b, seed + b, records)
+    expect_counts(f"compvis sample batch {b}", sample_counts, EFFICIENT_LAUNCHES, NUM_STEPS)
+    log(f"  sample batch {b}: {secs:.4f} s, {b * NUM_STEPS / secs:.2f} denoise steps/s, peak "
+        f"{peak / 2**30:.2f} GiB, launches K1 {sample_counts['K1']} K2 {sample_counts['K2']}, "
+        f"output mean {float(out.mean()):.4f} std {float(out.std()):.4f} [{card}]")
     del engine, model
     return {"train": train_counts, "sample": sample_counts}
 
 
 def phase_deep_cache(torch, card: str, seed: int, gen, records, model, scheduler, timesteps,
-                     batches, exact_rates: dict) -> dict:
+                     batch: int, exact_rate: float) -> dict:
     """[25]: DeepCache on the flagship ``model`` (f32 on the card): the
-    splice, interval 1, card vs CPU, and cached 50-step samples; returns the
-    launches of the first batch's '3:1:adaptive' sample."""
+    splice, interval 1, card vs CPU, and cached 50-step samples at ``batch``
+    (the first --batches; the later ones cut for [26b], [7] sampling them
+    exactly), ``exact_rate`` being [7]'s exact denoise steps/s there;
+    returns the launches of the '3:1:adaptive' sample."""
     from fmdm_tpu_torch.sample.engine import SamplingEngine, deep_cache_refresh_mask
     from fmdm_tpu_torch.utils.evaluation import psnr_from_mse
 
@@ -2444,7 +2505,6 @@ def phase_deep_cache(torch, card: str, seed: int, gen, records, model, scheduler
         return SamplingEngine(m, scheduler, steps, conditioning_mode="concatenate",
                               compute_dtype=dtype, deep_cache=deep_cache, device=device)
 
-    batch = batches[0]
     shape = (batch, 1, 256, 256)
     init = torch.randn(shape, generator=gen).cuda()
     cond = torch.full(shape, 0.5, device="cuda")
@@ -2471,29 +2531,27 @@ def phase_deep_cache(torch, card: str, seed: int, gen, records, model, scheduler
         raise AssertionError(f"the cached steps disagree with the CPU plain path ({rel})")
     del cpu_model
 
+    exact, exact_s, _, _ = sample_once(torch, engine(timesteps, torch.bfloat16), batch,
+                                       seed + batch, records)
+    log(f"  batch {batch}: exact {batch * NUM_STEPS / exact_s:.2f} denoise steps/s here, "
+        f"{exact_rate:.2f} in [7] [{card}]")
     main_counts = None
-    for b in batches:
-        exact, exact_s, _, _ = sample_once(torch, engine(timesteps, torch.bfloat16), b, seed + b,
-                                           records)
-        log(f"  batch {b}: exact {b * NUM_STEPS / exact_s:.2f} denoise steps/s here, "
-            f"{exact_rates[b]:.2f} in [7] [{card}]")
-        for setting in DEEP_CACHE_SETTINGS if b == batches[0] else DEEP_CACHE_SETTINGS[:1]:
-            mask = deep_cache_refresh_mask(len(timesteps), setting[0], setting[2])
-            full = int(mask.sum())
-            shallow = len(mask) - full
-            out, secs, counts, peak = sample_once(torch, engine(timesteps, torch.bfloat16, setting),
-                                                  b, seed + b, records)
-            want = {"K1": K1_PER_FORWARD * full + SHALLOW_K1[1] * shallow,
-                    "K2": K2_PER_FORWARD * full}
-            expect_counts(f"'{':'.join(map(str, setting))}' sample batch {b}", counts, want)
-            mse = float(((image_range(out) - image_range(exact)) ** 2).mean())
-            log(f"  batch {b} '{':'.join(map(str, setting))}': {full} full + {shallow} shallow "
-                f"steps in {secs:.4f} s, {b * NUM_STEPS / secs:.2f} denoise steps/s "
-                f"({exact_s / secs:.3f}x the exact sample), peak {peak / 2**30:.2f} GiB, launches "
-                f"K1 {counts['K1']} K2 {counts['K2']}; PSNR against the exact sample from the same "
-                f"noise {psnr_from_mse(mse):.2f} dB [{card}]")
-            if main_counts is None:
-                main_counts = counts
+    for setting in DEEP_CACHE_SETTINGS:
+        mask = deep_cache_refresh_mask(len(timesteps), setting[0], setting[2])
+        full = int(mask.sum())
+        shallow = len(mask) - full
+        out, secs, counts, peak = sample_once(torch, engine(timesteps, torch.bfloat16, setting),
+                                              batch, seed + batch, records)
+        want = {"K1": K1_PER_FORWARD * full + SHALLOW_K1[1] * shallow,
+                "K2": K2_PER_FORWARD * full}
+        expect_counts(f"'{':'.join(map(str, setting))}' sample batch {batch}", counts, want)
+        mse = float(((image_range(out) - image_range(exact)) ** 2).mean())
+        log(f"  batch {batch} '{':'.join(map(str, setting))}': {full} full + {shallow} shallow "
+            f"steps in {secs:.4f} s, {batch * NUM_STEPS / secs:.2f} denoise steps/s "
+            f"({exact_s / secs:.3f}x the exact sample), peak {peak / 2**30:.2f} GiB, launches "
+            f"K1 {counts['K1']} K2 {counts['K2']}; PSNR against the exact sample from the same "
+            f"noise {psnr_from_mse(mse):.2f} dB [{card}]")
+        main_counts = main_counts or counts
     return main_counts
 
 
@@ -2540,6 +2598,227 @@ def phase_clis(card: str, work: Path) -> None:
     log(f"  compvis with --deep_cache 3 equals the exact run per image: {ignored == exact}")
     if ignored != exact:
         raise AssertionError("--deep_cache on EfficientUNet changed the result")
+
+
+@contextlib.contextmanager
+def recording_routes():
+    """Record ``kernel_route``'s answer for every CUDA ``sdpa`` call, and
+    the shape of every CUDA call that reaches ``sdpa_xla``."""
+    from fmdm_tpu_torch.ops import attention
+
+    routes, plain = [], []
+    route, xla = attention.kernel_route, attention.sdpa_xla
+
+    def record_route(q, k, v):
+        routes.append((tuple(q.shape), str(q.dtype)[6:], route(q, k, v)))
+        return routes[-1][2]
+
+    def record_xla(q, k, v, **kw):
+        if q.device.type == "cuda":
+            plain.append(tuple(q.shape))
+        return xla(q, k, v, **kw)
+
+    attention.kernel_route, attention.sdpa_xla = record_route, record_xla
+    try:
+        yield routes, plain
+    finally:
+        attention.kernel_route, attention.sdpa_xla = route, xla
+
+
+def volume_k1(torch, card: str, gen, calls) -> None:
+    """K1 at the 3D path's largest group (of the recorded calls: the up
+    path's first norm1, 192 channels in 32 groups at 8x128²) at batch 2,
+    with FiLM and without, f32 and bf16, each case twice and bitwise equal,
+    against its plain version; the plan this card takes; the kernel's ms
+    against its bytes bound."""
+    from fmdm_tpu_torch.ops.kernels.group_norm import (
+        K1, _device_plan, group_norm_act, group_norm_act_reference, vector_aligned)
+
+    shape, groups, eps, _, _ = max(calls, key=lambda c: math.prod(c[0]) // c[1])
+    group = math.prod(shape) // groups
+    log(f"  K1 at the path's largest group: {shape} in {groups} groups, {group} elements each")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for film in (True, False):
+            x, w, b, s, t = k1_inputs(torch, gen, (2,) + shape, dtype, film=film)
+            kw = dict(num_groups=groups, eps=eps, act=True, scale=s, shift=t)
+            before = dict(K1.variants)
+            got = group_norm_act(x, w, b, **kw)
+            again = group_norm_act(x, w, b, **kw)
+            torch.cuda.synchronize()
+            variant = next(k for k in K1.variants if K1.variants[k] != before[k])
+            if not torch.equal(got, again):
+                raise AssertionError(f"K1 {shape} {name}: two calls on the same inputs differ")
+            check_close(f"(2, {', '.join(map(str, shape))}) G={groups} {name} film={film} "
+                        f"[{variant.replace('_', ' ')}]", got, group_norm_act_reference(x, w, b, **kw),
+                        *TOL[name])
+        p = _device_plan(0, group, x.element_size(), vector_aligned(x, got), 2 * groups,
+                         dtype == torch.bfloat16, dtype == torch.bfloat16)
+        ms = time_ms(lambda: group_norm_act(x, w, b, **kw))
+        bound, bound_by, _ = k1_bound(x, w)
+        log(f"  {name}: {group * x.element_size() / 2**20:.2f} MiB per group, plan "
+            f"{'single pass on clusters' if p.single_pass else 'split'} of {p.ctas} CTAs, "
+            f"{p.chunk * x.element_size() / 1024:.0f} KiB each; kernel {ms:.4f} ms at batch 2, "
+            f"bound {bound:.4f} ms ({bound_by}) [{card}]")
+
+
+def volume_flash(torch, gen) -> None:
+    """K3, K4 and K5 at the 3D middle attention's bf16 shape in the timed
+    train step (batch 4, 8 heads, 2048 tokens, d = 32) against their plain
+    versions, each twice and bitwise equal."""
+    from fmdm_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_reference, flash_backward_dkv, flash_backward_dq,
+        flash_backward_reference, flash_forward)
+
+    tokens = math.prod(s // 4 for s in SHAPE_SP)
+    q_shape = (VOLUME_TRAINING["train_batch_size"], UNET_3D["num_heads"], tokens,
+               UNET_3D["dim_head"])
+    q, k, v, dout = flash_inputs(torch, gen, q_shape, tokens, "bfloat16")
+    scale = q_shape[-1] ** -0.5
+
+    def run():
+        out, lse = flash_forward(q, k, v, scale)
+        delta = (dout.float() * out.float()).sum(dim=-1, keepdim=True)
+        return (out, lse, *flash_backward_dkv(q, k, v, dout, lse, delta, scale),
+                flash_backward_dq(q, k, v, dout, lse, delta, scale))
+
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"K3-K5 {q_shape} bf16: two calls on the same inputs differ")
+    out, lse, dk, dv, dq = got
+    ref_out, ref_lse = flash_attention_reference(q, k, v, scale)
+    ref_dq, ref_dk, ref_dv = flash_backward_reference(q, k, v, out, lse, dout, scale)
+    what = f"q {q_shape} bfloat16, twice bitwise equal"
+    check_close(f"K3 {what} out", out, ref_out, *TOL["bfloat16"])
+    check_close(f"K3 {what} lse", lse, ref_lse, *TOL["float32"])
+    for label, got_t, ref in (("K4 dk", dk, ref_dk), ("K4 dv", dv, ref_dv), ("K5 dq", dq, ref_dq)):
+        check_close(f"{label} {what}", got_t, ref, *TOL["bfloat16"])
+
+
+def phase_volumes(torch, card: str, seed: int, records, scheduler, timesteps) -> dict:
+    """[26b]: the 3D volume path at scripts/bench_3d.py's widths (see
+    UNET_3D); returns the launches of the timed train steps and of the
+    sample."""
+    from fmdm_tpu_torch.models.factories import DiffusionUNetFactory
+    from fmdm_tpu_torch.nn.blocks import ResBlockND
+    from fmdm_tpu_torch.sample.engine import SamplingEngine
+
+    log(f"[26b] the 3D volume path (scripts/bench_3d.py's EfficientUNetND on {SHAPE_SP} volumes, "
+        f"concatenate): forward, {VOLUME_DPM_STEPS} DPM++ steps and a DDPM train step card vs CPU "
+        f"(f32, TF32 off, batch 1), the step under remat, K1 at its largest group, K3-K5 at its "
+        f"bf16 attention; bf16 train steps and a {NUM_STEPS}-step sample timed")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(seed + 26)   # the later phases' draws stay as they were
+    model = DiffusionUNetFactory().build(UNET_3D, conditioning="concatenate", channels=1,
+                                         device="cuda")
+    random_weights(torch, model, torch.Generator().manual_seed(seed))
+    model.eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    blocks = [m for m in model.modules() if isinstance(m, ResBlockND)]
+    forward_launches = {"K1": 2 * len(blocks), "K3": 1}
+    film = sum(m.use_scale_shift_norm for m in blocks)
+    if n_params != VOLUME_PARAMS:
+        raise AssertionError(f"the 3D EfficientUNet has {n_params} parameters")
+    cpu_model = copy.deepcopy(model).cpu()
+    x = torch.randn((1, model.in_channels) + SHAPE_SP, generator=gen)
+    t = torch.tensor([500])
+    with torch.no_grad():
+        model(x.cuda(), t.cuda())  # warm-up
+        torch.cuda.synchronize()
+        reset_counts(records)
+        with recording_k1() as calls, recording_routes() as (routes, plain):
+            start = time.perf_counter()
+            y = model(x.cuda(), t.cuda())
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - start
+        counts = read_counts(records)
+        start = time.perf_counter()
+        y_cpu = cpu_model(x, t)
+        cpu_s = time.perf_counter() - start
+    rel = rel_err(y.cpu(), y_cpu)
+    log(f"  {n_params} parameters, {len(blocks)} ResBlocks; output {tuple(y.shape)}; "
+        f"max|gpu-cpu|/max|cpu| = {rel:.3e} (tolerance {REL_TOL:g}); launches per forward "
+        f"{({k: v for k, v in counts.items() if v})}, {sum(c[4] for c in calls)} K1 calls with "
+        f"FiLM; sdpa routes {routes}, sdpa_xla calls {len(plain)}; forward {fwd_s * 1e3:.2f} ms "
+        f"on the card, {cpu_s:.2f} s on the CPU [{card}]")
+    expect_counts("the 3D forward", counts, forward_launches)
+    if [r[2] for r in routes] != ["flash"] or plain:
+        raise AssertionError(f"the 3D middle attention's routes {routes}, sdpa_xla calls {plain}")
+    if sum(c[4] for c in calls) != film:
+        raise AssertionError(f"{sum(c[4] for c in calls)} of {len(calls)} K1 calls with FiLM")
+    if not (torch.isfinite(y).all() and rel <= REL_TOL):
+        raise AssertionError(f"the 3D forward disagrees with the CPU plain path ({rel})")
+
+    shape = (1, 1) + SHAPE_SP
+    init = torch.randn(shape, generator=gen)
+    cond = torch.rand(shape, generator=gen) * 2 - 1
+    short = [SamplingEngine(m, scheduler, timesteps[:VOLUME_DPM_STEPS],
+                            conditioning_mode="concatenate", device=d)(
+        shape, conditioning_batch=cond, init_sample=init).cpu()
+        for m, d in ((model, "cuda"), (cpu_model, "cpu"))]
+    rel = rel_err(*short)
+    log(f"  {VOLUME_DPM_STEPS} DPM++ steps at {shape}: max|gpu-cpu|/max|cpu| = {rel:.3e} "
+        f"(tolerance {REL_TOL:g})")
+    if not (torch.isfinite(short[0]).all() and rel <= REL_TOL):
+        raise AssertionError(f"the 3D DPM++ steps disagree with the CPU plain path ({rel})")
+    del model, cpu_model, y, y_cpu
+
+    train_launches = {**forward_launches, "K4": 1, "K5": 1}
+    cfg = {"model": {"unet": dict(UNET_3D), "model_type": "diffusion",
+                     "scheduler": {"name": "ddpm", "num_train_timesteps": 1000,
+                                   "params": {"beta_start": 0.0001, "beta_end": 0.02}}},
+           "training": dict(VOLUME_TRAINING)}
+    model, _, step, cpu_model, (data, noise, t) = train_step_parity(
+        torch, card, cfg, seed, gen, records, train_launches, SHAPE_SP)
+    del cpu_model
+    grads = [p.grad.detach().clone() for p in model.parameters()]
+    # the same step from the same weights under training.remat: the forward
+    # again in the backward (K1 and K3 twice), then K4 and K5 once
+    random_weights(torch, model, torch.Generator().manual_seed(seed))
+    step.optimizer.state.clear()
+    step.global_step, step.remat = int(cfg["training"]["lr_warmup_steps"]), True
+    reset_counts(records)
+    step.step({k: v.cuda() for k, v in data.items()}, noise=noise.cuda(), t=t.cuda())
+    torch.cuda.synchronize()
+    counts = read_counts(records)
+    step.remat = False
+    worst = max((max_err(p.grad, g) / float(g.abs().max()), name)
+                for (name, p), g in zip(model.named_parameters(), grads))
+    log(f"  remat: gradients against the step without it, worst max|diff|/max|grad| "
+        f"{worst[0]:.3e} ({worst[1]}; tolerance {VOLUME_REMAT_TOL:g}); launches per step "
+        f"{({k: v for k, v in counts.items() if v})}")
+    expect_counts("the 3D train step under remat", counts,
+                  {"K1": 2 * forward_launches["K1"], "K3": 2, "K4": 1, "K5": 1})
+    if not worst[0] <= VOLUME_REMAT_TOL:
+        raise AssertionError(f"the remat step's gradients differ: {worst}")
+    del grads
+
+    card_gen = torch.Generator("cuda").manual_seed(seed + 26)
+    volume_k1(torch, card, card_gen, calls)
+    volume_flash(torch, card_gen)
+
+    # bf16, as scripts/bench_3d.py trains and samples
+    step.compute_dtype = torch.bfloat16
+    batch = int(cfg["training"]["train_batch_size"])
+    train_counts = timed_train_steps(torch, card, step,
+                                     train_batch(torch, gen, batch, "cuda", SHAPE_SP),
+                                     torch.Generator("cuda").manual_seed(seed), records,
+                                     train_launches, "3D volume")
+    del step
+    model.eval()
+    engine = SamplingEngine(model, scheduler, timesteps, conditioning_mode="concatenate",
+                            compute_dtype=torch.bfloat16, device="cuda")
+    b = VOLUME_SAMPLE_BATCH
+    sample_once(torch, engine, b, seed + b, records, SHAPE_SP)  # warm-up
+    out, secs, sample_counts, peak = sample_once(torch, engine, b, seed + b, records, SHAPE_SP)
+    expect_counts(f"3D sample batch {b}", sample_counts, forward_launches, NUM_STEPS)
+    log(f"  sample batch {b}: {secs:.4f} s, {b * NUM_STEPS / secs:.2f} denoise steps/s, "
+        f"{secs / b:.4f} s per volume, peak {peak / 2**30:.2f} GiB, launches "
+        f"{({k: v for k, v in sample_counts.items() if v})}, output mean {float(out.mean()):.4f} "
+        f"std {float(out.std()):.4f} [{card}]")
+    return {"train": train_counts, "sample": sample_counts}
 
 
 def vae_grad_errors(model, cpu_model):
@@ -4771,8 +5050,7 @@ def main() -> int:
     library_kernels = sdpa_kernels(torch, k2_timed(batches[0]) + [FLASH_CASES[0][::2]])
 
     gen = torch.Generator().manual_seed(args.seed)
-    k1_gen = torch.Generator().manual_seed(args.seed + 1)
-    k1 = phase_k1(torch, card, gen, k1_gen, batches[0])
+    k1 = phase_k1(torch, card, gen, torch.Generator().manual_seed(args.seed + 1), batches[0])
     k2 = phase_k2(torch, card, gen, torch.Generator().manual_seed(args.seed + 2), batches[0],
                   library_kernels)
 
@@ -4873,6 +5151,8 @@ def main() -> int:
     vae_batch = int(json.loads(VAE_CONFIG.read_text())["training"]["batch_size"])
 
     log("[13] K1 over the recorded calls of one flagship forward and one VAE reconstruct")
+    # the replayed calls' inputs are drawn on the card: the CPU's generator is slow at this size
+    k1_gen = torch.Generator("cuda").manual_seed(args.seed + 13)
     forward = phase_k1_path(torch, card, k1_gen, "flagship forward", flagship_k1_calls, batches[0],
                             torch.bfloat16)
     if forward["variants"] != {"single_pass": K1_PER_FORWARD, "split": 0}:
@@ -4892,11 +5172,13 @@ def main() -> int:
         cli_counts = phase_run_model(torch, card, args.seed, all_records, Path(tmp))
         train_loop_counts = phase_train(torch, card, args.seed, all_records, Path(tmp))
         phase_efficient_forward(torch, card, args.seed, gen, all_records)
-        efficient_counts = phase_efficient_train(torch, card, args.seed, gen, all_records, batches,
-                                                 scheduler, timesteps)
+        efficient_counts = phase_efficient_train(torch, card, args.seed, gen, all_records,
+                                                 batches[0], scheduler, timesteps)
         deep_cache_counts = phase_deep_cache(torch, card, args.seed, gen, all_records, model,
-                                             scheduler, timesteps, batches, exact_rates)
+                                             scheduler, timesteps, batches[0],
+                                             exact_rates[batches[0]])
         phase_clis(card, Path(tmp))
+        volume_counts = phase_volumes(torch, card, args.seed, all_records, scheduler, timesteps)
         vq_counts = phase_vq(torch, card, args.seed, gen, all_records)
         loss_counts = phase_losses(torch, card, args.seed, gen, all_records)
         vae_cli = phase_vae_clis(torch, card, args.seed, all_records, Path(tmp))
@@ -4936,6 +5218,10 @@ def main() -> int:
                 efficient_counts["train"].get(kernel, 0),
             f"EfficientUNet (compvis) {NUM_STEPS}-step sample, batch {batches[0]}":
                 efficient_counts["sample"].get(kernel, 0),
+            f"3D EfficientUNet train step x {TRAIN_STEPS}, bf16, batch "
+            f"{VOLUME_TRAINING['train_batch_size']}": volume_counts["train"].get(kernel, 0),
+            f"3D EfficientUNet {NUM_STEPS}-step sample, bf16, batch {VOLUME_SAMPLE_BATCH}":
+                volume_counts["sample"].get(kernel, 0),
             f"DeepCache '3:1:adaptive' {NUM_STEPS}-step sample, batch {batches[0]}":
                 deep_cache_counts.get(kernel, 0),
             f"VQ-VAE (EMA) train step x {TRAIN_STEPS}": vq_counts.get(kernel, 0),
