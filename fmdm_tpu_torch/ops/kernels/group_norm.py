@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from fmdm_tpu_torch.ops.kernels import build
 from fmdm_tpu_torch.ops.norm import group_norm_f32
+from fmdm_tpu_torch.utils.trace import span
 
 # ``launches`` counts calls; ``variants`` counts device launches: one per
 # single-pass call, two (gn_stats, gn_apply) per split call
@@ -259,7 +260,7 @@ class _GroupNormAct(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         num_groups, eps, act = ctx.config
-        with torch.enable_grad():
+        with span("k1.backward"), torch.enable_grad():
             leaves = [None if t is None else t.detach().requires_grad_(need)
                       for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:5])]
             out = group_norm_act_reference(

@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from fmdm_tpu_torch.ops.kernels import build
+from fmdm_tpu_torch.utils.trace import span
 
 K2 = build.KernelRecord(
     name="K2 small_t_attention",
@@ -120,7 +121,7 @@ class _SmallTAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        with torch.enable_grad():
+        with span("k2.backward"), torch.enable_grad():
             leaves = [t.detach().requires_grad_(need)
                       for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
             out = small_t_attention_reference(*leaves, scale=ctx.scale)

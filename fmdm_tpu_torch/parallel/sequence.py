@@ -33,8 +33,8 @@ The first hop's carry starts at lse = -inf, so it weighs the zero
 accumulator by 0. The forward skips the last rotation of k/v (it feeds no
 hop); the backward's last hop rotates only (dk, dv), which takes them home:
 a ring of n positions makes n - 1 hops forward and n backward. Each call
-and each hop is a ``torch.profiler`` span ("ring attention", "ring hop"),
-which ``parallel/collective_stats.py``'s readers count.
+and each hop is a span (``utils/trace.py``: "ring attention", "ring hop"),
+which ``parallel/collective_stats.py``'s readers count in a profile.
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ import torch
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
 from fmdm_tpu_torch.ops.kernels.flash_attention import (flash_backward_chunk,
                                                         flash_forward_partials)
+from fmdm_tpu_torch.utils.trace import span
 
 Tensor = torch.Tensor
 IMPLS = ("auto", "flash", "einsum")
@@ -64,7 +65,7 @@ class DeviceRing:
     def shift(self, shards: List[List[Tensor]], step: int = 1) -> List[List[Tensor]]:
         """Each tensor list (one tensor per position) moved ``step``
         positions along the ring: position i receives position i - step's."""
-        with torch.profiler.record_function(HOP):
+        with span(HOP):
             return [[xs[(i - step) % self.n].to(self.devices[i]) for i in range(self.n)]
                     for xs in shards]
 
@@ -88,7 +89,7 @@ class GroupRing:
 
         if self.n == 1:
             return shards
-        with torch.profiler.record_function(HOP):
+        with span(HOP):
             return self._shift(shards, step)
 
     def _shift(self, shards, step):
@@ -266,7 +267,7 @@ def ring_attention(q, k, v, *, group=None, devices: Optional[Sequence[DeviceArg]
                              f"and v; got {len(qs)}, {len(ks)}, {len(vs)}")
     if scale is None:
         scale = 1.0 / math.sqrt(qs[0].shape[-1])
-    with torch.profiler.record_function(RING):
+    with span(RING):
         if impl == "flash" or (impl == "auto" and _flash_hop_eligible(qs[0], ks[0])):
             outs = list(_RingFlash.apply(ring, float(scale), *qs, *ks, *vs))
         else:

@@ -55,6 +55,7 @@ from fmdm_tpu_torch.ops.kernels import build
 from fmdm_tpu_torch.ops import attention as attention_ops
 from fmdm_tpu_torch.parallel.mesh import DataMesh, Mesh2D, replicate
 from fmdm_tpu_torch.schedulers.base import Scheduler
+from fmdm_tpu_torch.utils.trace import span
 
 
 def align_conditioning(condition: Optional[torch.Tensor], target_batch: int) -> Optional[torch.Tensor]:
@@ -319,21 +320,24 @@ class SamplingEngine:
         _synchronize(device)
 
         start = time.perf_counter()
-        with torch.no_grad():
+        with torch.no_grad(), span("sample.call"):
             state = scheduler.init_state(self.timesteps, current)
             x = current
             for i in range(len(self.timesteps)):
-                model_input = scheduler.scale_model_input(x, i, self.timesteps)
-                if self.compute_dtype is not None:
-                    model_input = model_input.to(self.compute_dtype)
-                t_b = t_all[i].expand(x.shape[0])
-                pred = self._forward(model_input, t_b, cond_parts, i, refresh, depth, caches)
-                pred = pred.float()
-                if step_noise is None:
-                    state, x = scheduler.step(state, pred, i, x, self.timesteps, generator=step_gen)
-                else:
-                    state, x = scheduler.step(state, pred, i, x, self.timesteps,
-                                              noise=step_noise[i].to(device))
+                with span("sample.model"):
+                    model_input = scheduler.scale_model_input(x, i, self.timesteps)
+                    if self.compute_dtype is not None:
+                        model_input = model_input.to(self.compute_dtype)
+                    t_b = t_all[i].expand(x.shape[0])
+                    pred = self._forward(model_input, t_b, cond_parts, i, refresh, depth, caches)
+                    pred = pred.float()
+                with span("sample.scheduler"):
+                    if step_noise is None:
+                        state, x = scheduler.step(state, pred, i, x, self.timesteps,
+                                                  generator=step_gen)
+                    else:
+                        state, x = scheduler.step(state, pred, i, x, self.timesteps,
+                                                  noise=step_noise[i].to(device))
         for d in self.devices:
             _synchronize(d)
         if timing is not None:

@@ -77,6 +77,7 @@ from fmdm_tpu_torch.parallel import mesh as mesh_lib
 from fmdm_tpu_torch.sample.engine import normalize_latent_conditioning, prepare_attention_context
 from fmdm_tpu_torch.schedulers.base import Scheduler
 from fmdm_tpu_torch.utils import config as config_utils
+from fmdm_tpu_torch.utils import trace
 
 VARIANTS = ("diffusion", "flow_matching")
 
@@ -343,17 +344,19 @@ class DenoiseTrainStep:
         and ``t`` ((rows,), int for diffusion, f32 in [0, 1) for flow
         matching) cover the padded batch of ``rows = n_chunks * chunk``; what
         is not given is drawn per chunk, noise first, from ``generator``."""
-        loss_sum, count = self._accumulate(batch, noise, t, generator)
-        if self.mesh is not None and self.reduce_grads:
-            mesh_lib.all_reduce_grads(list(self.model.parameters()), self.mesh)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr_schedule(self.global_step)
-        self.optimizer.step()
-        if self.ema is not None:
-            with torch.no_grad():
-                torch._foreach_lerp_(self.ema,
-                                     [local_tensor(p).detach() for p in self.model.parameters()],
-                                     1.0 - self.ema_decay)
+        with trace.span("train.step"):
+            loss_sum, count = self._accumulate(batch, noise, t, generator)
+            if self.mesh is not None and self.reduce_grads:
+                mesh_lib.all_reduce_grads(list(self.model.parameters()), self.mesh)
+            with trace.span("train.optimizer"):
+                for group in self.optimizer.param_groups:
+                    group["lr"] = self.lr_schedule(self.global_step)
+                self.optimizer.step()
+            if self.ema is not None:
+                with torch.no_grad():
+                    torch._foreach_lerp_(
+                        self.ema, [local_tensor(p).detach() for p in self.model.parameters()],
+                        1.0 - self.ema_decay)
         self.global_step += 1
         return loss_sum, count
 
@@ -401,11 +404,13 @@ class DenoiseTrainStep:
             nz = noise[sl].to(dev) if noise is not None else torch.randn(
                 x0[sl].shape, generator=generator, device=dev, dtype=torch.float32)
             tt = t[sl].to(dev) if t is not None else self._draw_t(chunk, generator)
-            loss, chunk_sum, chunk_count = self.chunk_loss(
-                x0[sl], None if cond is None else cond[sl], valid[sl], nz, tt)
+            with trace.span("train.forward"):
+                loss, chunk_sum, chunk_count = self.chunk_loss(
+                    x0[sl], None if cond is None else cond[sl], valid[sl], nz, tt)
             # one chunk: the masked mean's gradient as it is; several: each
             # weighted by its count, the sum divided by the total below
-            (loss if n_chunks == 1 else loss * chunk_count).backward()
+            with trace.span("train.backward"):
+                (loss if n_chunks == 1 else loss * chunk_count).backward()
             loss_sum = loss_sum + chunk_sum.detach()
             count = count + chunk_count
         if n_chunks > 1:
@@ -431,9 +436,11 @@ class DenoiseTrainStep:
                 dtype=torch.float32), mesh)
             tt = t[sl].to(dev) if t is not None else mesh_lib.rows_of(
                 self._draw_t(global_rows[0], generator), mesh)
-            _, chunk_sum, _ = self.chunk_loss(
-                x0[sl], None if cond is None else cond[sl], valid[sl], nz, tt)
-            (chunk_sum / divisor).backward()
+            with trace.span("train.forward"):
+                _, chunk_sum, _ = self.chunk_loss(
+                    x0[sl], None if cond is None else cond[sl], valid[sl], nz, tt)
+            with trace.span("train.backward"):
+                (chunk_sum / divisor).backward()
             loss_sum = loss_sum + chunk_sum.detach()
         return mesh_lib.all_reduce_sum(loss_sum, mesh), count
 
@@ -775,7 +782,8 @@ def restore_generator(generator: torch.Generator, saved) -> None:
 @contextlib.contextmanager
 def profile_epoch(profile_dir, device: torch.device):
     """``torch.profiler`` over the block, its Chrome trace written to
-    ``profile_dir/trace.json``; a no-op without ``profile_dir``."""
+    ``profile_dir/trace.json`` (the port's spans in it, ``utils/trace.py``,
+    above the ops they launched); a no-op without ``profile_dir``."""
     if not profile_dir:
         yield
         return
@@ -787,6 +795,7 @@ def profile_epoch(profile_dir, device: torch.device):
     out = Path(profile_dir)
     out.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out / "trace.json"))
+    trace.clear()  # the trace holds the spans; the process keeps none
     logging.info("Wrote the first epoch's trace to %s", out / "trace.json")
 
 

@@ -13,10 +13,10 @@ synthetic batches of ``--batch`` 256² slices once to warm up, then
 kernels' intervals on the device timeline) and idle share, and the device
 time per class:
 
-- a kernel launched under the backward node of K1's or K2's autograd
-  function (``_GroupNormActBackward``, ``_SmallTAttentionBackward``: the
-  plain version's forward recomputed, then its autograd) counts as that
-  kernel's plain backward, and the kernels of each are listed by name;
+- a kernel launched inside K1's or K2's plain backward (the spans
+  ``k1.backward`` and ``k2.backward`` of ``utils/trace.py``: the plain
+  version's forward recomputed, then its autograd) counts as that kernel's
+  plain backward, and the kernels of each are listed by name;
 - every other kernel is classed by its name as ``sample/profile_sample.py``
   classes it, so K1's and K2's forward kernels stand apart.
 
@@ -42,17 +42,17 @@ from fmdm_tpu_torch.train.denoise_lib import build_denoise_trainer
 CONFIG = Path(__file__).resolve().parents[2] / "configs" / "LDCT" / "LDCT_ddpm_diffusers_nd.json"
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, NVIDIA data sheet
 
-# autograd nodes whose kernels make up a kernel's plain backward
-BACKWARD_NODES = (("K1 plain backward", "_GroupNormActBackward"),
-                  ("K2 plain backward", "_SmallTAttentionBackward"))
+# spans whose kernels make up a kernel's plain backward
+BACKWARD_NODES = (("K1 plain backward", "k1.backward"),
+                  ("K2 plain backward", "k2.backward"))
 
 
 def backward_origin(event) -> Optional[str]:
     """The plain backward an event runs under (from its CPU ancestors), if any."""
     node = event
     while node is not None:
-        for label, fragment in BACKWARD_NODES:
-            if fragment in node.name:
+        for label, name in BACKWARD_NODES:
+            if node.name == name:
                 return label
         node = node.cpu_parent
     return None
@@ -61,7 +61,7 @@ def backward_origin(event) -> Optional[str]:
 def device_time_by_origin(prof):
     """Device ms per class and per (class, kernel name) of a finished
     ``torch.profiler`` run, each kernel taken from the CPU event that
-    launched it: under a node of ``BACKWARD_NODES`` it is that plain
+    launched it: under a span of ``BACKWARD_NODES`` it is that plain
     backward's, else the class of its name."""
     by_class, by_kernel = defaultdict(float), defaultdict(float)
     for event in prof.events():
@@ -123,7 +123,7 @@ def main() -> None:
           f"{busy_ms / n:.3f} ms, idle {100 * (1 - busy_ms / window_ms):.1f}%; kernel times summed "
           f"{sum(by_name.values()) / n:.3f} ms, {sum(by_class.values()) / n:.3f} ms of them "
           f"traced to the op that launched them [{name}]")
-    print("device time by class (K1 and K2 plain backwards by the autograd node they ran under):")
+    print("device time by class (K1 and K2 plain backwards by the span they ran under):")
     print_breakdown(by_class, {kernel: ms for (_, kernel), ms in by_kernel.items()}, n, "step")
     for label, _ in BACKWARD_NODES:
         kernels = sorted(((ms, k) for (lab, k), ms in by_kernel.items() if lab == label), reverse=True)
