@@ -163,6 +163,17 @@ Phases, each printing one or more lines:
     bf16 2 timed train steps at batch 4 (ms, volumes/s, peak memory) and the
     50-step DPM++ sample at batch 8 (denoise steps/s, seconds per volume,
     peak memory);
+26c. K1's backward kernels (K1B) over the calls recorded in [5], [26b] and
+    [10], replayed as the train steps run them: the flagship's 64 at the
+    quality recipe's batch 16 and the 3D path's 34 at batch 4 in bf16 with
+    f32 weights, the VAE's 50 at batch 4 in f32, each call on inputs of its
+    own, twice and bitwise equal; dx, dweight, dbias, dscale and dshift
+    against the plain backward evaluated in f32 (f32 gradients within 1e-5
+    of the largest magnitude, bf16 ones within one bf16 ulp of it rounded);
+    the launches per variant; each step's kernel time against its bound (x
+    and dy read, dx written) and the plain backward the train steps ran
+    before; the split forced at the VAE's 2 MB group with FiLM; the host's
+    cost per call;
 27. the VQ-VAE at full width, f32, TF32 off: ``LDCT_vqvae.json`` (EMA
     codebook) and ``LDCT_vqvae_original.json`` (classic), each a reconstruct
     at batch 1 card against the CPU (at least 99.9% of the codes equal, a
@@ -336,15 +347,19 @@ VAE_LAUNCHES = {
     "encode": {"K1": 2 * 10 + 1, "K3": 1},       # 4 stages x 2 ResBlocks + 2 mid
     "decode": {"K1": 2 * 14 + 1, "K3": 1},       # 4 stages x 3 ResBlocks + 2 mid
     "reconstruct": {"K1": 50, "K3": 2},
-    "train step": {"K1": 50, "K3": 2, "K4": 2, "K5": 2},  # K1's backward is plain
+    "train step": {"K1": 50, "K3": 2, "K4": 2, "K5": 2},  # K1B: one backward per K1 call
 }
 # the flagship's denoise train step (and each DDPM step): the forward's
-# kernels, K1's and K2's backward being the autograd of their plain versions
+# kernels (K1's backward counted apart, by K1B; K2's is the autograd of its
+# plain version)
 DENOISE_LAUNCHES = {"K1": K1_PER_FORWARD, "K2": K2_PER_FORWARD}
 # the attention-conditioned flagship: its mid block cross-attends (sdpa_xla)
 # instead of self-attending, so K2 serves the other five calls
 CROSS_ATTENTION_LAUNCHES = {"K1": K1_PER_FORWARD, "K2": K2_PER_FORWARD - 1}
 DDPM_STEPS = 2       # card vs CPU (cut from 3 for [16b])
+# [26c]: the quality recipe's batch (scripts/flagship_quality_sweep.py), at
+# which K1's backward is replayed
+FLOW_TRAIN_BATCH = 16
 FLOW_BF16_BATCH = 2  # [16b]: the bf16 flow step, card and CPU against the CPU's f32 step
 FLOW_BF16_RATIO = 2.0  # [16b]: the card's distance to f32 at most this times the CPU's
 DDPM_BF16_STEPS = 5  # at the config's batch
@@ -815,6 +830,140 @@ def phase_k1_path(torch, card: str, gen, what: str, calls, batch: int, dtype) ->
                 dtype=str(dtype)[6:], variants=variants, max_abs_err=worst)
 
 
+# K1B: f32 gradients within this share of each one's largest magnitude of
+# the plain backward evaluated in f32; bf16 ones within one bf16 ulp of it
+# rounded (or this share, near zero)
+K1B_F32_TOL = 1e-5
+K1B_GRADS = ("dx", "dweight", "dbias", "dscale", "dshift")
+
+
+def k1b_check(torch, what: str, got, truth) -> float:
+    """Each gradient of one K1B call against ``truth``, the plain backward
+    evaluated in f32; raises on the first outside K1B's tolerance. Returns
+    dx's largest absolute error."""
+    for name, g, want in zip(K1B_GRADS, got, truth):
+        if want is None:
+            if g is not None:
+                raise AssertionError(f"K1B {what}: {name} without FiLM")
+            continue
+        scale = float(want.abs().max())
+        if g.dtype == torch.float32:
+            ok = max_err(g, want) <= K1B_F32_TOL * scale
+        else:
+            ref = want.to(g.dtype).float()
+            ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+            ok = bool(((g.float() - ref).abs() <= ulp.clamp_min(K1B_F32_TOL * scale)).all())
+        if not ok:
+            raise AssertionError(f"K1B {what}: {name} disagrees with the plain backward in f32 "
+                                 f"(max_abs_err {max_err(g, want)}, largest {scale})")
+    return max_err(got[0], truth[0])
+
+
+def k1b_path(torch, card: str, gen, what: str, calls, batch: int, dtype) -> dict:
+    """K1's backward over one step's recorded K1 calls at ``batch``, x and dy
+    in ``dtype``, the weights in f32, each call on inputs of its own: each
+    call twice (bitwise equal) against the plain backward in f32, the
+    launches per variant, the step's kernel time against its bound and the
+    plain backward in the inputs' dtype (what the train steps ran before)."""
+    from fmdm_tpu_torch.ops.kernels.group_norm import (
+        K1B, _launch_backward, group_norm_act_backward_reference)
+
+    def f32(t):
+        return None if t is None else t.float()
+
+    inputs = []
+    for shape, groups, eps, act, film in calls:
+        x, w, b, s, t = k1_inputs(torch, gen, (batch,) + shape, dtype, torch.float32, film)
+        dy = torch.randn(x.shape, generator=gen, device=gen.device).to(dtype)
+        inputs.append((dy, (x, w, b, s, t, groups, eps, act)))
+    worst = 0.0
+    K1B.reset()
+    for dy, args in inputs:
+        got = _launch_backward(dy, *args)
+        again = _launch_backward(dy, *args)
+        if not all(torch.equal(g, a) for g, a in zip(got, again) if g is not None):
+            raise AssertionError(f"K1B {tuple(args[0].shape)} {dtype}: two calls differ")
+        truth = group_norm_act_backward_reference(f32(dy), *map(f32, args[:5]), *args[5:])
+        worst = max(worst, k1b_check(torch, f"{what} {tuple(args[0].shape)}", got, truth))
+        del got, again, truth
+    torch.cuda.synchronize()
+    if K1B.launches != 2 * len(calls):
+        raise AssertionError(f"{what}: {K1B.launches} K1B launches for {len(calls)} calls twice")
+    variants = {k: v // 2 for k, v in K1B.variants.items()}
+
+    def kernel_pass():
+        for dy, args in inputs:
+            _launch_backward(dy, *args)
+
+    def plain_pass():
+        for dy, args in inputs:
+            group_norm_act_backward_reference(dy, *args)
+
+    ms = time_ms(kernel_pass, iters=5, warmup=1)
+    plain = time_ms(plain_pass, iters=2, warmup=1)
+    bound, bound_by, term = bound_ms(sum(3 * a[0].numel() * a[0].element_size()
+                                         for _, a in inputs))
+    largest = max((a[0] for _, a in inputs), key=lambda x: x.numel())
+    log(f"  {what}: {len(calls)} calls at batch {batch} {str(dtype)[6:]} (f32 weights, "
+        f"{sum(c[4] for c in calls)} with FiLM), twice bitwise equal, within tolerance; dx "
+        f"max_abs_err {worst:.3e}; kernels {ms:.4f} ms per step, bound {bound:.4f} ms "
+        f"({bound / ms * 100:.1f}%), plain backward {plain:.4f} ms; launches by variant "
+        f"{variants} [{card}]")
+    del inputs
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=bound_by, bound_term=term,
+                calls=len(calls), batch=batch, dtype=str(dtype)[6:], variants=variants,
+                max_abs_err=worst, largest=list(largest.shape))
+
+
+def phase_k1b(torch, card: str, seed: int, paths) -> dict:
+    """[26c]: K1's backward over each (what, calls, batch, dtype) of
+    ``paths``, the first the flagship's; the split forced at the VAE's 2 MB
+    group with FiLM; the host's cost per call. Returns K1B's record for the
+    kernels line, timed at the first path's step."""
+    from fmdm_tpu_torch.ops.kernels.group_norm import (
+        K1B, _launch_backward, backward_split_plan, group_norm_act_backward_reference,
+        vector_aligned)
+
+    log("[26c] K1B, K1's backward kernels, over the recorded calls of each train step, against "
+        "the plain backward in f32, each call twice (bitwise equal)")
+    gen = torch.Generator("cuda").manual_seed(seed + 27)
+    per_step = {what: k1b_path(torch, card, gen, what, calls, batch, dtype)
+                for what, calls, batch, dtype in paths}
+
+    shape = (4, 256, 256, 256)
+    x, w, b, s, t = k1_inputs(torch, gen, shape, torch.float32, film=True)
+    dy = torch.randn(shape, generator=gen, device=gen.device)
+    args = (x, w, b, s, t, 32, 1e-5, True)
+    hw = math.prod(shape[2:])
+    p = backward_split_plan(shape[1] // 32 * hw, hw, 4, vector_aligned(x, torch.empty_like(x)),
+                            shape[0] * 32,
+                            sm_count=torch.cuda.get_device_properties(0).multi_processor_count)
+    K1B.reset()
+    got = _launch_backward(dy, *args, p=p)
+    again = _launch_backward(dy, *args, p=p)
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError(f"K1B split {shape}: two calls differ")
+    if K1B.variants != {"single_pass": 0, "split": 2}:
+        raise AssertionError(f"K1B split forced: launches by variant {K1B.variants}")
+    err = k1b_check(torch, f"split {shape}", got, group_norm_act_backward_reference(dy, *args))
+    split_ms = time_ms(lambda: _launch_backward(dy, *args, p=p), iters=5)
+    del got, again, x, dy
+    small = k1_inputs(torch, gen, (16, 512, 8, 8), torch.bfloat16, torch.float32)
+    small_dy = torch.randn((16, 512, 8, 8), generator=gen, device=gen.device).to(torch.bfloat16)
+    host = host_us(lambda: _launch_backward(small_dy, *small, 32, 1e-5, True))
+    log(f"  split forced at {shape} f32 with FiLM ({p.ctas} blocks per group): twice bitwise "
+        f"equal, within tolerance, dx max_abs_err {err:.3e}, {split_ms:.4f} ms; host "
+        f"{host:.1f} us per call at (16, 512, 8, 8) bf16 [{card}]")
+    torch.cuda.empty_cache()
+    main = next(iter(per_step.values()))
+    return dict(name=K1B.name, route="cuda", source=K1B.source, replaces=K1B.replaces,
+                max_abs_err=max(r["max_abs_err"] for r in per_step.values()), ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                bound_term=main["bound_term"], library_ms=None, shape=main["largest"],
+                dtype=main["dtype"], per_step=per_step)
+
+
 def k2_timed(main_batch: int):
     """K2's timed (shape, dtype): the flagship's two calls at batch 2 (and
     the 16² call in f32), the 8² call at the sample's batch, the 16² call at
@@ -1068,11 +1217,16 @@ def random_weights(torch, model, gen) -> None:
 
 
 def read_counts(records) -> dict:
-    return {r.name.split()[0]: r.launches for r in records}
+    """Launches of ``records`` by kernel, and K1's backward's as "K1B"."""
+    from fmdm_tpu_torch.ops.kernels.group_norm import K1B
+
+    return {**{r.name.split()[0]: r.launches for r in records}, "K1B": K1B.launches}
 
 
 def expect_counts(what: str, counts: dict, want: dict, calls: int = 1) -> None:
-    got = {k: v / calls for k, v in counts.items() if v or k in want}
+    # K1B is held only where ``want`` names it: k1_backward holds it in the
+    # train phases
+    got = {k: v / calls for k, v in counts.items() if k in want or (v and k != "K1B")}
     if got != {k: float(v) for k, v in want.items()}:
         raise AssertionError(f"{what}: launches per call {got}; expected {want}")
 
@@ -1136,6 +1290,7 @@ def phase_vae(torch, card: str, seed: int, gen, records):
     metrics_gpu, _ = trainers[0].step(raw.cuda(), valid.cuda(), noise=noise.cuda())
     torch.cuda.synchronize()
     expect_counts("the VAE train step", read_counts(records), VAE_LAUNCHES["train step"])
+    log(f"  {k1_backward('the VAE train step', VAE_LAUNCHES['train step']['K1'])}")
     start = time.perf_counter()
     metrics_cpu, _ = trainers[1].step(raw, valid, noise=noise)
     cpu_s = time.perf_counter() - start
@@ -1189,12 +1344,13 @@ def phase_vae(torch, card: str, seed: int, gen, records):
     step_s = (time.perf_counter() - start) / TRAIN_STEPS
     train_counts = read_counts(records)
     expect_counts("a timed VAE train step", train_counts, VAE_LAUNCHES["train step"], TRAIN_STEPS)
+    backward = k1_backward("a timed VAE train step", VAE_LAUNCHES["train step"]["K1"], TRAIN_STEPS)
     if not bool(torch.isfinite(metrics["loss"])):
         raise AssertionError("the timed VAE train steps gave a non-finite loss")
     log(f"  batch {batch}, {TRAIN_STEPS} steps: {step_s * 1e3:.2f} ms per step, "
         f"{batch / step_s:.2f} images/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"launches per step {({k: v // TRAIN_STEPS for k, v in train_counts.items() if v})}, "
-        f"last loss {float(metrics['loss']):.6f} [{card}]")
+        f"{backward}, last loss {float(metrics['loss']):.6f} [{card}]")
 
     log(f"[12] KL-VAE serving at batch {batch}, f32, TF32 off")
     model.eval()
@@ -1224,8 +1380,23 @@ def phase_vae(torch, card: str, seed: int, gen, records):
 
 
 def reset_counts(records) -> None:
+    from fmdm_tpu_torch.ops.kernels.group_norm import K1B
+
     for r in records:
         r.reset()
+    K1B.reset()
+
+
+def k1_backward(what: str, k1_calls: int, steps: int = 1) -> str:
+    """K1's backward launches since the last reset_counts: one per K1 call
+    that ran under autograd, ``k1_calls`` per step; returns them for the
+    phase's line."""
+    from fmdm_tpu_torch.ops.kernels.group_norm import K1B
+
+    if K1B.launches != k1_calls * steps:
+        raise AssertionError(f"{what}: {K1B.launches} K1 backward launches in {steps} steps, "
+                             f"expected {k1_calls} per step")
+    return f"K1B {K1B.launches // steps} per step ({K1B.variants})"
 
 
 def phase_sdpa_routes(torch, card: str, gen, records) -> None:
@@ -1345,6 +1516,7 @@ def train_step_parity(torch, card: str, cfg: dict, seed: int, gen, records, laun
     loss_gpu, _ = step.step({k: v.cuda() for k, v in data.items()}, noise=noise.cuda(), t=t.cuda())
     torch.cuda.synchronize()
     expect_counts("the train step", read_counts(records), launches)
+    log(f"  {k1_backward('the train step', launches['K1'])}")
     start = time.perf_counter()
     loss_cpu, _ = cpu_step.step(data, noise=noise, t=t)
     cpu_s = time.perf_counter() - start
@@ -1452,6 +1624,7 @@ def flow_bf16_parity(torch, card: str, cfg: dict, seed: int, cpu_model, records)
         secs = time.perf_counter() - begin
         if device.type == "cuda":
             expect_counts(f"[16b] {what}", read_counts(records), DENOISE_LAUNCHES)
+            log(f"  [16b] {what}: {k1_backward(what, DENOISE_LAUNCHES['K1'])}")
         grads = [p.grad.detach().cpu() for p in module.parameters()]
         update = [p.detach().cpu() - start[name] for name, p in module.named_parameters()]
         return {"loss": loss, "grads": grads, "update": update, "seconds": secs}
@@ -1510,12 +1683,13 @@ def timed_train_steps(torch, card: str, step, data: dict, noise_gen, records, la
     step_s = (time.perf_counter() - start) / TRAIN_STEPS
     counts = read_counts(records)
     expect_counts(f"a timed {what} train step", counts, launches, TRAIN_STEPS)
+    backward = k1_backward(f"a timed {what} train step", launches["K1"], TRAIN_STEPS)
     if not (bool(torch.isfinite(loss_sum)) and float(count) == batch):
         raise AssertionError(f"the timed train steps gave loss {float(loss_sum)}, count {float(count)}")
     log(f"  batch {batch}, {TRAIN_STEPS} steps: {step_s * 1e3:.2f} ms per step, "
         f"{batch / step_s:.2f} images/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"launches per step {({k: v // TRAIN_STEPS for k, v in counts.items() if v})}, "
-        f"last mean loss {float(loss_sum) / batch:.6f} [{card}]")
+        f"{backward}, last mean loss {float(loss_sum) / batch:.6f} [{card}]")
     return counts
 
 
@@ -2791,6 +2965,7 @@ def phase_volumes(torch, card: str, seed: int, records, scheduler, timesteps) ->
         f"{({k: v for k, v in counts.items() if v})}")
     expect_counts("the 3D train step under remat", counts,
                   {"K1": 2 * forward_launches["K1"], "K3": 2, "K4": 1, "K5": 1})
+    log(f"  remat: {k1_backward('the 3D train step under remat', forward_launches['K1'])}")
     if not worst[0] <= VOLUME_REMAT_TOL:
         raise AssertionError(f"the remat step's gradients differ: {worst}")
     del grads
@@ -2818,7 +2993,7 @@ def phase_volumes(torch, card: str, seed: int, records, scheduler, timesteps) ->
         f"{secs / b:.4f} s per volume, peak {peak / 2**30:.2f} GiB, launches "
         f"{({k: v for k, v in sample_counts.items() if v})}, output mean {float(out.mean()):.4f} "
         f"std {float(out.std()):.4f} [{card}]")
-    return {"train": train_counts, "sample": sample_counts}
+    return {"train": train_counts, "sample": sample_counts, "k1_calls": calls}
 
 
 def vae_grad_errors(model, cpu_model):
@@ -5179,6 +5354,11 @@ def main() -> int:
                                              exact_rates[batches[0]])
         phase_clis(card, Path(tmp))
         volume_counts = phase_volumes(torch, card, args.seed, all_records, scheduler, timesteps)
+        k1b = phase_k1b(torch, card, args.seed, [
+            ("flagship train step", flagship_k1_calls, FLOW_TRAIN_BATCH, torch.bfloat16),
+            ("3D train step", volume_counts["k1_calls"], VOLUME_TRAINING["train_batch_size"],
+             torch.bfloat16),
+            ("VAE train step", vae_k1_calls, vae_batch, torch.float32)])
         vq_counts = phase_vq(torch, card, args.seed, gen, all_records)
         loss_counts = phase_losses(torch, card, args.seed, gen, all_records)
         vae_cli = phase_vae_clis(torch, card, args.seed, all_records, Path(tmp))
@@ -5202,9 +5382,9 @@ def main() -> int:
     k3["launches"], k4["launches"], k5["launches"] = (train_counts[k] for k in ("K3", "K4", "K5"))
     # each path's launches, counted from 0 over its run: the sample's, and
     # the TRAIN_STEPS timed steps of each train step
+    k1b["launches"] = denoise_counts["K1B"]
     sample_counts = {"K1": main_launches[0], "K2": main_launches[1]}
-    for r in (k1, k2, k3, k4, k5):
-        kernel = r["name"].split()[0]
+    for kernel, r in (("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4), ("K5", k5), ("K1B", k1b)):
         r["launches_by_path"] = {
             f"{NUM_STEPS}-step sample, batch {batches[0]}": sample_counts.get(kernel, 0),
             f"flagship train step x {TRAIN_STEPS}": denoise_counts[kernel],
@@ -5264,13 +5444,14 @@ def main() -> int:
                          "max_abs_err": ring["max_abs_err"][kernel]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_term", "library_ms", "shape", "dtype")
-    extra = ("library_kernel", "variants", "per_forward", "launches_by_path", "ring_hop")
+    extra = ("library_kernel", "variants", "per_forward", "per_step", "launches_by_path",
+             "ring_hop")
     ends = [s for _, s in PHASE_STARTS[1:]] + [time.perf_counter()]
     log("seconds per phase: " + ", ".join(f"{label} {end - start:.1f}" for (label, start), end
                                           in zip(PHASE_STARTS, ends)))
     log(f"whole run: {time.perf_counter() - run_start:.1f} s")
     log(json.dumps({"kernels": [{**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
-                                for r in (k1, k2, k3, k4, k5)]}))
+                                for r in (k1, k2, k3, k4, k5, k1b)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -601,3 +601,766 @@ extern "C" int fmdm_group_norm_max_clusters(int device, int ctas, int smem, int 
 extern "C" const char* fmdm_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+// ===========================================================================
+// K1's backward: dx, dweight, dbias and, with FiLM, dscale and dshift.
+//
+// Replaces no TPU kernel: the JAX package's _fused_bwd (group_norm.py:141)
+// recomputes the XLA reference's VJP, as the port's plain backward
+// (group_norm_act_backward_reference) recomputes the plain forward under
+// autograd. Per (sample n, group g), in f32, with xhat = (x - mean) * rstd,
+// z = (xhat * w + b) * a + t (a = 1 + scale; a = 1, t = 0 without FiLM) and
+// y = SiLU(z) (y = z without act):
+//   dz = dy * SiLU'(z)
+//   A[n,c] = sum dz, B[n,c] = sum dz * xhat, over the channel's extent
+//   S1 = sum_c a w A, S2 = sum_c a w B, over the group's channels
+//   dx = rstd * (a w dz - S1 / M - xhat * S2 / M), M the group's size
+//   dshift = A, dscale = w B + b A, dweight = sum_n a B, dbias = sum_n a A
+//
+// What bounds it: bytes. The least traffic is x and dy read once and dx
+// written once (1.5x the forward's), with ~35 f32 operations and four
+// special-function calls per element besides.
+//
+// Design, after gn_cluster:
+//   gn_bwd_cluster, the single pass: one cluster of R CTAs per (sample,
+//     group). CTA r bulk-copies its chunk of x into shared memory once and
+//     sums it as it lands: the statistics are recomputed, so the forward
+//     saves nothing. The R partials are combined through distributed shared
+//     memory in rank order. dy is read from device memory in both passes
+//     that need it, the second time mostly from L2: holding dy as well would
+//     halve the CTAs an SM holds, and measured slower on an H100. Each warp
+//     takes items, pieces of at most `item` elements of one channel, and
+//     sums dz and dz * xhat over them; a channel's items are added in order
+//     into its slot, the slots in order into the CTA's (S1, S2) partial, and
+//     after a cluster barrier every CTA adds the R partials in rank order.
+//     The CTA that holds a channel's first element adds that channel's slots
+//     across the cluster and writes its (A, B). dx is computed from x in
+//     shared memory and written once.
+//   gn_bwd_moments + gn_bwd_sums + gn_bwd_dx, the split (groups no cluster
+//     holds): the statistics, the sums and dx in three grids over the same
+//     chunks, through an f32 scratch; x is read three times and dy twice.
+//   gn_bwd_params, after either: dweight and dbias summed over the samples in
+//     order, dscale and dshift, from (A, B) per (sample, channel).
+// No float atomics: every sum has a fixed order, so two calls on the same
+// inputs give the same bits.
+// ===========================================================================
+
+namespace {
+
+// dz of one element, and its xhat
+__device__ __forceinline__ float grad_z(float v, float dy, float mean, float rstd,
+                                        const Channel& ch, bool film, bool act, float& xhat) {
+  xhat = (v - mean) * rstd;
+  if (!act) return dy;
+  float z = xhat * ch.w + ch.b;
+  if (film) z = z * ch.scale1 + ch.shift;
+  const float s = __fdividef(1.f, 1.f + __expf(-z));  // 0 where exp(-z) overflows
+  return dy * (s * (1.f + z * (1.f - s)));
+}
+
+// Where a chunk [begin, end) of a group lies among the group's channels (hw
+// elements each) and items (per_channel items of at most `item` elements to
+// a channel, the last one ragged); an empty chunk meets none. A group has
+// fewer than 2^31 elements.
+struct ChunkMap {
+  int begin, end, hw, item, per_channel;
+  int c_first, c_last;  // channels met
+  int j_first, j_last;  // items met
+};
+
+__device__ __forceinline__ ChunkMap chunk_map(int begin, int end, int hw, int item) {
+  ChunkMap m{begin, end, hw, item, (hw + item - 1) / item, 0, -1, 0, -1};
+  if (end > begin) {
+    m.c_first = begin / hw;
+    m.c_last = (end - 1) / hw;
+    m.j_first = m.c_first * m.per_channel + (begin % hw) / item;
+    m.j_last = m.c_last * m.per_channel + ((end - 1) % hw) / item;
+  }
+  return m;
+}
+
+// The layout of dynamic shared memory: x's chunk (`held` bytes, 0 in the
+// split), then the item pairs, the slot pairs and the slots' channel
+// coefficients.
+struct BwdSmem {
+  unsigned char* xs;
+  float2* items;
+  float2* slots;
+  Channel* chs;
+};
+
+__device__ __forceinline__ BwdSmem bwd_smem(unsigned char* smem, int held, int items,
+                                             int slots) {
+  BwdSmem s;
+  s.xs = smem;
+  s.items = reinterpret_cast<float2*>(smem + held);
+  s.slots = s.items + (items + 1) / 2 * 2;
+  s.chs = reinterpret_cast<Channel*>(s.slots + (slots + 1) / 2 * 2);
+  return s;
+}
+
+template <typename T, typename W>
+__device__ __forceinline__ void load_channels(const ChunkMap& m, const W* weight, const W* bias,
+                                              const T* scale, const T* shift, int c0,
+                                              int64_t nc0, Channel* chs) {
+  for (int s = threadIdx.x; s <= m.c_last - m.c_first; s += kThreads) {
+    const int cl = m.c_first + s;
+    chs[s] = channel(weight, bias, scale, shift, c0 + cl, nc0 + cl);
+  }
+}
+
+// Each warp sums dz and dz * xhat over items j_first + warp, + kWarps, ...;
+// its lanes stride over the item's elements (16-byte vectors with kVec),
+// then the warp's butterfly, and lane 0 stores the pair at
+// items[j - j_first]. xs and dys point at the chunk's first element of x
+// and dy (shared or device memory).
+template <typename T, bool kVec>
+__device__ __forceinline__ void item_sums(const T* __restrict__ xs, const T* __restrict__ dys,
+                                          const ChunkMap& m, const Channel* __restrict__ chs,
+                                          float mean, float rstd, bool film, bool act,
+                                          float2* __restrict__ items) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int j = m.j_first + warp; j <= m.j_last; j += kWarps) {
+    const int cl = j / m.per_channel, k = j % m.per_channel;
+    const int lo = max(cl * m.hw + k * m.item, m.begin) - m.begin;
+    const int hi = min(min(cl * m.hw + (k + 1) * m.item, (cl + 1) * m.hw), m.end) - m.begin;
+    const Channel ch = chs[cl - m.c_first];
+    float a = 0.f, b = 0.f;
+    if (kVec) {
+      constexpr int N = Vec<T>::kN;
+      const uint4* xv = reinterpret_cast<const uint4*>(xs);
+      const uint4* gv = reinterpret_cast<const uint4*>(dys);
+      // lane l takes vectors l, l+32, ...: kLaneVectors at a time, their
+      // loads issued together
+      constexpr int kLaneVectors = 2;
+      for (int base = lo / N + lane; base < hi / N; base += 32 * kLaneVectors) {
+        uint4 rx[kLaneVectors], rg[kLaneVectors];
+#pragma unroll
+        for (int r = 0; r < kLaneVectors; ++r) {
+          if (base + 32 * r < hi / N) {
+            rx[r] = xv[base + 32 * r];
+            rg[r] = gv[base + 32 * r];
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kLaneVectors; ++r) {
+          if (base + 32 * r < hi / N) {
+            float f[N], g[N];
+            Vec<T>::load(rx[r], f);
+            Vec<T>::load(rg[r], g);
+#pragma unroll
+            for (int e = 0; e < N; ++e) {
+              float xh;
+              const float d = grad_z(f[e], g[e], mean, rstd, ch, film, act, xh);
+              a += d;
+              b += d * xh;
+            }
+          }
+        }
+      }
+    } else {
+      for (int i = lo + lane; i < hi; i += 32) {
+        float xh;
+        const float d = grad_z(fmdm::to_float(xs[i]), fmdm::to_float(dys[i]), mean, rstd, ch,
+                               film, act, xh);
+        a += d;
+        b += d * xh;
+      }
+    }
+    a = fmdm::warp_sum(a);
+    b = fmdm::warp_sum(b);
+    if (lane == 0) items[j - m.j_first] = make_float2(a, b);
+  }
+}
+
+// Slot s (channel c_first + s) adds its items in order; then thread 0 adds
+// the slots, weighted by a w, in order into the chunk's (S1, S2) partial.
+// The items are complete (a barrier since item_sums).
+__device__ __forceinline__ void slot_sums(const ChunkMap& m, const float2* items,
+                                          const Channel* chs, float2* slots, float2* partial) {
+  for (int s = threadIdx.x; s <= m.c_last - m.c_first; s += kThreads) {
+    const int cl = m.c_first + s;
+    const int j0 = max(m.j_first, cl * m.per_channel);
+    const int j1 = min(m.j_last, cl * m.per_channel + m.per_channel - 1);
+    float a = 0.f, b = 0.f;
+    for (int j = j0; j <= j1; ++j) {
+      a += items[j - m.j_first].x;
+      b += items[j - m.j_first].y;
+    }
+    slots[s] = make_float2(a, b);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int s = 0; s <= m.c_last - m.c_first; ++s) {
+      const float aw = chs[s].scale1 * chs[s].w;
+      s1 += aw * slots[s].x;
+      s2 += aw * slots[s].y;
+    }
+    *partial = make_float2(s1, s2);
+  }
+}
+
+// The channels whose first element lies in chunk `rank`: each adds its slots
+// across the chunks that meet it, in order (slots_of(q): chunk q's slots),
+// and writes (A, B) to sums[2 * (nc0 + c)].
+template <typename SlotsOf>
+__device__ __forceinline__ void owner_sums(const ChunkMap& m, int rank, int chunk,
+                                           SlotsOf slots_of, float* sums, int64_t nc0) {
+  for (int cl = (m.begin + m.hw - 1) / m.hw + threadIdx.x; cl <= m.c_last; cl += kThreads) {
+    const int q_last = ((cl + 1) * m.hw - 1) / chunk;
+    float a = 0.f, b = 0.f;
+    for (int q = rank; q <= q_last; ++q) {
+      const float2 v = slots_of(q)[cl - q * chunk / m.hw];
+      a += v.x;
+      b += v.y;
+    }
+    sums[2 * (nc0 + cl)] = a;
+    sums[2 * (nc0 + cl) + 1] = b;
+  }
+}
+
+// dx over the chunk: dx = rstd * (a w dz - m1 - xhat * m2), m1 = S1 / M,
+// m2 = S2 / M; per_channel divides the element's (vector's) index within
+// the group by hw (hw / N).
+template <typename T, bool kVec>
+__device__ __forceinline__ void write_dx(const T* __restrict__ xs, const T* __restrict__ dys,
+                                         T* __restrict__ dx, const ChunkMap& m,
+                                         FastDiv per_channel, const Channel* __restrict__ chs,
+                                         float mean, float rstd, float m1, float m2, bool film,
+                                         bool act) {
+  const int len = m.end - m.begin;
+  if (kVec) {
+    constexpr int N = Vec<T>::kN;
+    const uint4* xv = reinterpret_cast<const uint4*>(xs);
+    const uint4* gv = reinterpret_cast<const uint4*>(dys);
+    uint4* dst = reinterpret_cast<uint4*>(dx);
+    const int v0 = m.begin / N;
+    for (int i = threadIdx.x; i < len / N; i += kThreads) {
+      const Channel ch = chs[per_channel(static_cast<uint32_t>(v0 + i)) - m.c_first];
+      const float aw = ch.scale1 * ch.w;
+      float f[N], g[N];
+      Vec<T>::load(xv[i], f);
+      Vec<T>::load(gv[i], g);
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        float xh;
+        const float d = grad_z(f[e], g[e], mean, rstd, ch, film, act, xh);
+        f[e] = rstd * (aw * d - m1 - xh * m2);
+      }
+      dst[i] = Vec<T>::store(f);
+    }
+  } else {
+    for (int i = threadIdx.x; i < len; i += kThreads) {
+      const Channel ch = chs[per_channel(static_cast<uint32_t>(m.begin + i)) - m.c_first];
+      float xh;
+      const float d = grad_z(fmdm::to_float(xs[i]), fmdm::to_float(dys[i]), mean, rstd, ch, film,
+                             act, xh);
+      dx[i] = fmdm::from_float<T>(rstd * (ch.scale1 * ch.w * d - m1 - xh * m2));
+    }
+  }
+}
+
+// Warp 0 adds `count` pairs, pair(r) for r in [0, count), in rank order (one
+// per lane, then the lanes in order; count <= 32); thread 0 hands the sums
+// to `finish`.
+template <typename Pair, typename Finish>
+__device__ __forceinline__ void rank_order_sum(int count, Pair pair, Finish finish) {
+  if (threadIdx.x < 32) {
+    float2 mine = make_float2(0.f, 0.f);
+    if (static_cast<int>(threadIdx.x) < count) mine = pair(threadIdx.x);
+    float a = 0.f, b = 0.f;
+    for (int r = 0; r < count; ++r) {
+      a += __shfl_sync(0xffffffffu, mine.x, r);
+      b += __shfl_sync(0xffffffffu, mine.y, r);
+    }
+    if (threadIdx.x == 0) finish(a, b);
+  }
+}
+
+// grid (R, N*G), cluster (R, 1, 1): CTA r holds elements [r*chunk,
+// min((r+1)*chunk, group_size)) of x of group y in shared memory. As
+// gn_cluster: with kVec, chunk and piece are multiples of the 16-byte
+// vector, and x, dy, dx 16-byte aligned. Writes dx and (A, B) per (sample,
+// channel) into sums.
+template <typename T, typename W, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    gn_bwd_cluster(const T* __restrict__ x, const T* __restrict__ dy, const W* __restrict__ weight,
+                   const W* __restrict__ bias, const T* __restrict__ scale,
+                   const T* __restrict__ shift, T* __restrict__ dx, float* __restrict__ sums,
+                   int channels, int groups, int hw, int group_size, int chunk, int piece,
+                   int item, int items, int slots, FastDiv per_channel, float eps, int act) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bars[kMaxPieces];
+  __shared__ float2 partial, s_partial;
+  __shared__ float s_mean, s_rstd, s_m1, s_m2;
+
+  const int ctas = gridDim.x, rank = blockIdx.x;
+  const int begin = rank * chunk;
+  const int len = max(0, min(chunk, group_size - begin));
+  const int64_t grp = blockIdx.y;
+  const int64_t offset = grp * group_size + begin;
+  const int held = (chunk * static_cast<int>(sizeof(T)) + 15) / 16 * 16;
+  const BwdSmem sm = bwd_smem(smem, held, items, slots);
+  T* xs = reinterpret_cast<T*>(sm.xs);
+  const T* gs = dy + offset;
+
+  float s1 = 0.f, s2 = 0.f;
+  if (kVec) {
+    constexpr int N = Vec<T>::kN;
+    const int pieces = (len + piece - 1) / piece;
+    const uint32_t bar0 = smem_addr(bars);
+    if (threadIdx.x == 0) {
+      for (int p = 0; p < pieces; ++p) mbar_init(bar0 + 8 * p, 1);
+      fence_mbar_init();
+      for (int p = 0; p < pieces; ++p) {
+        const int start = p * piece;
+        const uint32_t bytes = static_cast<uint32_t>(min(piece, len - start)) * sizeof(T);
+        mbar_expect_tx(bar0 + 8 * p, bytes);
+        bulk_load(smem_addr(xs + start), x + offset + start, bytes, bar0 + 8 * p);
+      }
+    }
+    __syncthreads();  // the mbarriers are initialized before anyone waits on them
+    const uint4* v = reinterpret_cast<const uint4*>(xs);
+    for (int p = 0; p < pieces; ++p) {
+      mbar_wait(bar0 + 8 * p, 0);
+      const int end = min((p + 1) * piece, len) / N;
+      for (int i = p * piece / N + threadIdx.x; i < end; i += kThreads) {
+        float f[N];
+        Vec<T>::load(v[i], f);
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          s1 += f[j];
+          s2 += f[j] * f[j];
+        }
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < len; i += kThreads) {
+      const T e = x[offset + i];
+      xs[i] = e;
+      const float f = fmdm::to_float(e);
+      s1 += f;
+      s2 += f * f;
+    }
+  }
+  block_sum2(s1, s2);
+  if (threadIdx.x == 0) partial = make_float2(s1, s2);
+
+  const ChunkMap m = chunk_map(begin, begin + len, hw, item);
+  const int n = static_cast<int>(grp / groups);
+  const int c0 = static_cast<int>(grp % groups) * (channels / groups);
+  const int64_t nc0 = static_cast<int64_t>(n) * channels + c0;
+  load_channels(m, weight, bias, scale, shift, c0, nc0, sm.chs);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  if (ctas > 1) {
+    cluster.sync();  // every CTA's statistics partials are written
+  } else {
+    __syncthreads();
+  }
+  rank_order_sum(
+      ctas,
+      [&](int r) { return ctas > 1 ? *cluster.map_shared_rank(&partial, r) : partial; },
+      [&](float a, float b) {
+        moments(a, b, static_cast<float>(group_size), eps, s_mean, s_rstd);
+      });
+  __syncthreads();
+
+  const float mean = s_mean, rstd = s_rstd;
+  const bool film = scale != nullptr, silu = act != 0;
+  item_sums<T, kVec>(xs, gs, m, sm.chs, mean, rstd, film, silu, sm.items);
+  __syncthreads();
+  slot_sums(m, sm.items, sm.chs, sm.slots, &s_partial);
+  if (ctas > 1) {
+    cluster.sync();  // every CTA's slots and (S1, S2) partial are written
+  } else {
+    __syncthreads();
+  }
+  const float size = static_cast<float>(group_size);
+  rank_order_sum(
+      ctas,
+      [&](int r) { return ctas > 1 ? *cluster.map_shared_rank(&s_partial, r) : s_partial; },
+      [&](float a, float b) {
+        s_m1 = a / size;
+        s_m2 = b / size;
+      });
+  owner_sums(
+      m, rank, chunk,
+      [&](int q) { return ctas > 1 ? cluster.map_shared_rank(sm.slots, q) : sm.slots; }, sums,
+      nc0);
+  __syncthreads();
+  if (ctas > 1) cluster_arrive();  // this CTA is done reading its peers
+
+  write_dx<T, kVec>(xs, gs, dx + offset, m, per_channel, sm.chs, mean, rstd, s_m1, s_m2, film,
+                    silu);
+  if (ctas > 1) cluster_wait();  // no CTA leaves while a peer may still read its slots
+}
+
+// ---- the split: groups larger than any cluster holds ----
+
+// Per (split, group): (sum, sum of squares) of x's chunk into moments, as
+// gn_stats.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    gn_bwd_moments(const T* __restrict__ x, float* __restrict__ moments_out, int group_size,
+                   int chunk) {
+  const int split = blockIdx.x;
+  const int splits = gridDim.x;
+  const int64_t grp = blockIdx.y;
+  const T* base = x + grp * group_size;
+  const int begin = split * chunk;
+  const int end = min(begin + chunk, group_size);
+  float s1 = 0.f, s2 = 0.f;
+  if (kVec) {
+    constexpr int N = Vec<T>::kN;
+    const uint4* p = reinterpret_cast<const uint4*>(base + begin);
+    const int nvec = end > begin ? (end - begin) / N : 0;
+    for (int i = threadIdx.x; i < nvec; i += kThreads) {
+      float f[N];
+      Vec<T>::load(__ldg(p + i), f);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        s1 += f[j];
+        s2 += f[j] * f[j];
+      }
+    }
+  } else {
+    for (int i = begin + threadIdx.x; i < end; i += kThreads) {
+      const float f = fmdm::to_float(base[i]);
+      s1 += f;
+      s2 += f * f;
+    }
+  }
+  block_sum2(s1, s2);
+  if (threadIdx.x == 0) {
+    moments_out[2 * (grp * splits + split)] = s1;
+    moments_out[2 * (grp * splits + split) + 1] = s2;
+  }
+}
+
+// Warp 0 adds the group's `splits` pairs (warp-strided, then the butterfly:
+// the same order in every block) and hands the sums to `finish`.
+template <typename Finish>
+__device__ __forceinline__ void split_sum(const float* pairs, int64_t grp, int splits,
+                                          Finish finish) {
+  if (threadIdx.x < 32) {
+    float a = 0.f, b = 0.f;
+    for (int i = threadIdx.x; i < splits; i += 32) {
+      a += pairs[2 * (grp * splits + i)];
+      b += pairs[2 * (grp * splits + i) + 1];
+    }
+    a = fmdm::warp_sum(a);
+    b = fmdm::warp_sum(b);
+    if (threadIdx.x == 0) finish(a, b);
+  }
+}
+
+// Per (split, group): the chunk's items, slots (into chan, `slots` pairs per
+// chunk) and (S1, S2) partial (into spart), read from device memory.
+template <typename T, typename W, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    gn_bwd_sums(const T* __restrict__ x, const T* __restrict__ dy, const W* __restrict__ weight,
+                const W* __restrict__ bias, const T* __restrict__ scale,
+                const T* __restrict__ shift, const float* __restrict__ moments_in,
+                float* __restrict__ spart, float2* __restrict__ chan, int channels, int groups,
+                int hw, int chunk, int item, int items, int slots, float eps, int act) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float s_mean, s_rstd;
+  __shared__ float2 s_partial;
+  const int split = blockIdx.x, splits = gridDim.x;
+  const int64_t grp = blockIdx.y;
+  const int cg = channels / groups;
+  const int group_size = cg * hw;
+  const BwdSmem sm = bwd_smem(smem, 0, items, slots);
+  const int begin = split * chunk;
+  const ChunkMap m = chunk_map(begin, min(begin + chunk, group_size), hw, item);
+  const int n = static_cast<int>(grp / groups);
+  const int c0 = static_cast<int>(grp % groups) * cg;
+  const int64_t nc0 = static_cast<int64_t>(n) * channels + c0;
+  load_channels(m, weight, bias, scale, shift, c0, nc0, sm.chs);
+  split_sum(moments_in, grp, splits, [&](float a, float b) {
+    moments(a, b, static_cast<float>(group_size), eps, s_mean, s_rstd);
+  });
+  __syncthreads();
+  const int64_t offset = grp * group_size + begin;
+  item_sums<T, kVec>(x + offset, dy + offset, m, sm.chs, s_mean, s_rstd, scale != nullptr,
+                     act != 0, sm.items);
+  __syncthreads();
+  float2* mine = chan + (grp * splits + split) * slots;
+  slot_sums(m, sm.items, sm.chs, mine, &s_partial);
+  if (threadIdx.x == 0) {
+    spart[2 * (grp * splits + split)] = s_partial.x;
+    spart[2 * (grp * splits + split) + 1] = s_partial.y;
+  }
+}
+
+// Per (split, group): the owned channels' (A, B) into sums, then dx.
+template <typename T, typename W, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    gn_bwd_dx(const T* __restrict__ x, const T* __restrict__ dy, const W* __restrict__ weight,
+              const W* __restrict__ bias, const T* __restrict__ scale,
+              const T* __restrict__ shift, T* __restrict__ dx,
+              const float* __restrict__ moments_in, const float* __restrict__ spart,
+              const float2* __restrict__ chan, float* __restrict__ sums, int channels,
+              int groups, int hw, int chunk, int item, int slots,
+              FastDiv per_channel, float eps, int act) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float s_mean, s_rstd, s_m1, s_m2;
+  const int split = blockIdx.x, splits = gridDim.x;
+  const int64_t grp = blockIdx.y;
+  const int cg = channels / groups;
+  const int group_size = cg * hw;
+  const BwdSmem sm = bwd_smem(smem, 0, 0, slots);
+  const int begin = split * chunk;
+  const ChunkMap m = chunk_map(begin, min(begin + chunk, group_size), hw, item);
+  const int n = static_cast<int>(grp / groups);
+  const int c0 = static_cast<int>(grp % groups) * cg;
+  const int64_t nc0 = static_cast<int64_t>(n) * channels + c0;
+  load_channels(m, weight, bias, scale, shift, c0, nc0, sm.chs);
+  const float size = static_cast<float>(group_size);
+  split_sum(moments_in, grp, splits,
+            [&](float a, float b) { moments(a, b, size, eps, s_mean, s_rstd); });
+  split_sum(spart, grp, splits, [&](float a, float b) {
+    s_m1 = a / size;
+    s_m2 = b / size;
+  });
+  owner_sums(
+      m, split, chunk, [&](int q) { return chan + (grp * splits + q) * slots; }, sums, nc0);
+  __syncthreads();
+  const int64_t offset = grp * group_size + begin;
+  write_dx<T, kVec>(x + offset, dy + offset, dx + offset, m, per_channel, sm.chs, s_mean, s_rstd,
+                    s_m1, s_m2, scale != nullptr, act != 0);
+}
+
+// ---- the parameters' gradients ----
+
+// One thread per channel: dweight, dbias over the samples in order; with
+// FiLM, dscale and dshift per (sample, channel).
+template <typename T, typename W>
+__global__ void __launch_bounds__(kThreads)
+    gn_bwd_params(const float* __restrict__ sums, const W* __restrict__ weight,
+                  const W* __restrict__ bias, const T* __restrict__ scale, W* __restrict__ dweight,
+                  W* __restrict__ dbias, T* __restrict__ dscale, T* __restrict__ dshift, int n,
+                  int channels) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= channels) return;
+  const float w = fmdm::to_float(weight[c]), b = fmdm::to_float(bias[c]);
+  float gw = 0.f, gb = 0.f;
+  for (int i = 0; i < n; ++i) {
+    const int64_t nc = static_cast<int64_t>(i) * channels + c;
+    const float a_sum = sums[2 * nc], b_sum = sums[2 * nc + 1];
+    float a = 1.f;
+    if (scale != nullptr) {
+      a = 1.f + fmdm::to_float(scale[nc]);
+      dscale[nc] = fmdm::from_float<T>(w * b_sum + b * a_sum);
+      dshift[nc] = fmdm::from_float<T>(a_sum);
+    }
+    gw += a * b_sum;
+    gb += a * a_sum;
+  }
+  dweight[c] = fmdm::from_float<W>(gw);
+  dbias[c] = fmdm::from_float<W>(gb);
+}
+
+// ---- host side ----
+
+struct BwdArgs {
+  const void *x, *dy, *weight, *bias, *scale, *shift;
+  void *dx, *dweight, *dbias, *dscale, *dshift;
+  float* scratch;
+  int device, n, channels, groups;
+  int64_t hw;
+  bool single_pass;
+  int ctas;  // the cluster's size, or the split count
+  int64_t chunk, piece, item;
+  int items, slots, smem;
+  float eps;
+  int act;
+  bool vec;
+  cudaStream_t stream;
+};
+
+// The bytes bwd_smem lays out in the split (no chunk held).
+int bwd_smem_bytes(int items, int slots) {
+  return (items + 1) / 2 * 16 + (slots + 1) / 2 * 16 + slots * static_cast<int>(sizeof(Channel));
+}
+
+template <typename T, typename W, bool kVec>
+cudaError_t prepare_bwd_cluster(const BwdArgs& a) {
+  static int allowed_smem[kMaxDevices] = {};
+  static bool wide[kMaxDevices] = {};
+  return allow(gn_bwd_cluster<T, W, kVec>, a.device, a.smem, a.ctas, allowed_smem, wide);
+}
+
+cudaLaunchConfig_t bwd_cluster_config(const BwdArgs& a, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.ctas, a.n * a.groups);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = a.smem;
+  cfg.stream = a.stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = a.ctas;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename T, bool kVec>
+FastDiv bwd_per_channel(const BwdArgs& a) {
+  return make_fast_div(static_cast<uint32_t>(kVec ? a.hw / Vec<T>::kN : a.hw));
+}
+
+template <typename T, typename W, bool kVec>
+cudaError_t launch_bwd_cluster(const BwdArgs& a) {
+  cudaError_t err = prepare_bwd_cluster<T, W, kVec>(a);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = bwd_cluster_config(a, &attr);
+  err = cudaLaunchKernelEx(
+      &cfg, gn_bwd_cluster<T, W, kVec>, static_cast<const T*>(a.x), static_cast<const T*>(a.dy),
+      static_cast<const W*>(a.weight), static_cast<const W*>(a.bias),
+      static_cast<const T*>(a.scale), static_cast<const T*>(a.shift), static_cast<T*>(a.dx),
+      a.scratch, a.channels, a.groups, static_cast<int>(a.hw),
+      static_cast<int>(a.channels / a.groups * a.hw), static_cast<int>(a.chunk),
+      static_cast<int>(a.piece), static_cast<int>(a.item), a.items, a.slots,
+      bwd_per_channel<T, kVec>(a), a.eps, a.act);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename T, typename W, bool kVec>
+cudaError_t launch_bwd_split(const BwdArgs& a) {
+  static int allowed_sums[kMaxDevices] = {};
+  static int allowed_dx[kMaxDevices] = {};
+  static bool wide_sums[kMaxDevices] = {};
+  static bool wide_dx[kMaxDevices] = {};
+  const dim3 grid(a.ctas, a.n * a.groups);
+  const int group_size = static_cast<int>(a.channels / a.groups * a.hw);
+  const int64_t pairs = 2 * static_cast<int64_t>(a.n) * a.groups * a.ctas;
+  float* moments_buf = a.scratch + 2 * static_cast<int64_t>(a.n) * a.channels;
+  float* spart = moments_buf + pairs;
+  float2* chan = reinterpret_cast<float2*>(spart + pairs);
+  const int smem_dx = bwd_smem_bytes(0, a.slots);
+  cudaError_t err = allow(gn_bwd_sums<T, W, kVec>, a.device, a.smem, 1, allowed_sums, wide_sums);
+  if (err != cudaSuccess) return err;
+  err = allow(gn_bwd_dx<T, W, kVec>, a.device, smem_dx, 1, allowed_dx, wide_dx);
+  if (err != cudaSuccess) return err;
+  const T* xt = static_cast<const T*>(a.x);
+  const T* gt = static_cast<const T*>(a.dy);
+  const W* wt = static_cast<const W*>(a.weight);
+  const W* bt = static_cast<const W*>(a.bias);
+  const T* st = static_cast<const T*>(a.scale);
+  const T* ht = static_cast<const T*>(a.shift);
+  gn_bwd_moments<T, kVec><<<grid, kThreads, 0, a.stream>>>(xt, moments_buf, group_size,
+                                                            static_cast<int>(a.chunk));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gn_bwd_sums<T, W, kVec><<<grid, kThreads, a.smem, a.stream>>>(
+      xt, gt, wt, bt, st, ht, moments_buf, spart, chan, a.channels, a.groups,
+      static_cast<int>(a.hw), static_cast<int>(a.chunk), static_cast<int>(a.item), a.items,
+      a.slots, a.eps, a.act);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gn_bwd_dx<T, W, kVec><<<grid, kThreads, smem_dx, a.stream>>>(
+      xt, gt, wt, bt, st, ht, static_cast<T*>(a.dx), moments_buf, spart, chan, a.scratch,
+      a.channels, a.groups, static_cast<int>(a.hw), static_cast<int>(a.chunk),
+      static_cast<int>(a.item), a.slots, bwd_per_channel<T, kVec>(a), a.eps, a.act);
+  return cudaGetLastError();
+}
+
+template <typename T, typename W>
+cudaError_t launch_bwd(const BwdArgs& a) {
+  cudaError_t err;
+  if (a.single_pass) {
+    err = a.vec ? launch_bwd_cluster<T, W, true>(a) : launch_bwd_cluster<T, W, false>(a);
+  } else {
+    err = a.vec ? launch_bwd_split<T, W, true>(a) : launch_bwd_split<T, W, false>(a);
+  }
+  if (err != cudaSuccess) return err;
+  gn_bwd_params<T, W><<<(a.channels + kThreads - 1) / kThreads, kThreads, 0, a.stream>>>(
+      a.scratch, static_cast<const W*>(a.weight), static_cast<const W*>(a.bias),
+      static_cast<const T*>(a.scale), static_cast<W*>(a.dweight), static_cast<W*>(a.dbias),
+      static_cast<T*>(a.dscale), static_cast<T*>(a.dshift), a.n, a.channels);
+  return cudaGetLastError();
+}
+
+template <typename T, typename W, bool kVec>
+cudaError_t max_bwd_clusters(const BwdArgs& a, int* count) {
+  cudaError_t err = prepare_bwd_cluster<T, W, kVec>(a);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = bwd_cluster_config(a, &attr);
+  return cudaOccupancyMaxActiveClusters(count, gn_bwd_cluster<T, W, kVec>, &cfg);
+}
+
+template <typename T, typename W>
+cudaError_t query_bwd(const BwdArgs& a, int* count) {
+  return a.vec ? max_bwd_clusters<T, W, true>(a, count) : max_bwd_clusters<T, W, false>(a, count);
+}
+
+}  // namespace
+
+// K1's backward. x, dy, dx: (N, C, hw) contiguous, f32 or bf16 (x_bf16);
+// weight, bias, dweight, dbias: (C,) f32 or bf16 (w_bf16); scale, shift,
+// dscale, dshift: (N, C) in x's dtype, or null for no FiLM. scratch: f32,
+// 2 * N * C for (A, B) per (sample, channel), and for the split 4 * N *
+// groups * ctas + 2 * N * groups * ctas * slots more. single_pass:
+// gn_bwd_cluster with a cluster of `ctas` CTAs per group holding `chunk`
+// elements each of x in `smem` bytes of dynamic shared memory, copied in
+// pieces of `piece` elements (at most 8); otherwise the split's three
+// grids of `ctas` chunks (`smem`: gn_bwd_sums' dynamic shared memory). A
+// chunk meets at most `items` items of `item` elements and `slots` channels.
+// With vec set, chunk, piece, item and hw are multiples of the 16-byte
+// vector width and the pointers 16-byte aligned. gn_bwd_params follows.
+// Returns the CUDA error of the launches (0 on success).
+extern "C" int fmdm_group_norm_act_backward(
+    int device, const void* x, const void* dy, const void* weight, const void* bias,
+    const void* scale, const void* shift, void* dx, void* dweight, void* dbias, void* dscale,
+    void* dshift, void* scratch, int n, int channels, int groups, long long hw, int single_pass,
+    int ctas, long long chunk, long long piece, long long item, int items, int slots, int smem,
+    float eps, int act, int x_bf16, int w_bf16, int vec, void* stream) {
+  const bool bad_pass = ctas > kMaxCluster || (vec && piece < 1) ||
+                        (vec && (chunk + piece - 1) / piece > kMaxPieces);
+  if (ctas < 1 || item < 1 || (single_pass && bad_pass)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const BwdArgs a{x, dy, weight, bias, scale, shift, dx, dweight, dbias, dscale, dshift,
+                  static_cast<float*>(scratch), device, n, channels, groups, hw,
+                  single_pass != 0, ctas, chunk, piece, item, items, slots, smem, eps, act,
+                  vec != 0, static_cast<cudaStream_t>(stream)};
+  if (x_bf16) {
+    err = w_bf16 ? launch_bwd<__nv_bfloat16, __nv_bfloat16>(a)
+                 : launch_bwd<__nv_bfloat16, float>(a);
+  } else {
+    err = w_bf16 ? launch_bwd<float, __nv_bfloat16>(a) : launch_bwd<float, float>(a);
+  }
+  return static_cast<int>(err);
+}
+
+// How many clusters of gn_bwd_cluster with `ctas` CTAs of `smem` bytes each
+// the card can hold at once into *count; 0 means that cluster does not
+// schedule. Returns the CUDA error (0 on success).
+extern "C" int fmdm_group_norm_backward_max_clusters(int device, int ctas, int smem, int x_bf16,
+                                                     int w_bf16, int vec, int* count) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  BwdArgs a{};
+  a.device = device;
+  a.n = 1;
+  a.groups = 1;
+  a.ctas = ctas;
+  a.smem = smem;
+  a.vec = vec != 0;
+  if (x_bf16) {
+    err = w_bf16 ? query_bwd<__nv_bfloat16, __nv_bfloat16>(a, count)
+                 : query_bwd<__nv_bfloat16, float>(a, count);
+  } else {
+    err = w_bf16 ? query_bwd<float, __nv_bfloat16>(a, count) : query_bwd<float, float>(a, count);
+  }
+  return static_cast<int>(err);
+}

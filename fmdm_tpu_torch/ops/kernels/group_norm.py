@@ -15,9 +15,18 @@ reads x twice. :func:`plan` chooses the variant, R and the chunk from the
 shape before the launch; a launch that fails raises.
 
 :func:`group_norm_act` launches a kernel for a CUDA tensor and takes the
-plain version, :func:`group_norm_act_reference`, only for a CPU tensor. The
-backward recomputes the plain version's autograd, as the JAX ``_fused_bwd``
-recomputes the XLA reference VJP.
+plain version, :func:`group_norm_act_reference`, only for a CPU tensor.
+
+The backward on a CUDA tensor is a kernel too (``gn_bwd_*`` in the same
+source): x and dy in, dx and the parameters' gradients out, the statistics
+recomputed from x. :func:`backward_plan` chooses between the single pass,
+``gn_bwd_cluster`` (one cluster per group holding its x in shared memory,
+dy read from device memory), and the split, ``gn_bwd_moments`` +
+``gn_bwd_sums`` + ``gn_bwd_dx``; ``gn_bwd_params`` then sums the
+parameters' gradients over the samples. The plain backward,
+:func:`group_norm_act_backward_reference`, recomputes the plain version
+under autograd, as the JAX ``_fused_bwd`` recomputes the XLA reference's
+VJP; it serves CPU tensors and the tests.
 """
 
 from __future__ import annotations
@@ -44,6 +53,15 @@ K1 = build.KernelRecord(
     variants={"single_pass": 0, "split": 0},
 )
 
+# ``launches`` counts calls, ``variants`` calls per path; every call also
+# launches gn_bwd_params
+K1B = build.KernelRecord(
+    name="K1 group_norm_act backward",
+    source="fmdm_tpu_torch/csrc/group_norm.cu",
+    replaces="fmdm_tpu/ops/pallas/group_norm.py:141 (_fused_bwd, the XLA reference's VJP)",
+    variants={"single_pass": 0, "split": 0},
+)
+
 THREADS = 256                # kThreads in group_norm.cu
 SMEM_PER_BLOCK = 232_448     # shared memory one block may use on sm_90 (227 KB)
 _STATIC_SMEM = 1024          # room for gn_cluster's static shared memory (256 bytes)
@@ -56,6 +74,11 @@ _CLUSTER_SIZES = (1, 2, 4, 8, 16)
 _SPLIT_BLOCKS_PER_SM = 4     # split variant: blocks in flight per SM
 _SPLIT_MIN_LOADS = 4         # split variant: least loads per thread
 _DTYPES = (torch.float32, torch.bfloat16)
+ITEM_VECTORS = 64            # backward: a warp's item, 2 vectors per lane (kLaneVectors)
+ITEM_ELEMENTS = 512          # backward without vectors: 16 elements per lane
+SPLIT_ITEMS = 2048           # backward split: most items per chunk, so their pairs stay small
+BWD_CHUNK_BYTES = 32 * 1024  # backward: bytes of x one CTA holds (dy is not held)
+BWD_CTAS_PER_SM = 3          # backward single pass: CTAs per SM that a call's grid should fill
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +132,91 @@ def split_plan(group_size: int, elem_bytes: int, vec: bool, group_count: int, *,
     return Plan(False, math.ceil(group_size / chunk), chunk, 0, 0, vec)
 
 
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """How K1's backward covers each (sample, group) of a call."""
+
+    single_pass: bool  # gn_bwd_cluster; else gn_bwd_moments + gn_bwd_sums + gn_bwd_dx
+    ctas: int          # CTAs per group: the cluster's size, or the split count
+    chunk: int         # elements of the group per CTA; CTA r takes [r*chunk, (r+1)*chunk)
+    piece: int         # elements per bulk copy (single pass with 16-byte vectors)
+    item: int          # elements of one channel that a warp sums at a time
+    items: int         # most items one chunk meets
+    slots: int         # most channels one chunk meets
+    smem: int          # dynamic shared memory per CTA in bytes (the split: gn_bwd_sums')
+    vec: bool          # 16-byte vectors
+
+
+def _meets(group_size: int, hw: int, chunk: int, ctas: int, item: int):
+    """The most items (``item`` elements of one channel at most, aligned to
+    the channel's start) and channels that one of the ``ctas`` chunks meets."""
+    per_channel = -(-hw // item)
+    items = slots = 0
+    for r in range(ctas):
+        begin, end = r * chunk, min((r + 1) * chunk, group_size)
+        if begin >= end:
+            continue
+        first, last = begin // hw, (end - 1) // hw
+        slots = max(slots, last - first + 1)
+        items = max(items, (last - first) * per_channel + (end - 1) % hw // item
+                    - begin % hw // item + 1)
+    return items, slots
+
+
+def _bwd_smem(held: int, items: int, slots: int) -> int:
+    """Bytes of ``bwd_smem``'s layout in group_norm.cu: x's chunk (``held``
+    bytes), the items' and slots' f32 pairs, the slots' channel coefficients
+    (four f32)."""
+    return held + 16 * -(-items // 2) + 16 * -(-slots // 2) + 16 * slots
+
+
+def backward_plan(group_size: int, hw: int, elem_bytes: int, vec: bool, group_count: int, *,
+                  max_cluster: int = PORTABLE_CLUSTER, chunk_bytes: int = BWD_CHUNK_BYTES,
+                  pieces: int = PIECES, sm_count: int = 132) -> BackwardPlan:
+    """K1's backward plan for ``group_count`` groups of ``group_size``
+    elements, ``hw`` to a channel.
+
+    Of the clusters whose chunks of x are at most ``chunk_bytes``, so that
+    several CTAs share an SM: the smallest that gives the call
+    BWD_CTAS_PER_SM CTAs per SM or chunks of at most one sweep of the block
+    (a group's arithmetic is spread over the card as its bytes are), else
+    the one with the most CTAs. If none is small enough, the largest allowed
+    cluster where its chunk fits a block's shared memory; else the split."""
+    unit = 16 // elem_bytes if vec else 1
+    item = ITEM_VECTORS * unit if vec else ITEM_ELEMENTS
+    sizes = [r for r in _CLUSTER_SIZES if r <= max_cluster]
+    chunks = {r: _round_up(-(-group_size // r), unit) for r in sizes}
+    held = {r: _round_up(chunks[r] * elem_bytes, 16) for r in sizes}
+    small = [r for r in sizes if held[r] <= chunk_bytes]
+    full = [r for r in small if group_count * r >= BWD_CTAS_PER_SM * sm_count
+            or chunks[r] <= THREADS * unit]
+    ctas = full[0] if full else small[-1] if small else sizes[-1]
+    chunk = chunks[ctas]
+    items, slots = _meets(group_size, hw, chunk, ctas, item)
+    smem = _bwd_smem(held[ctas], items, slots)
+    if smem > SMEM_PER_BLOCK - _STATIC_SMEM:
+        return backward_split_plan(group_size, hw, elem_bytes, vec, group_count,
+                                   sm_count=sm_count)
+    piece = _round_up(-(-chunk // pieces), THREADS * unit) if vec else chunk
+    return BackwardPlan(True, ctas, chunk, piece, item, items, slots, smem, vec)
+
+
+def backward_split_plan(group_size: int, hw: int, elem_bytes: int, vec: bool, group_count: int,
+                        *, sm_count: int = 132) -> BackwardPlan:
+    """The backward's split: :func:`split_plan`'s chunks, with items large
+    enough that a chunk meets at most about SPLIT_ITEMS of them."""
+    p = split_plan(group_size, elem_bytes, vec, group_count, sm_count=sm_count)
+    unit = 16 // elem_bytes if vec else 1
+    item = max(ITEM_VECTORS * unit if vec else ITEM_ELEMENTS,
+               _round_up(-(-p.chunk // SPLIT_ITEMS), 32 * unit))
+    items, slots = _meets(group_size, hw, p.chunk, p.ctas, item)
+    smem = _bwd_smem(0, items, slots)
+    if smem > SMEM_PER_BLOCK - _STATIC_SMEM:
+        raise ValueError(f"group_norm_act backward: a chunk meets {slots} channels, more than "
+                         f"a block's shared memory holds")
+    return BackwardPlan(False, p.ctas, p.chunk, 0, item, items, slots, smem, vec)
+
+
 def group_norm_act_reference(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -133,6 +241,21 @@ def group_norm_act_reference(
     return y.to(x.dtype)
 
 
+def group_norm_act_backward_reference(grad, x, weight, bias, scale, shift, num_groups: int,
+                                      eps: float, act: bool):
+    """Plain version of K1's backward: :func:`group_norm_act_reference`
+    recomputed from the saved inputs, then its autograd. Returns (dx,
+    dweight, dbias, dscale, dshift), the last two None without FiLM, each in
+    its input's dtype."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(True)
+                  for t in (x, weight, bias, scale, shift)]
+        out = group_norm_act_reference(leaves[0], leaves[1], leaves[2], num_groups=num_groups,
+                                       eps=eps, act=act, scale=leaves[3], shift=leaves[4])
+        grads = iter(torch.autograd.grad(out, [t for t in leaves if t is not None], grad))
+    return tuple(None if t is None else next(grads) for t in leaves)
+
+
 @functools.lru_cache(maxsize=1)
 def _entries():
     lib = build.library()
@@ -144,7 +267,14 @@ def _entries():
     query = lib.fmdm_group_norm_max_clusters
     query.argtypes = [I, I, I, I, I, I, ctypes.POINTER(I)]
     query.restype = I
-    return run, query
+    backward = lib.fmdm_group_norm_act_backward
+    backward.argtypes = [I, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, L, I, I, L, L, L, I, I,
+                         I, ctypes.c_float, I, I, I, I, P]
+    backward.restype = I
+    backward_query = lib.fmdm_group_norm_backward_max_clusters
+    backward_query.argtypes = [I, I, I, I, I, I, ctypes.POINTER(I)]
+    backward_query.restype = I
+    return run, query, backward, backward_query
 
 
 @functools.lru_cache(maxsize=None)
@@ -172,6 +302,32 @@ def _device_plan(index: int, group_size: int, elem_bytes: int, vec: bool, group_
             and _max_clusters(index, p.ctas, p.smem, x_bf16, w_bf16, vec) < 1:
         p = plan(group_size, elem_bytes, vec, group_count, max_cluster=PORTABLE_CLUSTER,
                  sm_count=sms)
+    return p
+
+
+@functools.lru_cache(maxsize=None)
+def _max_bwd_clusters(index: int, ctas: int, smem: int, x_bf16: bool, w_bf16: bool,
+                      vec: bool) -> int:
+    """Clusters of ``gn_bwd_cluster`` that the card holds at once."""
+    count = ctypes.c_int(0)
+    status = _entries()[3](index, ctas, smem, int(x_bf16), int(w_bf16), int(vec),
+                           ctypes.byref(count))
+    build.check_status(status, K1B.name)
+    return count.value
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_device_plan(index: int, group_size: int, hw: int, elem_bytes: int, vec: bool,
+                     group_count: int, x_bf16: bool, w_bf16: bool) -> BackwardPlan:
+    """:func:`backward_plan` for this card: a 16-CTA cluster only where it
+    schedules."""
+    sms = _sm_count(index)
+    p = backward_plan(group_size, hw, elem_bytes, vec, group_count, max_cluster=WIDE_CLUSTER,
+                      sm_count=sms)
+    if p.single_pass and p.ctas > PORTABLE_CLUSTER \
+            and _max_bwd_clusters(index, p.ctas, p.smem, x_bf16, w_bf16, vec) < 1:
+        p = backward_plan(group_size, hw, elem_bytes, vec, group_count,
+                          max_cluster=PORTABLE_CLUSTER, sm_count=sms)
     return p
 
 
@@ -248,8 +404,57 @@ def _launch(x, weight, bias, scale, shift, num_groups: int, eps: float, act: boo
     return out
 
 
+def _launch_backward(grad, x, weight, bias, scale, shift, num_groups: int, eps: float,
+                     act: bool, p: Optional[BackwardPlan] = None):
+    """Launch K1's backward on the current stream (the forward's inputs,
+    validated, and the output's gradient) with the plan for this card, or
+    with ``p``. Returns (dx, dweight, dbias, dscale, dshift), the last two
+    None without FiLM."""
+    n, c = x.shape[0], x.shape[1]
+    if grad.dtype != x.dtype or not grad.is_contiguous():
+        grad = grad.to(x.dtype).contiguous()
+    dx = torch.empty_like(x)
+    dweight, dbias = torch.empty_like(weight), torch.empty_like(bias)
+    film = scale is not None
+    dscale, dshift = (torch.empty_like(scale), torch.empty_like(shift)) if film else (None, None)
+    if x.numel() == 0:
+        for t in (dweight, dbias, dscale, dshift):
+            if t is not None:
+                t.zero_()
+        return dx, dweight, dbias, dscale, dshift
+    hw = x.numel() // (n * c)
+    group_size = (c // num_groups) * hw
+    if group_size >= 2**31:
+        raise ValueError(f"group_norm_act backward: a group of {group_size} elements; the "
+                         f"kernels index a group with 32-bit integers")
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    x_bf16, w_bf16 = x.dtype == torch.bfloat16, weight.dtype == torch.bfloat16
+    if p is None:
+        vec = vector_aligned(x, dx) and grad.data_ptr() % 16 == 0
+        p = _bwd_device_plan(index, group_size, hw, x.element_size(), vec, n * num_groups,
+                             x_bf16, w_bf16)
+    split = 0 if p.single_pass else 2 * n * num_groups * p.ctas * (2 + p.slots)
+    scratch = torch.empty(2 * n * c + split, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    status = _entries()[2](
+        index, x.data_ptr(), grad.data_ptr(), weight.data_ptr(), bias.data_ptr(), ptr(scale),
+        ptr(shift), dx.data_ptr(), dweight.data_ptr(), dbias.data_ptr(), ptr(dscale),
+        ptr(dshift), scratch.data_ptr(), n, c, num_groups, hw, int(p.single_pass), p.ctas,
+        p.chunk, p.piece, p.item, p.items, p.slots, p.smem, float(eps), int(bool(act)),
+        int(x_bf16), int(w_bf16), int(p.vec), stream,
+    )
+    build.check_status(status, K1B.name)
+    K1B.launches += 1
+    K1B.variants["single_pass" if p.single_pass else "split"] += 1
+    return dx, dweight, dbias, dscale, dshift
+
+
 class _GroupNormAct(torch.autograd.Function):
-    """Kernel forward; backward through the plain version's autograd."""
+    """Kernel forward; kernel backward (the plain one for CPU tensors)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, scale, shift, num_groups, eps, act):
@@ -259,17 +464,12 @@ class _GroupNormAct(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        num_groups, eps, act = ctx.config
-        with span("k1.backward"), torch.enable_grad():
-            leaves = [None if t is None else t.detach().requires_grad_(need)
-                      for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:5])]
-            out = group_norm_act_reference(
-                leaves[0], leaves[1], leaves[2], num_groups=num_groups, eps=eps, act=act,
-                scale=leaves[3], shift=leaves[4])
-            wanted = [t for t in leaves if t is not None and t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wanted, grad) if wanted else ())
-        return tuple(next(grads) if t is not None and t.requires_grad else None
-                     for t in leaves) + (None, None, None)
+        x, weight, bias, scale, shift = ctx.saved_tensors
+        run = _launch_backward if x.is_cuda else group_norm_act_backward_reference
+        with span("k1.backward"):
+            grads = run(grad, x, weight, bias, scale, shift, *ctx.config)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad[:5])) + (None, None, None)
 
 
 def group_norm_act(

@@ -1,5 +1,5 @@
 """
-K1's plan candidates timed on one CUDA card.
+K1's plan candidates, forward and backward, timed on one CUDA card.
 
     python -m fmdm_tpu_torch.ops.kernels.group_norm_report [--seed 0]
 
@@ -14,6 +14,14 @@ time of back-to-back calls behind a spin kernel (CUDA events), GroupNorm +
 SiLU without FiLM. Prints how many clusters of each plan the card holds at
 once (``cudaOccupancyMaxActiveClusters``; a 16-CTA plan is tried only where
 it schedules) and the card's name and power limit.
+
+Then the backward's (``gn_bwd_*``) at the train paths' largest groups (the
+flagship's calls at batch 16, the 3D model's at batch 4) and two small ones,
+bf16 with f32 weights: every distinct plan that
+:func:`~fmdm_tpu_torch.ops.kernels.group_norm.backward_plan` gives over the
+same grid, and its split, beside the wrapper's plan and the bound (x and dy
+read, dx written at 3.35 TB/s). ``chip_smoke.py`` [26c] times the backward
+over every call of each train step.
 """
 
 from __future__ import annotations
@@ -24,7 +32,8 @@ import subprocess
 import torch
 
 from fmdm_tpu_torch.ops.kernels.group_norm import (
-    PORTABLE_CLUSTER, WIDE_CLUSTER, _device_plan, _launch, _max_clusters, plan, split_plan,
+    PORTABLE_CLUSTER, WIDE_CLUSTER, _bwd_device_plan, _device_plan, _launch, _launch_backward,
+    _max_bwd_clusters, _max_clusters, backward_plan, backward_split_plan, plan, split_plan,
     vector_aligned)
 
 HBM_BYTES_PER_S = 3.35e12
@@ -38,6 +47,11 @@ SHAPES = (((8, 128, 256, 256), torch.bfloat16), ((8, 256, 256, 256), torch.bfloa
           ((64, 256, 64, 64), torch.bfloat16), ((8, 512, 8, 8), torch.bfloat16),
           ((4, 128, 256, 256), torch.float32), ((4, 256, 256, 256), torch.float32),
           ((4, 512, 64, 64), torch.float32))
+# the backward's shapes, bf16: 512 KB and 1 MB groups (the flagship at
+# batch 16), the 3D model's 1.5 MB, 512 KB and 128 KB groups at batch 4, and
+# 8 KB and 2 KB groups
+BACKWARD_SHAPES = ((16, 256, 256, 256), (16, 128, 256, 256), (4, 192, 8, 128, 128),
+                   (4, 128, 4, 64, 64), (4, 256, 2, 32, 32), (16, 512, 16, 16), (16, 512, 8, 8))
 CHUNK_TARGETS = (16 * 1024, 32 * 1024, 64 * 1024, 128 * 1024, 232_448)
 PIECES = (1, 4, 8)
 
@@ -56,12 +70,48 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def describe(p, bf16: bool) -> str:
+def describe(p, at_once) -> str:
+    """A plan in a few words; ``at_once(p)``: its clusters the card holds at once."""
     if not p.single_pass:
         return f"split, {p.ctas} blocks per group"
-    at_once = _max_clusters(0, p.ctas, p.smem, bf16, bf16, p.vec)
     return (f"cluster {p.ctas} x {p.smem / 1024:g} KB, {-(-p.chunk // p.piece)} pieces, "
-            f"{at_once} clusters at once")
+            f"{at_once(p)} clusters at once")
+
+
+def backward(gen, sms: int) -> None:
+    """The backward's plan candidates at BACKWARD_SHAPES (see the module's
+    docstring)."""
+    def at_once(p):
+        return _max_bwd_clusters(0, p.ctas, p.smem, True, False, p.vec)
+
+    for shape in BACKWARD_SHAPES:
+        n, c = shape[:2]
+        x, dy = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                 for _ in range(2))
+        w = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        hw = x[0, 0].numel()
+        group_size = c // GROUPS * hw
+        vec = vector_aligned(x, torch.empty_like(x))
+        bound = 3 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3
+        chosen = _bwd_device_plan(0, group_size, hw, 2, vec, n * GROUPS, True, False)
+        candidates = {chosen: "wrapper's plan",
+                      backward_split_plan(group_size, hw, 2, vec, n * GROUPS, sm_count=sms):
+                      "split"}
+        for target in CHUNK_TARGETS:
+            for max_cluster in (PORTABLE_CLUSTER, WIDE_CLUSTER):
+                for pieces in PIECES:
+                    p = backward_plan(group_size, hw, 2, vec, n * GROUPS, max_cluster=max_cluster,
+                                      chunk_bytes=target, pieces=pieces, sm_count=sms)
+                    if p.single_pass and p.ctas > PORTABLE_CLUSTER and at_once(p) < 1:
+                        continue
+                    candidates.setdefault(p, f"target {target // 1024} KB")
+        print(f"backward {shape} bf16, f32 weights, G={GROUPS}: group "
+              f"{group_size * 2 / 1024:g} KB, bound {bound:.4f} ms (x and dy read, dx written)")
+        for p, label in candidates.items():
+            ms = time_ms(lambda: _launch_backward(dy, x, w, b, None, None, GROUPS, 1e-5, True, p))
+            print(f"  {describe(p, at_once):58s} {ms:.4f} ms ({bound / ms * 100:.1f}% of bound) "
+                  f"[{label}]")
 
 
 def main() -> None:
@@ -84,6 +134,10 @@ def main() -> None:
         es, vec = x.element_size(), vector_aligned(x, torch.empty_like(x))
         bound = 2 * x.numel() * es / HBM_BYTES_PER_S * 1e3
         bf16 = dtype == torch.bfloat16
+
+        def at_once(p, bf16=bf16):
+            return _max_clusters(0, p.ctas, p.smem, bf16, bf16, p.vec)
+
         chosen = _device_plan(0, group_size, es, vec, n * GROUPS, bf16, bf16)
         candidates = {chosen: "wrapper's plan",
                       split_plan(group_size, es, vec, n * GROUPS, sm_count=sms): "split"}
@@ -92,8 +146,7 @@ def main() -> None:
                 for pieces in PIECES:
                     p = plan(group_size, es, vec, n * GROUPS, max_cluster=max_cluster,
                              chunk_bytes=target, pieces=pieces, sm_count=sms)
-                    if p.single_pass and p.ctas > PORTABLE_CLUSTER \
-                            and _max_clusters(0, p.ctas, p.smem, bf16, bf16, vec) < 1:
+                    if p.single_pass and p.ctas > PORTABLE_CLUSTER and at_once(p) < 1:
                         continue
                     candidates.setdefault(p, f"target {target // 1024} KB")
         out = torch.empty_like(x)
@@ -103,8 +156,9 @@ def main() -> None:
               f"{copy:.4f} ms ({bound / copy * 100:.1f}% of bound)")
         for p, label in candidates.items():
             ms = time_ms(lambda: _launch(x, w, b, None, None, GROUPS, 1e-5, True, p))
-            print(f"  {describe(p, bf16):58s} {ms:.4f} ms ({bound / ms * 100:.1f}% of bound) "
+            print(f"  {describe(p, at_once):58s} {ms:.4f} ms ({bound / ms * 100:.1f}% of bound) "
                   f"[{label}]")
+    backward(torch.Generator("cuda").manual_seed(args.seed), sms)
     print(f"[{card}]")
 
 

@@ -29,8 +29,8 @@ images or None, the (B,) validity mask):
 Noise and t are drawn from a ``torch.Generator`` on the step's device, or
 given as tensors covering the padded batch. ``remat`` recomputes the model's
 forward in the backward (``torch.utils.checkpoint``), as ``jax.checkpoint``
-does. On CUDA the UNet's forward runs K1 and K2; their backwards are the
-autograd of their plain versions, as in JAX.
+does. On CUDA the UNet's forward runs K1 and K2; K1's backward is a kernel
+too, K2's the autograd of its plain version, as in JAX.
 
 Over P ranks (``mesh``, one rank per card under ``torchrun``) one step is
 one step of one process on the global batch, the ranks' batches

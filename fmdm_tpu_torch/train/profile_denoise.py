@@ -13,10 +13,10 @@ synthetic batches of ``--batch`` 256² slices once to warm up, then
 kernels' intervals on the device timeline) and idle share, and the device
 time per class:
 
-- a kernel launched inside K1's or K2's plain backward (the spans
-  ``k1.backward`` and ``k2.backward`` of ``utils/trace.py``: the plain
-  version's forward recomputed, then its autograd) counts as that kernel's
-  plain backward, and the kernels of each are listed by name;
+- a kernel launched inside K1's or K2's backward (the spans ``k1.backward``
+  and ``k2.backward`` of ``utils/trace.py``: K1's ``gn_bwd_*`` kernels; K2's
+  plain version's forward recomputed, then its autograd) counts as that
+  kernel's backward, and the kernels of each are listed by name;
 - every other kernel is classed by its name as ``sample/profile_sample.py``
   classes it, so K1's and K2's forward kernels stand apart.
 
@@ -42,13 +42,13 @@ from fmdm_tpu_torch.train.denoise_lib import build_denoise_trainer
 CONFIG = Path(__file__).resolve().parents[2] / "configs" / "LDCT" / "LDCT_ddpm_diffusers_nd.json"
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, NVIDIA data sheet
 
-# spans whose kernels make up a kernel's plain backward
-BACKWARD_NODES = (("K1 plain backward", "k1.backward"),
+# spans whose kernels make up a kernel's backward
+BACKWARD_NODES = (("K1 backward", "k1.backward"),
                   ("K2 plain backward", "k2.backward"))
 
 
 def backward_origin(event) -> Optional[str]:
-    """The plain backward an event runs under (from its CPU ancestors), if any."""
+    """The kernel's backward an event runs under (from its CPU ancestors), if any."""
     node = event
     while node is not None:
         for label, name in BACKWARD_NODES:
@@ -123,7 +123,7 @@ def main() -> None:
           f"{busy_ms / n:.3f} ms, idle {100 * (1 - busy_ms / window_ms):.1f}%; kernel times summed "
           f"{sum(by_name.values()) / n:.3f} ms, {sum(by_class.values()) / n:.3f} ms of them "
           f"traced to the op that launched them [{name}]")
-    print("device time by class (K1 and K2 plain backwards by the span they ran under):")
+    print("device time by class (K1's and K2's backwards by the span they ran under):")
     print_breakdown(by_class, {kernel: ms for (_, kernel), ms in by_kernel.items()}, n, "step")
     for label, _ in BACKWARD_NODES:
         kernels = sorted(((ms, k) for (lab, k), ms in by_kernel.items() if lab == label), reverse=True)

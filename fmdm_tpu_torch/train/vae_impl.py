@@ -57,7 +57,7 @@ checkpoints and from the JAX package's (the flattened pytrees by leaf
 position, its ``optax.adamw`` at a constant rate with 2n + 1 leaves).
 
 On CUDA the mid attention's forward runs K3 and its backward K4 and K5; K1's
-backward recomputes its plain version.
+forward and backward are kernels.
 
 Over P ranks (``mesh``, one rank per card under ``torchrun``) a step is one
 step of one process on the global batch, as JAX's global mesh makes it:
