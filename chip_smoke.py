@@ -1193,6 +1193,42 @@ def phase_k4_k5(torch, card: str, gen):
     return records
 
 
+# the attention shapes of the MMDiT cell (SD3.5 Medium at 1024²: 4096 image
+# tokens, joined by 333 text tokens in the joint attention; 24 heads x 64,
+# batch 2), bf16
+MMDIT_FLASH_SHAPES = ((2, 24, 4429, 64), (2, 24, 4096, 64))
+
+
+def phase_mmdit_flash(torch, card: str, seed: int) -> None:
+    """K3 and K4/K5 at the MMDiT's shapes against the plain versions, on
+    inputs of a generator of their own (the later phases' draws are left as
+    they were). Tolerance: bf16's of the other cases (one bf16 ulp of the
+    output, 2^-7 relative, plus 2e-3); lse f32's."""
+    from fmdm_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_reference, flash_backward, flash_backward_reference, flash_forward)
+
+    log("[9b] K3 and K4/K5 at the MMDiT cell's shapes, bf16, vs the plain versions")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    start = time.perf_counter()
+    for shape in MMDIT_FLASH_SHAPES:
+        q, k, v, dout = flash_inputs(torch, gen, shape, shape[2], "bfloat16")
+        scale = shape[-1] ** -0.5
+        out, lse = flash_forward(q, k, v, scale)
+        grads = flash_backward(q, k, v, out, lse, dout, scale)
+        torch.cuda.synchronize()
+        what = f"q {shape} bfloat16"
+        ref_out, ref_lse = flash_attention_reference(q, k, v, scale)
+        check_close(f"K3 {what} out", out, ref_out, *TOL["bfloat16"])
+        check_close(f"K3 {what} lse", lse, ref_lse, *TOL["float32"])
+        del ref_out, ref_lse
+        refs = flash_backward_reference(q, k, v, out, lse, dout, scale)
+        for name, got, ref in zip(("K5 dq", "K4 dk", "K4 dv"), grads, refs):
+            check_close(f"{name} {what}", got, ref, *TOL["bfloat16"])
+        del refs, grads
+        torch.cuda.empty_cache()
+    log(f"  {time.perf_counter() - start:.1f} s [{card}]")
+
+
 def random_weights(torch, model, gen) -> None:
     """Draw every parameter from ``gen``, in ``named_parameters`` order:
     U(±1/√fan_in) for conv and linear weights, 1±0.1 / ±0.1 for the affines
@@ -5321,6 +5357,7 @@ def main() -> int:
 
     k3 = phase_k3(torch, card, gen, torch.Generator().manual_seed(args.seed + 3), library_kernels)
     k4, k5 = phase_k4_k5(torch, card, gen)
+    phase_mmdit_flash(torch, card, args.seed)
     all_records = (K1, K2, K3, K4, K5)
     train_counts, vae_k1_calls = phase_vae(torch, card, args.seed, gen, all_records)
     vae_batch = int(json.loads(VAE_CONFIG.read_text())["training"]["batch_size"])

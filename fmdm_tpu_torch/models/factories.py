@@ -1,9 +1,12 @@
 """
 Model factories: the JSON config vocabulary -> model constructors
 (counterpart of ``fmdm_tpu/models/factories.py:69-236``).
-``DiffusionUNetFactory`` builds both UNets: ``EfficientUNetND`` (the
-``efficient_nd`` branch, the default ``unet_impl``) and ``UNetDiffusersND``;
-of ``VAEFactory`` the ``kl`` branch is ported (``vq`` raises).
+``DiffusionUNetFactory`` builds every denoiser: ``EfficientUNetND`` (the
+``efficient_nd`` branch, the default ``unet_impl``), ``UNetDiffusersND``
+and, for ``unet_impl`` "sd3_mmdit", Stable Diffusion 3's transformer
+``SD3Transformer2DModel`` (its block read with diffusers'
+``transformer/config.json`` keys); of ``VAEFactory`` the ``kl`` branch is
+ported (``vq`` raises).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from pathlib import Path
 from typing import Any, Dict, Optional
 
 from fmdm_tpu_torch.device import DeviceArg
+from fmdm_tpu_torch.models.mmdit import SD3Transformer2DModel
 from fmdm_tpu_torch.models.unet_diffusers import UNetDiffusersND
 from fmdm_tpu_torch.models.unet_efficient import EfficientUNetND
 from fmdm_tpu_torch.models.vae import VQVAE, AutoencoderKL
@@ -74,7 +78,29 @@ class DiffusionUNetFactory:
         cond_mode = (conditioning or "").lower()
         if impl in self._DIFFUSERS_IMPLS:
             return self._build_diffusers_nd(cfg, cond_mode, channels, device)
+        if impl == "sd3_mmdit":
+            return self._build_mmdit(cfg, device)
         return self._build_efficient_nd(cfg, cond_mode, channels, device)
+
+    @staticmethod
+    def _build_mmdit(cfg: _Cfg, device: DeviceArg):
+        """Stable Diffusion 3.5 Medium's defaults for absent keys; the text
+        conditioning is the model's own input, whatever the mode. Only
+        SD3.5's RMS-normed queries and keys are ported."""
+        qk_norm = cfg.get("qk_norm", "rms_norm")
+        if qk_norm != "rms_norm":
+            raise ValueError(f"qk_norm must be 'rms_norm', got {qk_norm!r}")
+        return SD3Transformer2DModel(
+            sample_size=cfg.int("sample_size", 128), patch_size=cfg.int("patch_size", 2),
+            in_channels=cfg.int("in_channels", 16), num_layers=cfg.int("num_layers", 24),
+            attention_head_dim=cfg.int("attention_head_dim", 64),
+            num_attention_heads=cfg.int("num_attention_heads", 24),
+            joint_attention_dim=cfg.int("joint_attention_dim", 4096),
+            caption_projection_dim=cfg.int("caption_projection_dim", 1536),
+            pooled_projection_dim=cfg.int("pooled_projection_dim", 2048),
+            out_channels=cfg.get("out_channels"),
+            pos_embed_max_size=cfg.int("pos_embed_max_size", 384),
+            dual_attention_layers=tuple(cfg.get("dual_attention_layers", ())), device=device)
 
     def _build_efficient_nd(self, cfg: _Cfg, cond_mode: str, channels: Optional[int],
                             device: DeviceArg):

@@ -41,6 +41,7 @@ from typing import Optional, Tuple
 import torch
 
 from fmdm_tpu_torch.ops.kernels import build
+from fmdm_tpu_torch.utils import trace
 
 _CSRC = "fmdm_tpu_torch/csrc/"
 K3 = build.KernelRecord(name="K3 flash_forward", source=_CSRC + "flash_attention.cu",
@@ -204,7 +205,7 @@ def flash_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor, do
 
 class _FlashAttention(torch.autograd.Function):
     """K3 forward saving (q, k, v, out, lse), never the scores; K4 and K5
-    backward."""
+    backward, under the span ``flash.backward``."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
@@ -216,7 +217,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        return flash_backward(q, k, v, out, lse, dout.contiguous(), ctx.scale) + (None,)
+        with trace.span("flash.backward"):
+            return flash_backward(q, k, v, out, lse, dout.contiguous(), ctx.scale) + (None,)
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, scale: Optional[float] = None) -> Tensor:

@@ -8,7 +8,9 @@ scheduler math stay in f32. ``start_step``/``last_n_steps`` filtering happens
 host-side on the timestep array. A stochastic scheduler (``needs_noise``)
 draws each step's noise from a generator on the engine's device, where JAX
 splits one key per step, or takes it from the caller (``step_noise``), so a
-run can replay another run's draws. A sigma-space scheduler (DPM-SDE) scales
+run can replay another run's draws. Under the "text" conditioning mode the
+conditioning batch is a pair (tokens, pooled vector), handed to every model
+call as ``context_ca`` (Stable Diffusion 3's transformer). A sigma-space scheduler (DPM-SDE) scales
 each model input and the initial noise at the position of the sliced
 schedule (``scale_model_input``, ``init_noise_scale``).
 
@@ -56,6 +58,16 @@ from fmdm_tpu_torch.ops import attention as attention_ops
 from fmdm_tpu_torch.parallel.mesh import DataMesh, Mesh2D, replicate
 from fmdm_tpu_torch.schedulers.base import Scheduler
 from fmdm_tpu_torch.utils.trace import span
+
+
+def map_conditioning(fn, condition):
+    """``fn`` over a conditioning: None, a tensor, or a tuple of tensors (a
+    text conditioning: tokens and pooled vector), each mapped."""
+    if condition is None:
+        return None
+    if isinstance(condition, tuple):
+        return tuple(fn(c) for c in condition)
+    return fn(condition)
 
 
 def align_conditioning(condition: Optional[torch.Tensor], target_batch: int) -> Optional[torch.Tensor]:
@@ -238,7 +250,7 @@ class SamplingEngine:
                 ctx = None
                 if cond_parts is not None and self.conditioning_mode == "concatenate":
                     x = torch.cat([x, cond_parts[s]], dim=1)
-                elif cond_parts is not None and self.conditioning_mode == "attention":
+                elif cond_parts is not None and self.conditioning_mode in ("attention", "text"):
                     ctx = cond_parts[s]
                 t_s = t_parts[s].to(device, non_blocking=True)
                 if refresh is None:
@@ -288,13 +300,13 @@ class SamplingEngine:
         else:
             current = torch.randn(sample_shape, generator=generator, device=device,
                                   dtype=torch.float32) * scheduler.init_noise_scale(self.timesteps)
-        cond = None
-        if conditioning_batch is not None:
-            cond = align_conditioning(conditioning_batch.to(device), current.shape[0])
+        cond = map_conditioning(lambda c: align_conditioning(c.to(device), current.shape[0]),
+                                conditioning_batch)
+        if cond is not None:
             if self.conditioning_mode == "attention":
                 cond = prepare_attention_context(normalize_latent_conditioning(cond, self.latent_norm))
             if self.compute_dtype is not None:
-                cond = cond.to(self.compute_dtype)
+                cond = map_conditioning(lambda c: c.to(self.compute_dtype), cond)
         step_gen = None
         if step_noise is not None:
             if not scheduler.needs_noise or len(step_noise) != len(self.timesteps):
@@ -313,7 +325,9 @@ class SamplingEngine:
             refresh = deep_cache_refresh_mask(len(self.timesteps), interval, schedule)
         cond_parts = None
         if cond is not None:
-            cond_parts = [c.to(d) for c, d in zip(cond.tensor_split(len(replicas)), self.devices)]
+            n = len(replicas)
+            cond_parts = [map_conditioning(lambda c: c.tensor_split(n)[s].to(d), cond)
+                          for s, d in enumerate(self.devices)]
         caches = [None] * len(replicas)
         if device.type == "cuda":
             build.library()  # first-call kernel build stays outside the timed window

@@ -13,9 +13,12 @@ images or None, the (B,) validity mask):
   ``chunk = ceil(B / grad_accum)`` rows; the last is padded with zero rows
   of valid 0;
 - per chunk, diffusion draws t ~ U{0..N-1}, noises x0 with the scheduler's
-  ``add_noise`` and regresses the noise; flow matching draws t ~ U(0, 1),
-  takes x_t = (1 - t) x0 + t eps, regresses eps - x0 and gives the model
-  (t (N - 1)) truncated to int32;
+  ``add_noise`` and regresses the noise; flow matching draws t ~ U(0, 1)
+  (``t_sampling`` "uniform") or sigmoid(N(0, 1)) (``t_sampling``
+  "logit_normal", Esser et al.'s rf/lognorm(0.00, 1.00)), takes
+  x_t = (1 - t) x0 + t eps, regresses eps - x0 and gives the model
+  (t (N - 1)) truncated to int32 (``timestep_input`` "discrete") or the
+  continuous t N (``timestep_input`` "continuous", as Stable Diffusion 3);
 - the loss is the per-sample mean of squares of the f32 prediction's error,
   summed over the valid rows (``loss_sum``) and divided by max(count, 1);
   with one chunk its gradient is applied as it is, with several each
@@ -26,8 +29,13 @@ images or None, the (B,) validity mask):
   ``optax.adamw``'s update; then the EMA shadow weights, if any, follow
   ``e += (1 - decay) (p - e)``.
 
-Noise and t are drawn from a ``torch.Generator`` on the step's device, or
-given as tensors covering the padded batch. ``remat`` recomputes the model's
+The conditioning is the batch's ``image`` (``conditioning_mode``
+"concatenate": stacked on the model's input channels; "attention": the
+cross-attention context), or its ``text``, a pair (tokens (B, S, D),
+pooled (B, P)) handed to the model as ``context_ca`` ("text": Stable
+Diffusion 3's transformer). Noise and t are drawn from a
+``torch.Generator`` on the step's device, or given as tensors covering the
+padded batch. ``remat`` recomputes the model's
 forward in the backward (``torch.utils.checkpoint``), as ``jax.checkpoint``
 does. On CUDA the UNet's forward runs K1 and K2; K1's backward is a kernel
 too, K2's the autograd of its plain version, as in JAX.
@@ -37,7 +45,8 @@ one step of one process on the global batch, the ranks' batches
 concatenated in rank order, as JAX's global mesh makes it: the valid count
 is summed over the ranks first, each rank backpropagates its chunks' loss
 sums divided by the global count, and the gradients are summed over the
-ranks (one all-reduce per dtype of a flat buffer), so unequal valid counts
+ranks (one all-reduce per dtype of a flat buffer, the span
+``train.allreduce``), so unequal valid counts
 (a ragged last batch) weigh each sample once. Each rank draws the global
 chunk's noise and t from its generator, seeded alike on every rank, and
 keeps its own rows; ``(loss_sum, count)`` are the global ones on every
@@ -74,12 +83,15 @@ from torch.utils.checkpoint import checkpoint
 
 from fmdm_tpu_torch.device import DeviceArg, resolve_device
 from fmdm_tpu_torch.parallel import mesh as mesh_lib
-from fmdm_tpu_torch.sample.engine import normalize_latent_conditioning, prepare_attention_context
+from fmdm_tpu_torch.sample.engine import (map_conditioning, normalize_latent_conditioning,
+                                          prepare_attention_context)
 from fmdm_tpu_torch.schedulers.base import Scheduler
 from fmdm_tpu_torch.utils import config as config_utils
 from fmdm_tpu_torch.utils import trace
 
 VARIANTS = ("diffusion", "flow_matching")
+T_SAMPLINGS = ("uniform", "logit_normal")
+TIMESTEP_INPUTS = ("discrete", "continuous")
 
 
 def cosine_warmup_schedule(base_lr: float, num_warmup_steps: int,
@@ -270,9 +282,16 @@ class DenoiseTrainStep:
                  conditioning_mode: Optional[str], latent_norm: Optional[str],
                  grad_accum: int = 1, compute_dtype: torch.dtype = torch.float32,
                  remat: bool = False, ema_decay: float = 0.0, device: DeviceArg = None,
-                 mesh: Optional["mesh_lib.DataMesh"] = None):
+                 mesh: Optional["mesh_lib.DataMesh"] = None, t_sampling: str = "uniform",
+                 timestep_input: str = "discrete"):
         if variant not in VARIANTS:
             raise ValueError(f"variant must be one of {VARIANTS}; got '{variant}'")
+        if t_sampling not in T_SAMPLINGS or timestep_input not in TIMESTEP_INPUTS:
+            raise ValueError(f"t_sampling must be one of {T_SAMPLINGS} and timestep_input one of "
+                             f"{TIMESTEP_INPUTS}; got '{t_sampling}', '{timestep_input}'")
+        if variant == "diffusion" and (t_sampling, timestep_input) != ("uniform", "discrete"):
+            raise ValueError("diffusion draws integer timesteps: t_sampling and timestep_input "
+                             "apply to flow matching only")
         decay = float(ema_decay or 0.0)
         if decay and not 0.0 < decay < 1.0:
             raise ValueError(f"ema_decay must be in (0, 1), got {decay}")
@@ -285,6 +304,8 @@ class DenoiseTrainStep:
         self.optimizer = optimizer
         self.lr_schedule = lr_schedule
         self.variant = variant
+        self.t_sampling = t_sampling
+        self.timestep_input = timestep_input
         self.conditioning_mode = conditioning_mode
         self.latent_norm = latent_norm
         self.grad_accum = max(1, int(grad_accum))
@@ -303,6 +324,9 @@ class DenoiseTrainStep:
         if self.variant == "diffusion":
             return torch.randint(0, self.scheduler.num_train_timesteps, (rows,),
                                  generator=generator, device=self.device, dtype=torch.int32)
+        if self.t_sampling == "logit_normal":
+            return torch.sigmoid(torch.randn((rows,), generator=generator, device=self.device,
+                                             dtype=torch.float32))
         return torch.rand((rows,), generator=generator, device=self.device, dtype=torch.float32)
 
     def _model(self, x: torch.Tensor, t: torch.Tensor, ctx: Optional[torch.Tensor]) -> torch.Tensor:
@@ -321,7 +345,8 @@ class DenoiseTrainStep:
             tb = t.reshape((-1,) + (1,) * (x0.dim() - 1))
             noisy = (1.0 - tb) * x0 + tb * noise
             target = noise - x0
-            model_t = (t * (n_train - 1)).to(torch.int32)
+            model_t = (t * n_train if self.timestep_input == "continuous"
+                       else (t * (n_train - 1)).to(torch.int32))
 
         model_input = noisy.to(self.compute_dtype)
         ctx = None
@@ -330,6 +355,8 @@ class DenoiseTrainStep:
         elif self.conditioning_mode == "attention" and cond is not None:
             ctx = prepare_attention_context(normalize_latent_conditioning(cond, self.latent_norm))
             ctx = ctx.to(self.compute_dtype)
+        elif self.conditioning_mode == "text":
+            ctx = map_conditioning(lambda c: c.to(self.compute_dtype), cond)
 
         pred = self._model(model_input, model_t, ctx).float()
         per_sample = torch.square(pred - target).mean(dim=tuple(range(1, x0.dim())))
@@ -347,7 +374,8 @@ class DenoiseTrainStep:
         with trace.span("train.step"):
             loss_sum, count = self._accumulate(batch, noise, t, generator)
             if self.mesh is not None and self.reduce_grads:
-                mesh_lib.all_reduce_grads(list(self.model.parameters()), self.mesh)
+                with trace.span("train.allreduce"):
+                    mesh_lib.all_reduce_grads(list(self.model.parameters()), self.mesh)
             with trace.span("train.optimizer"):
                 for group in self.optimizer.param_groups:
                     group["lr"] = self.lr_schedule(self.global_step)
@@ -381,13 +409,14 @@ class DenoiseTrainStep:
         gradient; returns (loss_sum, count)."""
         dev = self.device
         x0 = batch["target"].to(dev, torch.float32)
-        cond = batch.get("image")
-        cond = None if cond is None else cond.to(dev, torch.float32)
+        cond = batch.get("text" if self.conditioning_mode == "text" else "image")
+        cond = map_conditioning(lambda c: c.to(dev, torch.float32), cond)
         valid = batch["valid"].to(dev, torch.float32)
         chunk = max(1, math.ceil(x0.shape[0] / self.grad_accum))
         n_chunks = math.ceil(x0.shape[0] / chunk)
         rows = n_chunks * chunk
-        x0, cond, valid = (_pad_rows(a, rows) for a in (x0, cond, valid))
+        x0, valid = (_pad_rows(a, rows) for a in (x0, valid))
+        cond = map_conditioning(lambda c: _pad_rows(c, rows), cond)
         if noise is not None and tuple(noise.shape) != tuple(x0.shape):
             raise ValueError(f"noise is {tuple(noise.shape)}; the padded batch is {tuple(x0.shape)}")
         if t is not None and tuple(t.shape) != (rows,):
@@ -406,7 +435,7 @@ class DenoiseTrainStep:
             tt = t[sl].to(dev) if t is not None else self._draw_t(chunk, generator)
             with trace.span("train.forward"):
                 loss, chunk_sum, chunk_count = self.chunk_loss(
-                    x0[sl], None if cond is None else cond[sl], valid[sl], nz, tt)
+                    x0[sl], map_conditioning(lambda c: c[sl], cond), valid[sl], nz, tt)
             # one chunk: the masked mean's gradient as it is; several: each
             # weighted by its count, the sum divided by the total below
             with trace.span("train.backward"):
@@ -438,7 +467,7 @@ class DenoiseTrainStep:
                 self._draw_t(global_rows[0], generator), mesh)
             with trace.span("train.forward"):
                 _, chunk_sum, _ = self.chunk_loss(
-                    x0[sl], None if cond is None else cond[sl], valid[sl], nz, tt)
+                    x0[sl], map_conditioning(lambda c: c[sl], cond), valid[sl], nz, tt)
             with trace.span("train.backward"):
                 (chunk_sum / divisor).backward()
             loss_sum = loss_sum + chunk_sum.detach()
@@ -458,7 +487,8 @@ def make_denoise_train_step(model: nn.Module, scheduler: Scheduler,
                             latent_norm: Optional[str], grad_accum: int = 1,
                             compute_dtype: torch.dtype = torch.float32, mesh=None,
                             remat: bool = False, ema_decay: float = 0.0,
-                            device: DeviceArg = None) -> DenoiseTrainStep:
+                            device: DeviceArg = None, t_sampling: str = "uniform",
+                            timestep_input: str = "discrete") -> DenoiseTrainStep:
     """The train step of ``model`` (its parameters on ``device``, CUDA by
     default) with ``optimizer`` at ``lr_schedule``'s rate, over the ranks of
     ``mesh`` when it spans them; see :class:`DenoiseTrainStep`."""
@@ -466,7 +496,8 @@ def make_denoise_train_step(model: nn.Module, scheduler: Scheduler,
     return DenoiseTrainStep(model, scheduler, optimizer, lr_schedule, variant=variant,
                             conditioning_mode=conditioning_mode, latent_norm=latent_norm,
                             grad_accum=grad_accum, compute_dtype=compute_dtype, remat=remat,
-                            ema_decay=ema_decay, device=device, mesh=mesh)
+                            ema_decay=ema_decay, device=device, mesh=mesh,
+                            t_sampling=t_sampling, timestep_input=timestep_input)
 
 
 def check_train_mesh(mesh) -> None:

@@ -152,7 +152,9 @@ def build_denoise_trainer(cfg: Dict[str, Any], *, variant: str, num_samples: int
         conditioning_mode=conditioning_mode, latent_norm=training_cfg.get("latent_norm"),
         grad_accum=max(1, int(training_cfg.get("gradient_accumulation_steps", 1))),
         compute_dtype=compute_dtype, remat=bool(training_cfg.get("remat", False)),
-        ema_decay=float(training_cfg.get("ema_decay", 0.0) or 0.0), device=device, mesh=mesh)
+        ema_decay=float(training_cfg.get("ema_decay", 0.0) or 0.0), device=device, mesh=mesh,
+        t_sampling=training_cfg.get("t_sampling", "uniform"),
+        timestep_input=training_cfg.get("timestep_input", "discrete"))
     return model, scheduler, step
 
 
